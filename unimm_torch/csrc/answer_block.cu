@@ -12,7 +12,7 @@
 //   y = LN(fp32(ctx Wo^T) + bo + x) * gamma + beta            (eps 1e-12)
 //
 // with the TPU kernel's rounding points. Three launches:
-//   1. qkv_proj_kernel    row Q/K/V projection, 128x128 tiles
+//   1. gemm_nt_kernel     row Q/K/V projection (common.cuh), 128x128 tiles
 //   2. rows_attn_kernel   one CTA per (32-row query tile, head, slate):
 //                         full fp32 score rows in shared memory, an exact
 //                         two-pass softmax, then P.V
@@ -27,101 +27,25 @@
 
 namespace {
 
-// ---- launch 1: row Q/K/V projection --------------------------------------
-constexpr int PJ_BM = 128, PJ_BN = 128, PJ_BK = 32, PJ_LD = PJ_BK + 8;
-constexpr int PJ_THREADS = 256;
-
-struct QKVParams {
-  const bf16* w[3];
+// ---- launch 1: row Q/K/V projection (gemm_nt_kernel, grid z = q/k/v) --
+struct QkvEpi {  // y = bf16(acc + b); q additionally bf16(fp32(y) * scale)
   const bf16* b[3];
   bf16* y[3];
   float scale[3];
-};
-
-__global__ void __launch_bounds__(PJ_THREADS)
-    qkv_proj_kernel(const bf16* __restrict__ x, int M, QKVParams p) {
-  __shared__ __align__(128) bf16 sA[2][PJ_BM * PJ_LD];
-  __shared__ __align__(128) bf16 sB[2][PJ_BN * PJ_LD];
-  const int z = blockIdx.z;
-  const bf16* __restrict__ w = p.w[z];
-  const bf16* __restrict__ bias = p.b[z];
-  bf16* __restrict__ y = p.y[z];
-  const float scale = p.scale[z];
-  const int n0 = blockIdx.x * PJ_BN;
-  const long m0 = (long)blockIdx.y * PJ_BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps, 32 x 64 each
-  const int valid = rows_left(m0, M, PJ_BM);
-
-  FragC acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  auto stage = [&](int st, int k0) {
-    stage_tile(sA[st], PJ_LD, x + m0 * HID + k0, HID, PJ_BM, PJ_BK, valid,
-               tid, PJ_THREADS);
-    stage_tile(sB[st], PJ_LD, w + (long)n0 * HID + k0, HID, PJ_BN, PJ_BK,
-               PJ_BN, tid, PJ_THREADS);
-  };
-  constexpr int NK = HID / PJ_BK;
-  stage(0, 0);
-  cp_commit();
-  for (int kt = 0; kt < NK; ++kt) {
-    if (kt + 1 < NK) stage((kt + 1) & 1, (kt + 1) * PJ_BK);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const bf16* a = sA[kt & 1];
-    const bf16* b = sB[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < PJ_BK; kk += 16) {
-      FragA fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a + (wm * 32 + i * 16) * PJ_LD + kk,
-                               PJ_LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        FragBt fb;
-        wmma::load_matrix_sync(fb, b + (wn * 64 + j * 16) * PJ_LD + kk,
-                               PJ_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-      }
+  __device__ __forceinline__ void operator()(int z, long row, int col,
+                                             float v0, float v1) const {
+    bf16 o0 = __float2bfloat16(v0 + __bfloat162float(b[z][col]));
+    bf16 o1 = __float2bfloat16(v1 + __bfloat162float(b[z][col + 1]));
+    if (scale[z] != 1.0f) {
+      o0 = __float2bfloat16(__bfloat162float(o0) * scale[z]);
+      o1 = __float2bfloat16(__bfloat162float(o1) * scale[z]);
     }
-    __syncthreads();
+    __nv_bfloat162 o;
+    o.x = o0;
+    o.y = o1;
+    *reinterpret_cast<__nv_bfloat162*>(y[z] + row * HID + col) = o;
   }
-
-  // epilogue through a per-warp 16x16 fp32 scratch (reuses sA)
-  float* e = reinterpret_cast<float*>(sA[0]) + warp * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(e, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const long m = m0 + wm * 32 + i * 16 + r;
-      const int n = n0 + wn * 64 + j * 16 + c0;
-      if (m < M) {
-        __align__(16) bf16 o[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          bf16 v = __float2bfloat16(e[r * 16 + c0 + t] +
-                                    __bfloat162float(bias[n + t]));
-          if (scale != 1.0f)
-            v = __float2bfloat16(__bfloat162float(v) * scale);
-          o[t] = v;
-        }
-        *reinterpret_cast<uint4*>(y + m * HID + n) =
-            *reinterpret_cast<const uint4*>(o);
-      }
-      __syncwarp();
-    }
-}
+};
 
 // ---- launch 2: attention over (cached context ++ row block) keys ---------
 constexpr int AT_QT = 32, AT_KC = 64, AT_D = 64, AT_LD = AT_D + 8;
@@ -333,23 +257,16 @@ extern "C" int unimm_answer_block(
     int Lcb, int RB, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = G * P;
-  QKVParams p;
-  p.w[0] = static_cast<const bf16*>(wq);
-  p.w[1] = static_cast<const bf16*>(wk);
-  p.w[2] = static_cast<const bf16*>(wv);
-  p.b[0] = static_cast<const bf16*>(bq);
-  p.b[1] = static_cast<const bf16*>(bk);
-  p.b[2] = static_cast<const bf16*>(bv);
-  p.y[0] = static_cast<bf16*>(q_buf);
-  p.y[1] = static_cast<bf16*>(k_buf);
-  p.y[2] = static_cast<bf16*>(v_buf);
-  p.scale[0] = 0.125f;  // 1 / sqrt(head_dim 64)
-  p.scale[1] = 1.0f;
-  p.scale[2] = 1.0f;
-  dim3 g1(HID / PJ_BN, (M + PJ_BM - 1) / PJ_BM, 3);
-  qkv_proj_kernel<<<g1, PJ_THREADS, 0, st>>>(static_cast<const bf16*>(x), M,
-                                             p);
-  cudaError_t err = cudaGetLastError();
+  GemmArgs g{static_cast<const bf16*>(x),
+             {static_cast<const bf16*>(wq), static_cast<const bf16*>(wk),
+              static_cast<const bf16*>(wv)},
+             M, HID, HID};
+  QkvEpi e{{static_cast<const bf16*>(bq), static_cast<const bf16*>(bk),
+            static_cast<const bf16*>(bv)},
+           {static_cast<bf16*>(q_buf), static_cast<bf16*>(k_buf),
+            static_cast<bf16*>(v_buf)},
+           {0.125f, 1.0f, 1.0f}};  // q scale: 1 / sqrt(head_dim 64)
+  cudaError_t err = launch_gemm_nt(g, 3, e, st);
   if (err != cudaSuccess) return err;
 
   const size_t at_smem = at_smem_bytes(Lcb + RB);

@@ -1,4 +1,4 @@
-// Fused BERT FFN block: y = LN(x + W2 act(W1 x + b1) + b2) * gamma + beta.
+// BERT FFN block: y = LN(x + W2 act(W1 x + b1) + b2) * gamma + beta.
 //
 // Replaces the TPU kernel unimm_tpu/ops/pallas_attention_v2.py:
 // fused_ffn_block (body _ffn_kernel) with its rounding points:
@@ -7,34 +7,20 @@
 // act: 0 = gelu (tanh form, as the bf16 path computes it), 1 = relu,
 // 2 = swish.
 //
-// One CTA of 8 warps per 32-row tile. The x tile stays in shared memory;
-// the 3072-wide intermediate is walked in 128-column chunks whose activation
-// lives only in shared memory, and the [32, 768] output accumulates in
-// registers, so, as on the TPU, the intermediate never reaches device
-// memory. What bounds it on an H100: 4.7 MFLOP per row against 3 KB of row
-// traffic, so the tensor-core rate; each CTA also streams both weight
-// matrices (9.4 MB) from L2.
+// Three launches: the first product with the bias + activation epilogue
+// (gemm_nt_kernel, common.cuh), the second with the bias + residual
+// epilogue into fp32, and a one-warp-per-row LayerNorm. What bounds it on an
+// H100: 4.7 MFLOP per row against 3 KB of row traffic, so the tensor-core
+// rate. Unlike the TPU kernel, the [rows, 3072] activation (bf16) and the
+// [rows, 768] pre-LayerNorm sum (fp32) pass through device memory (about
+// 7.7 KB a row each way, ~0.2 ms at 51200 rows): a fused row tile keeping
+// them on chip has to be ~32 rows for its [rows, 768] fp32 accumulator to
+// fit in registers, and then streams both weight matrices (9.4 MB) from L2
+// for every 32 rows.
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int FF_CH = 128;            // intermediate columns per chunk
-constexpr int FF_LDX = HID + 8;       // x tile pitch
-constexpr int FF_LDA = FF_CH + 8;     // activation chunk pitch
-constexpr int FF_LDH = FF_CH + 4;     // fp32 pre-activation pitch
-constexpr int FF_BK1 = 32;            // k step of the first product
-constexpr int FF_LDW1 = FF_BK1 + 8;
-
-struct FfnSmem {
-  static constexpr size_t x = (size_t)RT_ROWS * FF_LDX * 2;
-  static constexpr size_t act = (size_t)RT_ROWS * FF_LDA * 2;
-  static constexpr size_t w1 = (size_t)2 * FF_CH * FF_LDW1 * 2;
-  static constexpr size_t h = (size_t)RT_ROWS * FF_LDH * 4;
-  static constexpr size_t w2 = (size_t)2 * HID * RT_LDW * 2;
-  static constexpr size_t c = (size_t)RT_ROWS * RT_LDC * 4;
-  static constexpr size_t total = x + act + w1 + h + (w2 > c ? w2 : c);
-};
 
 __device__ __forceinline__ float activation(float v, int act) {
   if (act == 0)
@@ -44,117 +30,96 @@ __device__ __forceinline__ float activation(float v, int act) {
   return v / (1.0f + expf(-v));
 }
 
-__global__ void __launch_bounds__(RT_THREADS)
-    ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-               const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-               const bf16* __restrict__ b2, const bf16* __restrict__ gamma,
-               const bf16* __restrict__ beta, bf16* __restrict__ out, int M,
-               int inter, int act, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sX = reinterpret_cast<bf16*>(smem);
-  bf16* sAct = reinterpret_cast<bf16*>(smem + FfnSmem::x);
-  bf16* sW1 = reinterpret_cast<bf16*>(smem + FfnSmem::x + FfnSmem::act);
-  float* sH = reinterpret_cast<float*>(smem + FfnSmem::x + FfnSmem::act +
-                                       FfnSmem::w1);
-  unsigned char* region =
-      smem + FfnSmem::x + FfnSmem::act + FfnSmem::w1 + FfnSmem::h;
-  bf16* sW2 = reinterpret_cast<bf16*>(region);
-  float* sC = reinterpret_cast<float*>(region);  // epilogue, aliases sW2
-
-  const long m0 = (long)blockIdx.x * RT_ROWS;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int valid = rows_left(m0, M, RT_ROWS);
-
-  stage_tile(sX, FF_LDX, x + m0 * HID, HID, RT_ROWS, HID, valid, tid,
-             RT_THREADS);
-  cp_commit();
-
-  RowTileAcc acc;
-  acc.zero();
-  const int nchunks = inter / FF_CH;
-  for (int j = 0; j < nchunks; ++j) {
-    const bf16* w1c = w1 + (long)j * FF_CH * HID;
-    // h = x W1[chunk]^T ; warp w computes chunk columns [16 w, 16 w + 16)
-    FragC h0, h1;
-    wmma::fill_fragment(h0, 0.0f);
-    wmma::fill_fragment(h1, 0.0f);
-    constexpr int NK1 = HID / FF_BK1;
-    stage_tile(sW1, FF_LDW1, w1c, HID, FF_CH, FF_BK1, FF_CH, tid,
-               RT_THREADS);
-    cp_commit();
-    for (int kt = 0; kt < NK1; ++kt) {
-      if (kt + 1 < NK1)
-        stage_tile(sW1 + ((kt + 1) & 1) * FF_CH * FF_LDW1, FF_LDW1,
-                   w1c + (kt + 1) * FF_BK1, HID, FF_CH, FF_BK1, FF_CH, tid,
-                   RT_THREADS);
-      cp_commit();
-      cp_wait<1>();
-      __syncthreads();
-      const bf16* wb = sW1 + (kt & 1) * FF_CH * FF_LDW1;
-#pragma unroll
-      for (int kk = 0; kk < FF_BK1; kk += 16) {
-        FragA a0, a1;
-        FragBt fb;
-        wmma::load_matrix_sync(a0, sX + kt * FF_BK1 + kk, FF_LDX);
-        wmma::load_matrix_sync(a1, sX + 16 * FF_LDX + kt * FF_BK1 + kk,
-                               FF_LDX);
-        wmma::load_matrix_sync(fb, wb + (warp * 16) * FF_LDW1 + kk, FF_LDW1);
-        wmma::mma_sync(h0, a0, fb, h0);
-        wmma::mma_sync(h1, a1, fb, h1);
-      }
-      __syncthreads();
-    }
-    wmma::store_matrix_sync(sH + warp * 16, h0, FF_LDH, wmma::mem_row_major);
-    wmma::store_matrix_sync(sH + 16 * FF_LDH + warp * 16, h1, FF_LDH,
-                            wmma::mem_row_major);
-    // the first W2 slice of this chunk loads while the activation runs
-    const bf16* w2c = w2 + (long)j * FF_CH;
-    stage_tile(sW2, RT_LDW, w2c, inter, HID, RT_BK, HID, tid, RT_THREADS);
-    cp_commit();
-    __syncthreads();
-    for (int i = tid; i < RT_ROWS * FF_CH; i += RT_THREADS) {
-      const int r = i / FF_CH, c = i % FF_CH;
-      const bf16 hb = __float2bfloat16(
-          sH[r * FF_LDH + c] + __bfloat162float(b1[j * FF_CH + c]));
-      sAct[r * FF_LDA + c] =
-          __float2bfloat16(activation(__bfloat162float(hb), act));
-    }
-    // acc += act W2[:, chunk]^T in k steps of RT_BK
-    constexpr int NK2 = FF_CH / RT_BK;
-    for (int kt = 0; kt < NK2; ++kt) {
-      if (kt + 1 < NK2)
-        stage_tile(sW2 + ((kt + 1) & 1) * HID * RT_LDW, RT_LDW,
-                   w2c + (kt + 1) * RT_BK, inter, HID, RT_BK, HID, tid,
-                   RT_THREADS);
-      cp_commit();
-      cp_wait<1>();
-      __syncthreads();
-      acc.mma(sAct + kt * RT_BK, FF_LDA, sW2 + (kt & 1) * HID * RT_LDW, warp);
-      __syncthreads();
-    }
+struct ActEpi {  // a = bf16(act(bf16(acc + b1)))
+  const bf16* b1;
+  bf16* a;
+  int N, act;
+  __device__ __forceinline__ void operator()(int, long row, int col, float v0,
+                                             float v1) const {
+    const bf16 h0 = __float2bfloat16(v0 + __bfloat162float(b1[col]));
+    const bf16 h1 = __float2bfloat16(v1 + __bfloat162float(b1[col + 1]));
+    __nv_bfloat162 o;
+    o.x = __float2bfloat16(activation(__bfloat162float(h0), act));
+    o.y = __float2bfloat16(activation(__bfloat162float(h1), act));
+    *reinterpret_cast<__nv_bfloat162*>(a + row * N + col) = o;
   }
-  acc.store(sC, warp);
-  __syncthreads();
-  ln_epilogue(sC, b2, sX, FF_LDX, nullptr, gamma, beta, eps, out, m0, valid,
-              warp, lane);
+};
+
+struct ResidualEpi {  // pre = (acc + b2) + x, fp32
+  const bf16* b2;
+  const bf16* x;
+  float* pre;
+  __device__ __forceinline__ void operator()(int, long row, int col, float v0,
+                                             float v1) const {
+    const long i = row * HID + col;
+    float2 o;
+    o.x = (v0 + __bfloat162float(b2[col])) + __bfloat162float(x[i]);
+    o.y = (v1 + __bfloat162float(b2[col + 1])) + __bfloat162float(x[i + 1]);
+    *reinterpret_cast<float2*>(pre + i) = o;
+  }
+};
+
+constexpr int LN_WARPS = 8;
+
+// y = (h - mean) * rsqrt(var + eps) * gamma + beta, one warp per row
+__global__ void __launch_bounds__(LN_WARPS * 32)
+    ln_rows_kernel(const float* __restrict__ pre,
+                   const bf16* __restrict__ gamma,
+                   const bf16* __restrict__ beta, float eps,
+                   bf16* __restrict__ out, int M) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * LN_WARPS + warp;
+  if (row >= M) return;
+  constexpr int PER = HID / 32;
+  const float* h = pre + row * HID;
+  float v[PER];
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    v[j] = h[lane + 32 * j];
+    s += v[j];
+  }
+  const float mean = warp_sum(s) / HID;
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const float d = v[j] - mean;
+    q += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(q) / HID + eps);
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int c = lane + 32 * j;
+    out[row * HID + c] = __float2bfloat16(
+        (v[j] - mean) * rstd * __bfloat162float(gamma[c]) +
+        __bfloat162float(beta[c]));
+  }
 }
 
 }  // namespace
 
 extern "C" int unimm_ffn_block(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2,
-                               const void* gamma, const void* beta, void* out,
-                               int M, int inter, int act, float eps,
-                               void* stream) {
+                               const void* gamma, const void* beta,
+                               void* act_buf, void* pre_buf, void* out, int M,
+                               int inter, int act, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaFuncSetAttribute(ffn_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)FfnSmem::total);
-  ffn_kernel<<<(M + RT_ROWS - 1) / RT_ROWS, RT_THREADS, FfnSmem::total, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), static_cast<const bf16*>(gamma),
-      static_cast<const bf16*>(beta), static_cast<bf16*>(out), M, inter, act,
-      eps);
+  GemmArgs g1{static_cast<const bf16*>(x),
+              {static_cast<const bf16*>(w1), nullptr, nullptr}, M, inter,
+              HID};
+  ActEpi e1{static_cast<const bf16*>(b1), static_cast<bf16*>(act_buf), inter,
+            act};
+  cudaError_t err = launch_gemm_nt(g1, 1, e1, st);
+  if (err != cudaSuccess) return err;
+  GemmArgs g2{static_cast<const bf16*>(act_buf),
+              {static_cast<const bf16*>(w2), nullptr, nullptr}, M, HID,
+              inter};
+  ResidualEpi e2{static_cast<const bf16*>(b2), static_cast<const bf16*>(x),
+                 static_cast<float*>(pre_buf)};
+  err = launch_gemm_nt(g2, 1, e2, st);
+  if (err != cudaSuccess) return err;
+  ln_rows_kernel<<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
+      static_cast<const float*>(pre_buf), static_cast<const bf16*>(gamma),
+      static_cast<const bf16*>(beta), eps, static_cast<bf16*>(out), M);
   return cudaGetLastError();
 }

@@ -178,10 +178,14 @@ def cast_floating(model: nn.Module, dtype) -> nn.Module:
     """The model with floating parameters in the compute dtype: the model
     itself when they already are, else a cast copy (the original, with its
     fp32 decoder bias, is left as it is)."""
-    if all(p.dtype == dtype for p in model.parameters()
-           if p.is_floating_point()):
+    params = [p for p in model.parameters() if p.is_floating_point()]
+    if all(p.dtype == dtype for p in params):
         return model
-    return copy.deepcopy(model).to(dtype)
+    # deepcopy with the parameters pre-seeded in its memo: the module tree
+    # is copied, the fp32 storage never is (one cast per parameter)
+    memo = {id(p): nn.Parameter(p.detach().to(dtype), requires_grad=False)
+            for p in params}
+    return copy.deepcopy(model, memo)
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,7 @@ build_seconds = None  # wall time of the build this process ran, if any
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "unimm_answer_block": [_VP] * 20 + [_INT] * 4 + [_F32, _VP],
-    "unimm_ffn_block": [_VP] * 8 + [_INT] * 3 + [_F32, _VP],
+    "unimm_ffn_block": [_VP] * 10 + [_INT] * 3 + [_F32, _VP],
     "unimm_xent_head": [_VP] * 5 + [_INT] * 2 + [_VP],
 }
 

@@ -2,8 +2,9 @@
 
 ``ffn_block`` replaces the TPU kernel
 ``unimm_tpu/ops/pallas_attention_v2.py:fused_ffn_block``. On a CUDA tensor
-it launches the hand-written kernel in ``csrc/ffn_block.cu`` (one CTA per
-32-row tile; the [rows, intermediate] activation stays in shared memory);
+it launches the hand-written kernels in ``csrc/ffn_block.cu`` (the two
+products with fused bias/activation and bias/residual epilogues, then a
+row LayerNorm);
 on a CPU tensor it runs ``ffn_block_plain``, which repeats the kernel's
 rounding points in plain PyTorch: h rounds to x.dtype after the fp32
 product and bias, the activation is evaluated in x.dtype (tanh gelu in
@@ -66,10 +67,13 @@ def ffn_block(x, p_inter, p_out, *, act="gelu", eps=1e-12):
         _require(t.is_contiguous(), "inputs must be contiguous")
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     M = x.numel() // HID
+    act_buf = torch.empty(M, inter, dtype=x.dtype, device=x.device)
+    pre = torch.empty(M, HID, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     code = _build.library().unimm_ffn_block(
-        x.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr(), M,
-        inter, _ACT_CODE[act], eps, _build.stream(x.device))
+        x.data_ptr(), *(t.data_ptr() for t in weights), act_buf.data_ptr(),
+        pre.data_ptr(), out.data_ptr(), M, inter, _ACT_CODE[act], eps,
+        _build.stream(x.device))
     _build.check(code, "ffn_block")
     ffn_block.launches += 1
     return out
