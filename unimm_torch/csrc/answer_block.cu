@@ -13,15 +13,15 @@
 //
 // with the TPU kernel's rounding points. Three launches:
 //   1. gemm_nt_kernel     row Q/K/V projection (common.cuh), 128x128 tiles
-//   2. rows_attn_kernel   one CTA per (32-row query tile, head, slate):
-//                         full fp32 score rows in shared memory, an exact
-//                         two-pass softmax, then P.V
+//   2. rows_attn_kernel   one CTA per (query tile, head, slate): scores in
+//                         registers, a max/exp-sum pass, then an exact
+//                         softmax pass that multiplies by V
 //   3. out_ln_kernel      Wo + bo + residual + LayerNorm on 32-row tiles
 // What bounds it on an H100: the products are ~2.3 GFLOP per 1280-row slate
 // and the bytes ~16 MB, so at these shapes the tensor-core rate bounds it.
 // Unlike the TPU kernel, q/k/v and ctx ([G, P, 768] bf16 each) pass through
 // device memory between the launches; the [rows, Lcb + RB] scores and
-// probabilities stay in shared memory.
+// probabilities never leave registers.
 
 #include "common.cuh"
 
@@ -48,18 +48,23 @@ struct QkvEpi {  // y = bf16(acc + b); q additionally bf16(fp32(y) * scale)
 };
 
 // ---- launch 2: attention over (cached context ++ row block) keys ---------
-constexpr int AT_QT = 32, AT_KC = 64, AT_D = 64, AT_LD = AT_D + 8;
-constexpr int AT_THREADS = 128;
+// One CTA per (query tile of QT = min(RB, 128) rows, head, slate); each warp
+// owns 16 query rows, kept as mma.sync A fragments. Keys and values stream
+// through shared memory in 64-key chunks (context keys first, then the row
+// block's own keys). Pass 1 runs the running row max and exp-sum over all
+// chunks; pass 2 recomputes each score chunk and forms p = exp(s - max) /
+// sum exactly as the fp32 softmax does, rounds it to bf16 in registers
+// (the accumulator layout of two n8 tiles is the A layout of one k16 step)
+// and multiplies by the value chunk. Scores never leave registers.
+constexpr int AT_KC = 64, AT_D = 64, AT_LD = AT_D + 8;
+constexpr int AT_MAX_QT = 128;
 
-__host__ __device__ constexpr int at_ld_s(int nk) { return nk + 4; }
-__host__ __device__ constexpr int at_ld_p(int nk) { return nk + 8; }
-
-size_t at_smem_bytes(int nk) {
-  return (size_t)AT_QT * AT_LD * 2 + (size_t)2 * AT_KC * AT_LD * 2 +
-         (size_t)AT_QT * at_ld_s(nk) * 4 + (size_t)AT_QT * at_ld_p(nk) * 2;
+size_t at_smem_bytes(int qt) {
+  // Q tile + 2 stages of (K chunk, V chunk)
+  return (size_t)(qt + 4 * AT_KC) * AT_LD * 2;
 }
 
-__global__ void __launch_bounds__(AT_THREADS)
+__global__ void __launch_bounds__(AT_MAX_QT * 2)
     rows_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kr,
                      const bf16* __restrict__ vr, const bf16* __restrict__ kc,
                      const bf16* __restrict__ vc,
@@ -67,27 +72,30 @@ __global__ void __launch_bounds__(AT_THREADS)
                      const float* __restrict__ b_rr, bf16* __restrict__ ctx,
                      int P, int Lcb, int RB) {
   extern __shared__ __align__(128) unsigned char smem[];
+  const int QT = blockDim.x / 2;             // 16 query rows per warp
   const int NK = Lcb + RB;
-  const int LDS = at_ld_s(NK), LDP = at_ld_p(NK);
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sKV = sQ + AT_QT * AT_LD;  // [2][AT_KC][AT_LD]
-  float* sS = reinterpret_cast<float*>(sKV + 2 * AT_KC * AT_LD);
-  bf16* sP = reinterpret_cast<bf16*>(sS + AT_QT * LDS);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [QT][AT_LD]
+  bf16* sK = sQ + QT * AT_LD;                // [2][AT_KC][AT_LD]
+  bf16* sV = sK + 2 * AT_KC * AT_LD;         // [2][AT_KC][AT_LD]
 
   const int g = blockIdx.z, h = blockIdx.y;
-  const int row0 = blockIdx.x * AT_QT;
-  const int pb = row0 / RB, rblk0 = pb * RB, rin0 = row0 - rblk0;
+  const int row0 = blockIdx.x * QT;
+  const int pb = row0 / RB, rblk0 = pb * RB;
   const int PB = P / RB;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nthreads = blockDim.x;
   const long hoff = (long)h * AT_D;
+  const int gr = lane >> 2, gc = (lane & 3) * 2;
+  // this thread's two query rows, as indices inside the row block
+  const int rin_a = row0 - rblk0 + warp * 16 + gr, rin_b = rin_a + 8;
 
-  stage_tile(sQ, AT_LD, q + ((long)g * P + row0) * HID + hoff, HID, AT_QT,
-             AT_D, AT_QT, tid, AT_THREADS);
+  stage_tile(sQ, AT_LD, q + ((long)g * P + row0) * HID + hoff, HID, QT, AT_D,
+             QT, tid, nthreads);
   cp_commit();
 
-  // key/value chunk c: keys [64 c, 64 c + 64) of (context ++ row block)
+  // chunk c: keys [64 c, 64 c + 64) of (context ++ row block)
   auto stage_kv = [&](bf16* dst, const bf16* cs, const bf16* rs, int c) {
-    for (int i = tid; i < AT_KC * 8; i += AT_THREADS) {
+    for (int i = tid; i < AT_KC * 8; i += nthreads) {
       const int r = i >> 3, col = (i & 7) * 8, kk = c * AT_KC + r;
       const bool ok = kk < NK;
       const bf16* src =
@@ -98,103 +106,146 @@ __global__ void __launch_bounds__(AT_THREADS)
     }
   };
   const int nchunks = (NK + AT_KC - 1) / AT_KC;
-
-  // scores: warp w computes key columns [16 w, 16 w + 16) of each chunk
-  stage_kv(sKV, kc, kr, 0);
-  cp_commit();
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks)
-      stage_kv(sKV + ((c + 1) & 1) * AT_KC * AT_LD, kc, kr, c + 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const bf16* kb = sKV + (c & 1) * AT_KC * AT_LD;
-    FragC s0, s1;
-    wmma::fill_fragment(s0, 0.0f);
-    wmma::fill_fragment(s1, 0.0f);
-#pragma unroll
-    for (int kd = 0; kd < AT_D; kd += 16) {
-      FragA a0, a1;
-      FragBt fb;
-      wmma::load_matrix_sync(a0, sQ + kd, AT_LD);
-      wmma::load_matrix_sync(a1, sQ + 16 * AT_LD + kd, AT_LD);
-      wmma::load_matrix_sync(fb, kb + (warp * 16) * AT_LD + kd, AT_LD);
-      wmma::mma_sync(s0, a0, fb, s0);
-      wmma::mma_sync(s1, a1, fb, s1);
-    }
-    const int col = c * AT_KC + warp * 16;
-    if (col < NK) {
-      wmma::store_matrix_sync(sS + col, s0, LDS, wmma::mem_row_major);
-      wmma::store_matrix_sync(sS + 16 * LDS + col, s1, LDS,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
-
-  // value chunk 0 loads while the softmax runs
-  stage_kv(sKV, vc, vr, 0);
-  cp_commit();
-
-  // exact fp32 softmax over all NK columns; warp w owns rows [8 w, 8 w + 8)
   const float* bc = b_ctx + (long)g * Lcb;
-  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-    const float* brr = b_rr + (((long)g * PB + pb) * RB + rin0 + r) * RB;
-    float* srow = sS + r * LDS;
-    float mx = -INFINITY;
-    for (int c = lane; c < NK; c += 32) {
-      const float v = srow[c] + (c < Lcb ? bc[c] : brr[c - Lcb]);
-      srow[c] = v;
-      mx = fmaxf(mx, v);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < NK; c += 32) {
-      const float e = expf(srow[c] - mx);
-      srow[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int c = lane; c < NK; c += 32)
-      sP[r * LDP + c] = __float2bfloat16(srow[c] / sum);
-  }
+  const float* brr_a = b_rr + (((long)g * PB + pb) * RB + rin_a) * RB;
+  const float* brr_b = b_rr + (((long)g * PB + pb) * RB + rin_b) * RB;
+  // ldmatrix lane offsets: K chunk as B (n = key, k = d); V chunk as B with
+  // a transposed load (k = key, n = d)
+  const int kb_off = ((lane & 7) + ((lane >> 4) << 3)) * AT_LD +
+                     ((lane >> 3) & 1) * 8;
+  const int vb_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * AT_LD +
+                     (lane >> 4) * 8;
 
-  // ctx = P V ; warp w computes head-dim columns [16 w, 16 w + 16)
-  FragC o0, o1;
-  wmma::fill_fragment(o0, 0.0f);
-  wmma::fill_fragment(o1, 0.0f);
+  uint32_t qf[4][4];
+  // scores of this warp's 16 rows against chunk c (+ bias; -inf past NK)
+  auto scores = [&](const bf16* kbuf, int c, float (&sc)[8][4]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) sc[j][t] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < 4; ++kd)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kbuf + kb_off + jj * 16 * AT_LD + kd * 16);
+        mma_bf16(sc[2 * jj], qf[kd], kf[0], kf[1]);
+        mma_bf16(sc[2 * jj + 1], qf[kd], kf[2], kf[3]);
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c * AT_KC + j * 8 + gc;
+      if (col >= NK) {
+        sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = -INFINITY;
+      } else if (col < Lcb) {
+        const float2 b = *reinterpret_cast<const float2*>(bc + col);
+        sc[j][0] += b.x;
+        sc[j][1] += b.y;
+        sc[j][2] += b.x;
+        sc[j][3] += b.y;
+      } else {
+        const float2 ba =
+            *reinterpret_cast<const float2*>(brr_a + (col - Lcb));
+        const float2 bb =
+            *reinterpret_cast<const float2*>(brr_b + (col - Lcb));
+        sc[j][0] += ba.x;
+        sc[j][1] += ba.y;
+        sc[j][2] += bb.x;
+        sc[j][3] += bb.y;
+      }
+    }
+  };
+
+  // pass 1: running max and exp-sum of rows gr (index 0) and gr + 8 (1)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  stage_kv(sK, kc, kr, 0);
+  cp_commit();
   for (int c = 0; c < nchunks; ++c) {
     if (c + 1 < nchunks)
-      stage_kv(sKV + ((c + 1) & 1) * AT_KC * AT_LD, vc, vr, c + 1);
+      stage_kv(sK + ((c + 1) & 1) * AT_KC * AT_LD, kc, kr, c + 1);
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    const bf16* vb = sKV + (c & 1) * AT_KC * AT_LD;
-    const int nk = min(AT_KC, NK - c * AT_KC);
-    for (int kk = 0; kk < nk; kk += 16) {
-      FragA a0, a1;
-      FragB fb;
-      wmma::load_matrix_sync(a0, sP + c * AT_KC + kk, LDP);
-      wmma::load_matrix_sync(a1, sP + 16 * LDP + c * AT_KC + kk, LDP);
-      wmma::load_matrix_sync(fb, vb + kk * AT_LD + warp * 16, AT_LD);
-      wmma::mma_sync(o0, a0, fb, o0);
-      wmma::mma_sync(o1, a1, fb, o1);
+    if (c == 0) {
+#pragma unroll
+      for (int kd = 0; kd < 4; ++kd)
+        ldmatrix_x4(qf[kd], sQ + (warp * 16 + (lane & 15)) * AT_LD +
+                                kd * 16 + (lane >> 4) * 8);
+    }
+    float sc[8][4];
+    scores(sK + (c & 1) * AT_KC * AT_LD, c, sc);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float cm = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        cm = fmaxf(cm, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+      cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 1));
+      cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 2));
+      const float nm = fmaxf(m[r], cm);
+      float e = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        e += expf(sc[j][2 * r] - nm) + expf(sc[j][2 * r + 1] - nm);
+      e += __shfl_xor_sync(0xffffffffu, e, 1);
+      e += __shfl_xor_sync(0xffffffffu, e, 2);
+      l[r] = l[r] * expf(m[r] - nm) + e;
+      m[r] = nm;
     }
     __syncthreads();
   }
 
-  // round each head's context to bf16 (reuses the score rows)
-  constexpr int LDO = AT_D + 4;
-  wmma::store_matrix_sync(sS + warp * 16, o0, LDO, wmma::mem_row_major);
-  wmma::store_matrix_sync(sS + 16 * LDO + warp * 16, o1, LDO,
-                          wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < AT_QT * AT_D / 8; i += AT_THREADS) {
-    const int r = i / (AT_D / 8), c = (i % (AT_D / 8)) * 8;
-    __align__(16) bf16 o[8];
+  // pass 2: p = bf16(exp(s - max) / sum); ctx += p V
+  float o[8][4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) o[t] = __float2bfloat16(sS[r * LDO + c + t]);
-    *reinterpret_cast<uint4*>(ctx + ((long)g * P + row0 + r) * HID + hoff +
-                              c) = *reinterpret_cast<const uint4*>(o);
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) o[j][t] = 0.f;
+  stage_kv(sK, kc, kr, 0);
+  stage_kv(sV, vc, vr, 0);
+  cp_commit();
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + 1 < nchunks) {
+      stage_kv(sK + ((c + 1) & 1) * AT_KC * AT_LD, kc, kr, c + 1);
+      stage_kv(sV + ((c + 1) & 1) * AT_KC * AT_LD, vc, vr, c + 1);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    float sc[8][4];
+    scores(sK + (c & 1) * AT_KC * AT_LD, c, sc);
+    const bf16* vbuf = sV + (c & 1) * AT_KC * AT_LD;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {       // k16 step: keys 16 t .. 16 t + 15
+      uint32_t pa[4];
+      pa[0] = pack_bf16(expf(sc[2 * t][0] - m[0]) / l[0],
+                        expf(sc[2 * t][1] - m[0]) / l[0]);
+      pa[1] = pack_bf16(expf(sc[2 * t][2] - m[1]) / l[1],
+                        expf(sc[2 * t][3] - m[1]) / l[1]);
+      pa[2] = pack_bf16(expf(sc[2 * t + 1][0] - m[0]) / l[0],
+                        expf(sc[2 * t + 1][1] - m[0]) / l[0]);
+      pa[3] = pack_bf16(expf(sc[2 * t + 1][2] - m[1]) / l[1],
+                        expf(sc[2 * t + 1][3] - m[1]) / l[1]);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {  // head-dim columns 16 jj ..
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vbuf + vb_off + t * 16 * AT_LD + jj * 16);
+        mma_bf16(o[2 * jj], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * jj + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // each head's context rounds to bf16
+  bf16* out_a = ctx + ((long)g * P + row0 + warp * 16 + gr) * HID + hoff;
+  bf16* out_b = out_a + 8 * HID;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    __nv_bfloat162 va = __floats2bfloat162_rn(o[j][0], o[j][1]);
+    __nv_bfloat162 vb = __floats2bfloat162_rn(o[j][2], o[j][3]);
+    *reinterpret_cast<__nv_bfloat162*>(out_a + j * 8 + gc) = va;
+    *reinterpret_cast<__nv_bfloat162*>(out_b + j * 8 + gc) = vb;
   }
 }
 
@@ -269,12 +320,13 @@ extern "C" int unimm_answer_block(
   cudaError_t err = launch_gemm_nt(g, 3, e, st);
   if (err != cudaSuccess) return err;
 
-  const size_t at_smem = at_smem_bytes(Lcb + RB);
+  const int qt = RB < AT_MAX_QT ? RB : AT_MAX_QT;
+  const size_t at_smem = at_smem_bytes(qt);
   cudaFuncSetAttribute(rows_attn_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)at_smem);
-  dim3 g2(P / AT_QT, HID / AT_D, G);
-  rows_attn_kernel<<<g2, AT_THREADS, at_smem, st>>>(
+  dim3 g2(P / qt, HID / AT_D, G);
+  rows_attn_kernel<<<g2, qt * 2, at_smem, st>>>(
       static_cast<const bf16*>(q_buf), static_cast<const bf16*>(k_buf),
       static_cast<const bf16*>(v_buf), static_cast<const bf16*>(kc),
       static_cast<const bf16*>(vc), static_cast<const float*>(b_ctx),

@@ -6,8 +6,8 @@ sub-block (QKV projection of the answer rows, scores against the cached
 context K/V followed by the row block's own K/V, additive biases, fp32
 softmax, PV, head merge, output projection, residual, LayerNorm). On a CUDA
 tensor it launches the hand-written kernel in ``csrc/answer_block.cu``
-(three launches: projection, attention per (32-row tile, head, slate),
-output projection + LayerNorm); on a CPU tensor it runs
+(three launches: Q/K/V projection, attention per (query tile, head,
+slate), output projection + LayerNorm); on a CPU tensor it runs
 ``answer_block_plain``, which repeats the kernel's arithmetic and rounding
 points in plain PyTorch.
 
@@ -134,8 +134,10 @@ def answer_block(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads, eps=1e-12):
              and b_rr.shape[2] == b_rr.shape[3], f"b_rr {tuple(b_rr.shape)}")
     PB, RB = b_rr.shape[1], b_rr.shape[2]
     Lcb = kc.shape[1]
-    _require(PB * RB == P and RB % 32 == 0,
-             f"P={P} must be PB*RB with RB % 32 == 0 (RB={RB})")
+    _require(PB * RB == P and RB % 32 == 0
+             and (RB <= 128 or RB % 128 == 0),
+             f"P={P} must be PB*RB with RB a multiple of 32, and of 128 "
+             f"above 128 (RB={RB})")
     _require(Lcb % 16 == 0 and 64 <= Lcb + RB <= 1024,
              f"Lcb={Lcb} must be a multiple of 16 with 64 <= Lcb+RB <= 1024")
     _require(tuple(kc.shape) == (G, Lcb, HID)
