@@ -212,12 +212,8 @@ def linear(p: nn.Linear, x):
 
 def layer_norm(p: nn.LayerNorm, x, eps: float = 1e-12):
     """LayerNorm with fp32 statistics whatever the compute dtype."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf - mean).square().mean(-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y * p.weight.float() + p.bias.float()
-    return y.to(x.dtype)
+    return F.layer_norm(x.float(), x.shape[-1:], p.weight.float(),
+                        p.bias.float(), eps).to(x.dtype)
 
 
 def _split_heads(x, num_heads: int):
