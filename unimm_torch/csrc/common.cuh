@@ -125,15 +125,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
 
 // --------------------------------------------------------------------------
 // C[M, N] = A[M, K] B[N, K]^T (both K-contiguous, the torch Linear layout)
-// with an epilogue functor. CTA tile 128 x 128, k step 32, 3-stage cp.async
-// ring, 8 warps as 4 (rows) x 2 (columns) of 32 x 64; fragments come from
-// shared memory by ldmatrix (row pitch 40 elements: conflict-free) and
-// multiply with mma.sync m16n8k16. Needs N % 128 == 0 and K % 32 == 0; rows
+// with an epilogue functor. CTA tile 128 x 128, k step 64, 3-stage cp.async
+// ring (two CTAs fit an SM), 8 warps as 4 (rows) x 2 (columns) of 32 x 64;
+// fragments come from shared memory by ldmatrix (row pitch 72 elements:
+// conflict-free) and multiply with mma.sync m16n8k16. Needs N % 128 == 0
+// and K % 64 == 0; rows
 // past M are zero-filled and never stored. blockIdx.z selects one of up to
 // three B matrices (the Q/K/V projections share A). The epilogue is called
 // as epi(z, row, col, v0, v1) for the two adjacent columns col, col + 1.
 // --------------------------------------------------------------------------
-constexpr int GM_BM = 128, GM_BN = 128, GM_BK = 32, GM_LD = GM_BK + 8;
+constexpr int GM_BM = 128, GM_BN = 128, GM_BK = 64, GM_LD = GM_BK + 8;
 constexpr int GM_STAGES = 3, GM_THREADS = 256;
 constexpr size_t GM_SMEM = (size_t)GM_STAGES * (GM_BM + GM_BN) * GM_LD * 2;
 
