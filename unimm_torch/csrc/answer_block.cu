@@ -250,51 +250,117 @@ __global__ void __launch_bounds__(AT_MAX_QT * 2)
 }
 
 // ---- launch 3: output projection + residual + LayerNorm ------------------
+// One CTA per 32 rows holds all 768 output columns, so the LayerNorm runs in
+// the same launch: 8 warps, warp w computes columns [96 w, 96 w + 96) of
+// both 16-row halves (24 accumulator tiles), Wo streamed in k slices of 32.
+constexpr int OL_ROWS = 32, OL_THREADS = 256, OL_BK = 32, OL_LD = OL_BK + 8;
+constexpr int OL_LDC = HID + 4;  // pitch of the fp32 pre-LayerNorm tile
+
 size_t out_ln_smem_bytes() {
-  const size_t a = (size_t)2 * RT_ROWS * RT_LDW * 2;
-  const size_t w = (size_t)2 * HID * RT_LDW * 2;
-  const size_t c = (size_t)RT_ROWS * RT_LDC * 4;
+  const size_t a = (size_t)2 * OL_ROWS * OL_LD * 2;
+  const size_t w = (size_t)2 * HID * OL_LD * 2;
+  const size_t c = (size_t)OL_ROWS * OL_LDC * 4;
   return a + (w > c ? w : c);
 }
 
-__global__ void __launch_bounds__(RT_THREADS)
+__global__ void __launch_bounds__(OL_THREADS)
     out_ln_kernel(const bf16* __restrict__ ctx, const bf16* __restrict__ x,
                   const bf16* __restrict__ wo, const bf16* __restrict__ bo,
                   const bf16* __restrict__ gamma,
                   const bf16* __restrict__ beta, float eps,
                   bf16* __restrict__ out, int M) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);      // [2][32][RT_LDW]
-  bf16* sW = sA + 2 * RT_ROWS * RT_LDW;          // [2][768][RT_LDW]
+  bf16* sA = reinterpret_cast<bf16*>(smem);      // [2][32][OL_LD]
+  bf16* sW = sA + 2 * OL_ROWS * OL_LD;           // [2][768][OL_LD]
   float* sC = reinterpret_cast<float*>(sW);      // epilogue, aliases sW
-  const long m0 = (long)blockIdx.x * RT_ROWS;
+  const long m0 = (long)blockIdx.x * OL_ROWS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int valid = rows_left(m0, M, RT_ROWS);
+  const int valid = rows_left(m0, M, OL_ROWS);
 
   auto stage = [&](int st, int k0) {
-    stage_tile(sA + st * RT_ROWS * RT_LDW, RT_LDW, ctx + m0 * HID + k0, HID,
-               RT_ROWS, RT_BK, valid, tid, RT_THREADS);
-    stage_tile(sW + st * HID * RT_LDW, RT_LDW, wo + k0, HID, HID, RT_BK, HID,
-               tid, RT_THREADS);
+    stage_tile(sA + st * OL_ROWS * OL_LD, OL_LD, ctx + m0 * HID + k0, HID,
+               OL_ROWS, OL_BK, valid, tid, OL_THREADS);
+    stage_tile(sW + st * HID * OL_LD, OL_LD, wo + k0, HID, HID, OL_BK, HID,
+               tid, OL_THREADS);
   };
-  RowTileAcc acc;
-  acc.zero();
-  constexpr int NK = HID / RT_BK;
+  float acc[2][12][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 12; ++j)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
+  const int a_off = (lane & 15) * OL_LD + (lane >> 4) * 8;
+  const int b_off = (warp * 96 + (lane & 7) + ((lane >> 4) << 3)) * OL_LD +
+                    ((lane >> 3) & 1) * 8;
+  constexpr int NK = HID / OL_BK;
   stage(0, 0);
   cp_commit();
   for (int kt = 0; kt < NK; ++kt) {
-    if (kt + 1 < NK) stage((kt + 1) & 1, (kt + 1) * RT_BK);
+    if (kt + 1 < NK) stage((kt + 1) & 1, (kt + 1) * OL_BK);
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    acc.mma(sA + (kt & 1) * RT_ROWS * RT_LDW, RT_LDW,
-            sW + (kt & 1) * HID * RT_LDW, warp);
+    const bf16* a = sA + (kt & 1) * OL_ROWS * OL_LD + a_off;
+    const bf16* b = sW + (kt & 1) * HID * OL_LD + b_off;
+#pragma unroll
+    for (int kk = 0; kk < OL_BK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) ldmatrix_x4(af[i], a + i * 16 * OL_LD + kk);
+#pragma unroll
+      for (int jj = 0; jj < 6; ++jj) {
+        uint32_t bfr[4];
+        ldmatrix_x4(bfr, b + jj * 16 * OL_LD + kk);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_bf16(acc[i][2 * jj], af[i], bfr[0], bfr[1]);
+          mma_bf16(acc[i][2 * jj + 1], af[i], bfr[2], bfr[3]);
+        }
+      }
+    }
     __syncthreads();
   }
-  acc.store(sC, warp);
+  const int gr = lane >> 2, gc = (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 12; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(
+            sC + (i * 16 + gr + hh * 8) * OL_LDC + warp * 96 + j * 8 + gc) =
+            make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
   __syncthreads();
-  ln_epilogue(sC, bo, nullptr, 0, x, gamma, beta, eps, out, m0, valid, warp,
-              lane);
+
+  // h = (acc + bo) + x ; y = (h - mean) * rsqrt(var + eps) * gamma + beta
+  constexpr int PER = HID / 32;  // 24 columns per lane
+  for (int r = warp * 4; r < warp * 4 + 4 && r < valid; ++r) {
+    float h[PER];
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int c = lane + 32 * j;
+      h[j] = (sC[r * OL_LDC + c] + __bfloat162float(bo[c])) +
+             __bfloat162float(x[(m0 + r) * HID + c]);
+      s += h[j];
+    }
+    const float mean = warp_sum(s) / HID;
+    float v = 0.f;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const float d = h[j] - mean;
+      v += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(v) / HID + eps);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int c = lane + 32 * j;
+      out[(m0 + r) * HID + c] = __float2bfloat16(
+          (h[j] - mean) * rstd * __bfloat162float(gamma[c]) +
+          __bfloat162float(beta[c]));
+    }
+  }
 }
 
 }  // namespace
@@ -339,7 +405,7 @@ extern "C" int unimm_answer_block(
   cudaFuncSetAttribute(out_ln_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)ln_smem);
-  out_ln_kernel<<<(M + RT_ROWS - 1) / RT_ROWS, RT_THREADS, ln_smem, st>>>(
+  out_ln_kernel<<<(M + OL_ROWS - 1) / OL_ROWS, OL_THREADS, ln_smem, st>>>(
       static_cast<const bf16*>(ctx_buf), static_cast<const bf16*>(x),
       static_cast<const bf16*>(wo), static_cast<const bf16*>(bo),
       static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta), eps,

@@ -1,8 +1,8 @@
 // Shared device helpers for the port's hand-written Hopper kernels
 // (answer_block.cu, ffn_block.cu, xent_head.cu).
 //
-// Matrix products use nvcuda::wmma bf16 16x16x16 fragments with fp32
-// accumulators, fed from shared memory that cp.async fills in two stages.
+// Matrix products use mma.sync m16n8k16 (bf16 in, fp32 accumulators) with
+// fragments loaded by ldmatrix from shared memory that cp.async fills.
 // Everything here is internal linkage: each .cu is compiled on its own and
 // the objects are linked into one shared library.
 #pragma once
@@ -10,25 +10,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 // The hidden width the kernels are built for (BERT-base text stream); the
 // Python wrappers refuse any other width.
 constexpr int HID = 768;
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    FragBt;  // B given as rows of B^T (an [N, K] weight in torch layout)
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    FragB;   // B given as [K, N] rows
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -235,95 +225,6 @@ cudaError_t launch_gemm_nt(const GemmArgs& g, int nz, const Epi& epi,
   dim3 grid(g.N / GM_BN, (g.M + GM_BM - 1) / GM_BM, nz);
   gemm_nt_kernel<Epi><<<grid, GM_THREADS, GM_SMEM, st>>>(g, epi);
   return cudaGetLastError();
-}
-
-// --------------------------------------------------------------------------
-// 32-row x 768-column tile product with a residual + LayerNorm epilogue:
-//   y = LN(A[32, K] @ W[768, K]^T + b + res) * gamma + beta
-// 8 warps; warp w owns output columns [96 w, 96 w + 96) for both 16-row
-// halves (12 accumulator fragments). Used by the answer block's output
-// projection and by the fused FFN's second product.
-// --------------------------------------------------------------------------
-constexpr int RT_ROWS = 32;
-constexpr int RT_THREADS = 256;
-constexpr int RT_BK = 32;
-constexpr int RT_LDW = RT_BK + 8;   // pitch of a staged [768, 32] W slice
-constexpr int RT_LDC = HID + 4;     // pitch of the fp32 epilogue tile
-
-struct RowTileAcc {
-  FragC c[2][6];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 6; ++j) wmma::fill_fragment(c[i][j], 0.0f);
-  }
-  // acc += A[0:32, 0:RT_BK] @ Wslice^T where Wslice is a staged [768, RT_BK]
-  // bf16 slice with pitch RT_LDW, and A has pitch lda.
-  __device__ __forceinline__ void mma(const bf16* a, int lda,
-                                      const bf16* w_slice, int warp) {
-#pragma unroll
-    for (int kk = 0; kk < RT_BK; kk += 16) {
-      FragA fa[2];
-      wmma::load_matrix_sync(fa[0], a + kk, lda);
-      wmma::load_matrix_sync(fa[1], a + 16 * lda + kk, lda);
-#pragma unroll
-      for (int j = 0; j < 6; ++j) {
-        FragBt fb;
-        wmma::load_matrix_sync(fb, w_slice + (warp * 96 + j * 16) * RT_LDW + kk,
-                               RT_LDW);
-        wmma::mma_sync(c[0][j], fa[0], fb, c[0][j]);
-        wmma::mma_sync(c[1][j], fa[1], fb, c[1][j]);
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* sc, int warp) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 6; ++j)
-        wmma::store_matrix_sync(sc + i * 16 * RT_LDC + warp * 96 + j * 16,
-                                c[i][j], RT_LDC, wmma::mem_row_major);
-  }
-};
-
-// Residual + LayerNorm epilogue over a stored [32, 768] fp32 tile sc:
-//   h = (sc + bias) + res ; y = (h - mean) * rsqrt(var + eps) * g + beta
-// res rows come from shared memory (res_s, pitch ld_res) or, when res_s is
-// null, from global memory at res_g + row * HID. Rows >= valid are skipped.
-__device__ __forceinline__ void ln_epilogue(
-    const float* sc, const bf16* bias, const bf16* res_s, int ld_res,
-    const bf16* res_g, const bf16* gamma, const bf16* beta, float eps,
-    bf16* out, long row0, int valid, int warp, int lane) {
-  constexpr int PER = HID / 32;  // 24 columns per lane
-  for (int r = warp * 4; r < warp * 4 + 4; ++r) {
-    if (r >= valid) break;
-    float h[PER];
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int c = lane + 32 * j;
-      const float x = res_s ? __bfloat162float(res_s[r * ld_res + c])
-                            : __bfloat162float(res_g[(row0 + r) * HID + c]);
-      h[j] = (sc[r * RT_LDC + c] + __bfloat162float(bias[c])) + x;
-      s += h[j];
-    }
-    const float mean = warp_sum(s) / HID;
-    float v = 0.f;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const float d = h[j] - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(v) / HID + eps);
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int c = lane + 32 * j;
-      const float y = (h[j] - mean) * rstd * __bfloat162float(gamma[c]) +
-                      __bfloat162float(beta[c]);
-      out[(row0 + r) * HID + c] = __float2bfloat16(y);
-    }
-  }
 }
 
 }  // namespace
