@@ -259,11 +259,18 @@ KERNELS = [
 
 def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
+    # the first case of each kernel is the main path's shape; the small
+    # ones after it reach the edges that shape does not: key counts Lcb + RB
+    # that end in a half chunk, and row counts with a partial last tile
     cases = {
         "answer_block": [check_answer_block(dev, gen, 192, 64),
-                         check_answer_block(dev, gen, 256, 256)],
-        "ffn_block": [check_ffn_block(dev, gen)],
-        "xent_head": [check_xent_head(dev, gen)],
+                         check_answer_block(dev, gen, 256, 256),
+                         check_answer_block(dev, gen, 224, 256, G=4),
+                         check_answer_block(dev, gen, 96, 64, G=4, P=512)],
+        "ffn_block": [check_ffn_block(dev, gen),
+                      check_ffn_block(dev, gen, N=3, R=100)],
+        "xent_head": [check_xent_head(dev, gen),
+                      check_xent_head(dev, gen, M=1000)],
     }
     failed = []
     for name, cs in cases.items():

@@ -17,7 +17,7 @@ from unimm_torch.config import VilbertConfig as TorchConfig
 from unimm_torch.models import vilbert as tv
 from unimm_tpu.models import vilbert as jv
 
-TINY_T = TorchConfig(**dataclasses.asdict(TINY))
+TINY_T = TorchConfig.from_dict(dataclasses.asdict(TINY))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,10 +1,11 @@
 """Model configuration for the PyTorch/CUDA UniMM-UL (ViLBERT two-stream)
 encoder.
 
-The port's own copy of the JAX package's ``VilbertConfig``: same fields, same
-defaults, and the same JSON schema as the reference ``BertConfig``
-(config/bert_base_6layer_6conect.json), so configuration files are shared
-between the two packages. ``attention_impl="pallas_block"`` keeps its name
+The port's own copy of the JAX package's ``VilbertConfig``: the same model
+fields and defaults, read from the same JSON schema as the reference
+``BertConfig`` (config/bert_base_6layer_6conect.json), so configuration
+files are shared between the two packages; the JAX package's training
+options are not carried. ``attention_impl="pallas_block"`` keeps its name
 and here means "run the hand-written Hopper kernels" on the eval paths that
 have them; ``"xla"`` means the plain PyTorch versions.
 """
@@ -66,12 +67,8 @@ class VilbertConfig:
     # either way.
     attention_impl: str = "pallas_block"
     # under "pallas_block": also route the answer pass's text FFNs through
-    # the fused FFN kernel
+    # the FFN kernel
     fused_ffn: bool = True
-    fused_co: bool = False
-    remat: bool = False
-    mlm_loss_impl: str = "gathered"
-    max_train_label_positions: int = 160
 
     def __post_init__(self):
         if len(self.v_biattention_id) != len(self.t_biattention_id):
@@ -105,8 +102,9 @@ class VilbertConfig:
                 known["fusion_method"] = v
             elif k in fields:
                 known[k] = tuple(v) if isinstance(v, list) else v
-            # unknown keys (bi_intermediate_size, ...) are accepted and
-            # ignored, as the reference from_dict does
+            # unknown keys (bi_intermediate_size, ..., and the JAX
+            # package's training options) are accepted and ignored, as the
+            # reference from_dict does
         return cls(**known)
 
     @classmethod

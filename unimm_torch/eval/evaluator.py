@@ -32,20 +32,14 @@ FLAT_TODO = ("the flat chunked scorer (discriminative ranking and slates "
 
 class RankingEvaluator:
     def __init__(self, cfg: VilbertConfig, *, dtype=torch.bfloat16,
-                 need_lm=True, need_nsp=False, bucket_div: int = 8,
-                 gen_prefix=True, prefix_group: int = 40,
-                 prefix_packed=True, prefix_rowblock: int = 0,
-                 device="cuda"):
-        """LM-only scoring (``need_lm`` without ``need_nsp``) through the
-        prefix-cache scorer (eval/prefix.py); other combinations need the
-        flat scorer and raise."""
-        if need_nsp or not need_lm or not gen_prefix:
-            raise NotImplementedError(FLAT_TODO)
+                 bucket_div: int = 8, prefix_group: int = 40,
+                 prefix_rowblock: int = 0, device="cuda"):
+        """Answer log-likelihood scoring (the reference's need_lm, no NSP)
+        through the prefix-cache scorer (eval/prefix.py)."""
         self.cfg = cfg
         self.dtype = dtype
         self._prefix = PrefixScorer(cfg, dtype=dtype, group=prefix_group,
                                     bucket_div=bucket_div,
-                                    packed=prefix_packed,
                                     row_block=prefix_rowblock, device=device)
 
     def score_slates(self, model, batch) -> dict:
@@ -127,8 +121,7 @@ def _serving_loop(loader, dispatch, consume, *, pipeline_depth: int,
 def evaluate_split(model, cfg: VilbertConfig, loader, *, mode: str,
                    dtype=torch.bfloat16, ranks_out: Optional[list] = None,
                    progress_every: int = 10, log=print,
-                   gen_prefix: bool = True, prefix_group: int = 40,
-                   prefix_packed: bool = True, prefix_rowblock: int = 0,
+                   prefix_group: int = 40, prefix_rowblock: int = 0,
                    pipeline_depth: int = 1, coalesce: int = 2,
                    device="cuda") -> dict:
     """Run ranking eval over a loader of [B, R, O] val batches.
@@ -141,9 +134,7 @@ def evaluate_split(model, cfg: VilbertConfig, loader, *, mode: str,
     """
     if mode not in ("ll_sum", "ll_mean"):
         raise NotImplementedError(f"mode {mode!r}: {FLAT_TODO}")
-    ev = RankingEvaluator(cfg, dtype=dtype, need_lm=True, need_nsp=False,
-                          gen_prefix=gen_prefix, prefix_group=prefix_group,
-                          prefix_packed=prefix_packed,
+    ev = RankingEvaluator(cfg, dtype=dtype, prefix_group=prefix_group,
                           prefix_rowblock=prefix_rowblock, device=device)
     sparse = M.SparseGTMetrics()
     ndcg = M.NDCG()

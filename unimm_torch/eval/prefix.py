@@ -128,13 +128,11 @@ class PrefixScorer:
     _IMG_KEYS = ("image_feat", "image_loc", "image_mask")
 
     def __init__(self, cfg: VilbertConfig, *, dtype=torch.bfloat16,
-                 group: int = 40, bucket_div: int = 8, packed: bool = True,
-                 row_block: int = 0, device="cuda"):
+                 group: int = 40, bucket_div: int = 8, row_block: int = 0,
+                 device="cuda"):
         if cfg.in_batch_pairs or cfg.fast_mode:
             raise ValueError("prefix scoring needs in_batch_pairs and "
                              "fast_mode off")
-        if not packed:
-            raise NotImplementedError(W_PADDED_TODO)
         self.cfg = cfg
         self.dtype = dtype
         self.group = group
