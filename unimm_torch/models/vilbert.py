@@ -211,9 +211,10 @@ def linear(p: nn.Linear, x):
 
 
 def layer_norm(p: nn.LayerNorm, x, eps: float = 1e-12):
-    """LayerNorm with fp32 statistics whatever the compute dtype."""
-    return F.layer_norm(x.float(), x.shape[-1:], p.weight.float(),
-                        p.bias.float(), eps).to(x.dtype)
+    """LayerNorm with fp32 statistics whatever the compute dtype (PyTorch's
+    kernel accumulates a bf16 input in fp32 and rounds once on output)."""
+    return F.layer_norm(x, x.shape[-1:], p.weight.to(x.dtype),
+                        p.bias.to(x.dtype), eps)
 
 
 def _split_heads(x, num_heads: int):

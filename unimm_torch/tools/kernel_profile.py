@@ -8,8 +8,9 @@ mean device time per call of every CUDA kernel the call launched (the
 sub-kernels of one wrapper seen one by one). ``--main-path``: one warm
 ``evaluate_split`` over 2 coalesced pinned batches at the default config,
 with its wall time, the summed device time of all kernels, the device idle
-share (1 - device / wall; one stream, so kernels do not overlap) and the
-kernels that took the most device time. Both end with the card's name and
+share (1 - device / wall; one stream, so kernels do not overlap), the
+kernels that took the most device time, and the PyTorch operators whose
+kernels took the most (inclusive). Both end with the card's name and
 power limit.
 """
 
@@ -66,20 +67,28 @@ def main_path(dev):
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
-    rows = []
+    rows, ops = [], []
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = ev.self_cuda_time_total
         if t and ev.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((t / 1e3, ev.count, ev.key[:70]))
+        total = getattr(ev, "device_time_total", None)
+        if total is None:
+            total = ev.cuda_time_total
+        if total and ev.key.startswith("aten::"):
+            ops.append((total / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
+    ops.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(json.dumps({"main_path_wall_ms": wall * 1e3,
                       "device_busy_ms": busy,
                       "device_idle_share": 1 - busy / (wall * 1e3),
                       "top_kernels": [{"ms": r[0], "launches": r[1],
-                                       "name": r[2]} for r in rows[:15]]}),
+                                       "name": r[2]} for r in rows[:25]],
+                      "top_torch_ops": [{"ms": r[0], "calls": r[1],
+                                         "op": r[2]} for r in ops[:25]]}),
           flush=True)
 
 
