@@ -76,6 +76,25 @@ def test_load_reference_state_dict():
                                       {**ref, "module.extra": np.zeros(1)})
 
 
+def test_config_reads_the_reference_json():
+    """The shipped reference config file gives the default config, as it
+    does for the JAX package's VilbertConfig."""
+    from pathlib import Path
+
+    from unimm_torch.config import VilbertConfig
+    from unimm_tpu.config import VilbertConfig as JaxConfig
+    path = Path(__file__).resolve().parents[1] / "config" / \
+        "bert_base_6layer_6conect.json"
+    cfg = VilbertConfig.from_json_file(str(path))
+    assert cfg == VilbertConfig()
+    jcfg = JaxConfig.from_json_file(str(path))
+    for f in ("hidden_size", "num_hidden_layers", "v_biattention_id",
+              "t_biattention_id", "fusion_method", "vocab_size"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    with pytest.raises(ValueError, match="attention_impl"):
+        VilbertConfig(attention_impl="pallas")
+
+
 def test_default_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

@@ -112,12 +112,5 @@ class VilbertConfig:
         with open(path, "r", encoding="utf-8") as f:
             return cls.from_dict(json.load(f))
 
-    def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
-
     def replace(self, **kw) -> "VilbertConfig":
         return dataclasses.replace(self, **kw)
-
-    @property
-    def head_dim(self) -> int:
-        return self.hidden_size // self.num_attention_heads

@@ -17,8 +17,9 @@
 //                         registers, a max/exp-sum pass, then an exact
 //                         softmax pass that multiplies by V
 //   3. out_ln_kernel      Wo + bo + residual + LayerNorm on 32-row tiles
-// What bounds it on an H100: the products are ~2.3 GFLOP per 1280-row slate
-// and the bytes ~16 MB, so at these shapes the tensor-core rate bounds it.
+// What bounds it on an H100: ~7 GFLOP per 1280-row slate against ~5 MB of
+// its activations and biases (the 4.7 MB of weights are shared by the
+// group), so the tensor-core rate.
 // Unlike the TPU kernel, q/k/v and ctx ([G, P, 768] bf16 each) pass through
 // device memory between the launches; the [rows, Lcb + RB] scores and
 // probabilities never leave registers.
@@ -333,33 +334,16 @@ __global__ void __launch_bounds__(OL_THREADS)
             make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
   __syncthreads();
 
-  // h = (acc + bo) + x ; y = (h - mean) * rsqrt(var + eps) * gamma + beta
-  constexpr int PER = HID / 32;  // 24 columns per lane
+  // h = (acc + bo) + x, then LayerNorm
   for (int r = warp * 4; r < warp * 4 + 4 && r < valid; ++r) {
-    float h[PER];
-    float s = 0.f;
+    float h[HID / 32];
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
+    for (int j = 0; j < HID / 32; ++j) {
       const int c = lane + 32 * j;
       h[j] = (sC[r * OL_LDC + c] + __bfloat162float(bo[c])) +
              __bfloat162float(x[(m0 + r) * HID + c]);
-      s += h[j];
     }
-    const float mean = warp_sum(s) / HID;
-    float v = 0.f;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const float d = h[j] - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(v) / HID + eps);
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int c = lane + 32 * j;
-      out[(m0 + r) * HID + c] = __float2bfloat16(
-          (h[j] - mean) * rstd * __bfloat162float(gamma[c]) +
-          __bfloat162float(beta[c]));
-    }
+    ln_row_store(h, gamma, beta, eps, out + (m0 + r) * HID, lane);
   }
 }
 

@@ -33,6 +33,34 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// LayerNorm of one 768-wide row held by a warp as 24 fp32 values per lane
+// (column lane + 32 j): out = bf16((h - mean) * rsqrt(var + eps) * gamma +
+// beta), two-pass fp32 statistics.
+__device__ __forceinline__ void ln_row_store(const float (&h)[HID / 32],
+                                             const bf16* gamma,
+                                             const bf16* beta, float eps,
+                                             bf16* out_row, int lane) {
+  constexpr int PER = HID / 32;
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) s += h[j];
+  const float mean = warp_sum(s) / HID;
+  float v = 0.f;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const float d = h[j] - mean;
+    v += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(v) / HID + eps);
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int c = lane + 32 * j;
+    out_row[c] = __float2bfloat16((h[j] - mean) * rstd *
+                                      __bfloat162float(gamma[c]) +
+                                  __bfloat162float(beta[c]));
+  }
+}
+
 // Rows of a tile starting at row m0 that lie inside [0, M), at most cap.
 __device__ __forceinline__ int rows_left(long m0, int M, int cap) {
   const long n = M - m0;
