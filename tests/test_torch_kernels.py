@@ -1,8 +1,8 @@
 """The plain versions of the port's three Hopper kernels against the JAX
 package's Pallas kernels, run as the JAX suite runs them on the CPU
 (``interpret=True``), in fp32 at small shapes; plus the wrappers' refusal
-rules. The CUDA kernels themselves run only on the card (tests marked
-``cuda``, and chip_smoke.py)."""
+rules. The CUDA kernels themselves run only on the card
+(tests/test_torch_cuda.py, and chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -108,10 +108,6 @@ def test_block_rr_bias_and_pick_o_blk_match_jax():
 
 # --- the wrappers never take the plain path off the CPU ---------------------
 
-def _meta_like(t, dtype=None):
-    return torch.empty(t.shape, dtype=dtype or t.dtype, device="meta")
-
-
 def _bf16_meta_modules():
     model = torch_model().to(torch.bfloat16).to("meta")
     return model.bert.encoder.layer[0]
@@ -142,17 +138,3 @@ def test_wrappers_refuse_non_cpu_tensors():
     with pytest.raises(ValueError, match="must be bfloat16"):
         txh.xent_head(h.float(), w, torch.empty(50, device="meta"), lab)
 
-
-@pytest.mark.cuda
-def test_wrappers_refuse_wrong_dtype_on_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    h = torch.randn(64, 768, device="cuda")
-    w = torch.randn(300, 768, device="cuda", dtype=torch.bfloat16)
-    b = torch.zeros(300, device="cuda")
-    lab = torch.zeros(64, dtype=torch.long, device="cuda")
-    with pytest.raises(ValueError, match="must be bfloat16"):
-        txh.xent_head(h, w, b, lab)
-    got = txh.xent_head(h.bfloat16(), w, b, lab)
-    want = txh.xent_head_plain(h.bfloat16(), w, b, lab)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-3)
