@@ -78,9 +78,11 @@ def build() -> Path:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    # object and library names carry the pid: processes that build at the
+    # same time never write one file; os.replace publishes the library
+    objs = [BUILD_DIR / f"{cu.stem}.{os.getpid()}.o" for cu in cus]
     procs = []
-    for cu in cus:
-        obj = BUILD_DIR / (cu.stem + ".o")
+    for cu, obj in zip(cus, objs):
         log = open(BUILD_DIR / (cu.stem + ".log"), "w")
         procs.append((cu, log, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(cu), "-o",
@@ -96,10 +98,11 @@ def build() -> Path:
                          for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
     tmp = BUILD_DIR / (LIB_NAME + f".{os.getpid()}.tmp")
-    subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                    *(str(BUILD_DIR / (cu.stem + ".o")) for cu in cus)],
+    subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                    check=True, capture_output=True)
     os.replace(tmp, lib)
+    for obj in objs:
+        obj.unlink()
     stamp.write_text(digest)
     build_seconds = time.perf_counter() - t0
     return lib

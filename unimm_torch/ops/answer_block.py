@@ -154,7 +154,8 @@ def answer_block(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads, eps=1e-12):
                  f"b_ctx / b_rr must be float32, got {t.dtype}")
     for t in (x, kc, vc, b_ctx, b_rr) + weights:
         _require(t.device == x.device, "all tensors on one device")
-        _require(t.is_contiguous(), "inputs must be contiguous")
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 "inputs must be contiguous and 16-byte aligned")
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     lib = _build.library()
     q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))

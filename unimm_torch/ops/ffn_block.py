@@ -64,7 +64,8 @@ def ffn_block(x, p_inter, p_out, *, act="gelu", eps=1e-12):
         _require(t.dtype == torch.bfloat16,
                  f"activations and weights must be bfloat16, got {t.dtype}")
         _require(t.device == x.device, "all tensors on one device")
-        _require(t.is_contiguous(), "inputs must be contiguous")
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 "inputs must be contiguous and 16-byte aligned")
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     M = x.numel() // HID
     act_buf = torch.empty(M, inter, dtype=x.dtype, device=x.device)

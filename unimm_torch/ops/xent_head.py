@@ -48,7 +48,8 @@ def xent_head(hidden, decoder_weight, decoder_bias, labels):
     _require(not labels.is_floating_point(), "labels must be integers")
     for t in (hidden, decoder_weight, decoder_bias, labels):
         _require(t.device == hidden.device, "all tensors on one device")
-        _require(t.is_contiguous(), "inputs must be contiguous")
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 "inputs must be contiguous and 16-byte aligned")
     _require(hidden.device.type == "cuda",
              f"unsupported device {hidden.device}")
     lab = labels.to(torch.int32)
