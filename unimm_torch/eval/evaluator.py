@@ -25,7 +25,7 @@ from unimm_torch.config import VilbertConfig
 from unimm_torch.eval.prefix import PrefixScorer
 from unimm_torch.ops import metrics as M
 
-FLAT_TODO = ("the flat chunked scorer (discriminative ranking and slates "
+FLAT_NOT_PORTED = ("the flat chunked scorer (discriminative ranking and slates "
              "the prefix scorer cannot take) is not ported yet: ROADMAP.md "
              "queue A, 'flat and discriminative path'")
 
@@ -55,7 +55,7 @@ class RankingEvaluator:
         if not self._prefix.last_ok.all():
             raise NotImplementedError(
                 f"{int((~self._prefix.last_ok).sum())} slate(s) not eligible "
-                f"for prefix scoring; {FLAT_TODO}")
+                f"for prefix scoring; {FLAT_NOT_PORTED}")
 
         def finalize():
             scores, _ = fin()
@@ -133,7 +133,7 @@ def evaluate_split(model, cfg: VilbertConfig, loader, *, mode: str,
     metric dict (R@k / mean / MRR, per round, and NDCG).
     """
     if mode not in ("ll_sum", "ll_mean"):
-        raise NotImplementedError(f"mode {mode!r}: {FLAT_TODO}")
+        raise NotImplementedError(f"mode {mode!r}: {FLAT_NOT_PORTED}")
     ev = RankingEvaluator(cfg, dtype=dtype, prefix_group=prefix_group,
                           prefix_rowblock=prefix_rowblock, device=device)
     sparse = M.SparseGTMetrics()

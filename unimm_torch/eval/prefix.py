@@ -43,7 +43,7 @@ from unimm_torch.ops.answer_block import answer_block, answer_block_plain
 from unimm_torch.ops.ffn_block import ffn_block, ffn_block_plain
 from unimm_torch.ops.xent_head import xent_head, xent_head_plain
 
-W_PADDED_TODO = ("the W-padded answer layout (_answer_impl) is not ported "
+W_PADDED_NOT_PORTED = ("the W-padded answer layout (_answer_impl) is not ported "
                  "yet: ROADMAP.md queue A, 'W-padded answer pass'")
 
 
@@ -369,7 +369,7 @@ class PrefixScorer:
             need = int(n_all[g].max())
             rb = self._rb_for(Lcb, need)
             if need > rb:
-                raise NotImplementedError(W_PADDED_TODO)
+                raise NotImplementedError(W_PADDED_NOT_PORTED)
 
             ctx_batch = self._put(dict(
                 tokens=toks[g, 0, :Lcb], segments=segs[g, 0, :Lcb],

@@ -346,12 +346,14 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
     if cfg.in_batch_pairs or cfg.fast_mode:
         raise NotImplementedError("in_batch_pairs / fast_mode are training "
                                   "modes, not ported in this slice")
-    t_fn = lambda lp, x: encoder_layer(  # noqa: E731
-        lp, x, t_bias, num_heads=cfg.num_attention_heads,
-        act=cfg.hidden_act)
-    v_fn = lambda lp, x: encoder_layer(  # noqa: E731
-        lp, x, v_bias, num_heads=cfg.v_num_attention_heads,
-        act=cfg.v_hidden_act)
+    def t_fn(lp, x):
+        return encoder_layer(lp, x, t_bias, num_heads=cfg.num_attention_heads,
+                             act=cfg.hidden_act)
+
+    def v_fn(lp, x):
+        return encoder_layer(lp, x, v_bias,
+                             num_heads=cfg.v_num_attention_heads,
+                             act=cfg.v_hidden_act)
     v_start = t_start = 0
     for count, (v_end, t_end) in enumerate(
             zip(cfg.v_biattention_id, cfg.t_biattention_id)):
