@@ -19,6 +19,10 @@ from unimm_tpu.models import vilbert as jv
 
 TINY_T = TorchConfig.from_dict(dataclasses.asdict(TINY))
 
+# the TINY shapes gain nothing from intra-op threads, and the suite's
+# parallel workers would oversubscribe the cores with them
+torch.set_num_threads(1)
+
 
 @functools.lru_cache(maxsize=None)
 def jax_params():
