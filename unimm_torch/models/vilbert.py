@@ -234,7 +234,7 @@ def attention_core(q, k, v, bias):
     scores = torch.matmul(q, k.transpose(-1, -2)) * scale
     if bias is not None:
         scores = scores + bias.to(scores.dtype)
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    probs = torch.softmax(scores, dim=-1, dtype=torch.float32).to(q.dtype)
     return torch.matmul(probs, v)
 
 
