@@ -100,7 +100,7 @@ def _coalesced(loader, n: int):
 
 def _serving_loop(loader, dispatch, consume, *, pipeline_depth: int,
                   coalesce: int):
-    """Pipelined, coalesced serving driver: group i + depth is staged and
+    """Pipelined, coalesced serving loop: group i + depth is staged and
     launched before group i's scores are fetched. ``consume(done, batch,
     fin)`` receives the cumulative loader-batch count after the group."""
     if pipeline_depth < 1:

@@ -379,7 +379,7 @@ class PrefixScorer:
             ctx_batch.update(imgs)
 
             gs = g.size
-            n = n_all[g]                                # [gs, O] rows/option
+            n = n_all[g]                          # [gs, O] rows per option
             starts, P = pack_option_rows(n, rb)
             reps = n.ravel()
             oid = np.repeat(np.tile(np.arange(O, dtype=np.int64), gs), reps)
