@@ -34,6 +34,18 @@ def jax_params_np():
     return jax.tree_util.tree_map(np.asarray, jax_params())
 
 
+@functools.lru_cache(maxsize=None)
+def member(seed, std):
+    """(JAX params, the port's fp32 CPU model) of the TINY config drawn
+    from ``seed`` with weight std ``std``."""
+    params = jv.init_params(jax.random.PRNGKey(seed),
+                            TINY.replace(initializer_range=std))
+    model = tv.empty_model(TINY_T, "cpu")
+    model.load_state_dict(state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)), strict=True)
+    return params, model
+
+
 def torch_model(cfg=TINY_T):
     """The port's fp32 CPU model carrying the JAX parameters."""
     model = tv.empty_model(cfg, "cpu")

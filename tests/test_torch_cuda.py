@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same bf16 inputs, at the kernels' width (768) and small
-batches, plus the wrappers' refusals and a short prefix-scorer run through
-all three kernels. Every test needs a CUDA device and skips without one.
+batches, plus the wrappers' refusals, a short prefix-scorer run through
+its three kernels and a short flat-scorer run through its three. Every test needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -15,6 +15,8 @@ import torch
 from unimm_torch.config import VilbertConfig
 from unimm_torch.models import vilbert
 from unimm_torch.ops import answer_block as tab
+from unimm_torch.ops import attention_block as tatb
+from unimm_torch.ops import co_text_block as tco
 from unimm_torch.ops import ffn_block as tfb
 from unimm_torch.ops import xent_head as txh
 from unimm_torch.ops.masks import NEG_INF
@@ -64,6 +66,58 @@ def test_answer_block_matches_plain(dev, Lcb, RB, P):
     assert tab.answer_block.launches == n0 + 1
     want = tab.answer_block_plain(x, kc, vc, b_ctx, b_rr, attn,
                                   num_heads=12)
+    _close(got, want, 5e-2, 2e-2)
+
+
+def _mixed_desc(B, L, gen):
+    """[B, 3] int32 descriptors cycling through: dis at full length, dis
+    with fully masked rows past its extent, gen, gen whose masked answer
+    copy is truncated at L (ctx_end + ans_len > L), and gen with a context
+    of one token."""
+    rows = []
+    for i in range(B):
+        kind = i % 5
+        if kind == 0:
+            rows.append((0, L, 0))
+        elif kind == 1:
+            rows.append((0, int(gen.integers(1, L)), 0))
+        elif kind == 2:
+            a = int(gen.integers(2, 9))
+            rows.append((1, int(gen.integers(a + 2, L - a)), a))
+        elif kind == 3:
+            a = int(gen.integers(3, 9))
+            rows.append((1, L - a + int(gen.integers(1, a)), a))
+        else:
+            rows.append((1, 5, 4))
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("L", [32, 96, 192, 256])
+def test_attention_block_matches_plain(dev, L):
+    gen = torch.Generator(device=dev).manual_seed(L)
+    B = 10
+    attn = _module(lambda: vilbert._attention(768), gen, dev)
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = _mixed_desc(B, L, np.random.default_rng(L)).to(dev)
+    n0 = tatb.attention_block.launches
+    got = tatb.attention_block(x, desc, attn, num_heads=12)
+    assert tatb.attention_block.launches == n0 + 1
+    want = tatb.attention_block_plain(x, desc, attn, num_heads=12)
+    _close(got, want, 5e-2, 2e-2)
+
+
+def test_co_text_block_matches_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, L, R = 6, 224, 37
+    conn = _module(lambda: vilbert._connection(VilbertConfig()), gen, dev)
+    t_x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    v_x = torch.randn(B, R, 1024, generator=gen, device=dev).bfloat16()
+    im = (torch.rand(B, R, generator=gen, device=dev) > 0.3).float()
+    im[2] = 0.0                          # a sequence with every region masked
+    n0 = tco.co_text_block.launches
+    got = tco.co_text_block(t_x, v_x, im, conn, num_heads=8)
+    assert tco.co_text_block.launches == n0 + 1
+    want = tco.co_text_block_plain(t_x, v_x, im, conn, num_heads=8)
     _close(got, want, 5e-2, 2e-2)
 
 
@@ -127,3 +181,37 @@ def test_prefix_scorer_through_the_kernels(dev):
     for k in ("ll_sum", "ll_mean"):
         assert np.isfinite(got[k]).all()
         np.testing.assert_allclose(got[k], plain[k], rtol=1e-2, atol=5e-2)
+
+
+def test_flat_scorer_through_the_kernels(dev):
+    """Two text layers and one connection layer at full width with
+    ``fused_co``: the flat scorer launches the attention-block, FFN and
+    co-attention kernels once per layer per chunk, and its NSP
+    probabilities agree with the plain path on the card."""
+    from unimm_torch import workload
+    from unimm_torch.data.dataset import flatten_for_forward
+    from unimm_torch.eval.evaluator import RankingEvaluator
+
+    cfg = VilbertConfig(num_hidden_layers=2, v_num_hidden_layers=1,
+                        v_biattention_id=(0,), t_biattention_id=(1,),
+                        fused_co=True)
+    model = vilbert.init_model(cfg, seed=0, device=dev)
+    batch = workload.make_dis_batch(np.random.default_rng(1), cfg, B=1, R=2,
+                                    O=50)
+    flat = flatten_for_forward(batch, train=False, compact_images=True)
+    fns = (tatb.attention_block, tfb.ffn_block, tco.co_text_block)
+    counts = [f.launches for f in fns]
+    got = RankingEvaluator(cfg, chunk_size=64, need_lm=False,
+                           device=dev).score_flat(model, flat)
+    chunks = 2                                  # 100 sequences in 64s
+    assert [f.launches - c for f, c in zip(fns, counts)] == [
+        2 * chunks, 3 * chunks, chunks]
+    plain = RankingEvaluator(cfg.replace(attention_impl="xla"),
+                             chunk_size=64, need_lm=False,
+                             device=dev).score_flat(model, flat)
+    assert np.isfinite(got["nsp_prob"]).all()
+    # the plain path rounds to bf16 at other points; at full depth that
+    # moves the NSP margin by ~1e-2 (chip_smoke.py phase 5), the
+    # probability near 0.5 by a quarter of it
+    np.testing.assert_allclose(got["nsp_prob"], plain["nsp_prob"],
+                               rtol=0, atol=5e-3)

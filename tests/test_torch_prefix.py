@@ -11,7 +11,7 @@ import jax.numpy as jnp
 
 from scripts import bench_workload
 from tests._torch_common import (TINY, TINY_T, flatten_slates, jax_params,
-                                 torch_model)
+                                 member, torch_model)
 from tests.test_prefix import make_shared_batch
 from unimm_torch import workload
 from unimm_torch.eval import evaluator as tev
@@ -160,10 +160,37 @@ def test_evaluate_split_matches_jax(model):
 
 
 def test_ineligible_slates_raise(model):
+    """Slates the prefix scorer cannot take no longer raise: score_slates
+    sends them through the flat scorer and equals JAX on a mixed batch
+    (as tests/test_prefix.py:117 holds JAX's prefix + fallback to its
+    all-flat scores), and evaluate_split(mode="nsp") equals JAX."""
     batch = _loader(8, 1)[0]
     batch["tokens"][0, 1, 2, 1] += 1            # breaks one shared context
-    ev = tev.RankingEvaluator(PBLK_T, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="not eligible"):
-        ev.score_slates(model, batch)
-    with pytest.raises(NotImplementedError, match="flat"):
-        tev.evaluate_split(model, PBLK_T, [batch], mode="nsp", device="cpu")
+    batch["mode"][1, 0] = 0                     # one discriminative slate
+    batch["ans_len"][1, 0] = 0
+    ev = tev.RankingEvaluator(PBLK_T, chunk_size=16, dtype=torch.float32,
+                              need_nsp=False, prefix_group=8, device="cpu")
+    got = ev.score_slates(model, batch)
+    ok = ev._prefix.last_ok
+    assert ok.any() and not ok.all()
+    want = jev.RankingEvaluator(TINY, chunk_size=16, dtype=jnp.float32,
+                                need_nsp=False, prefix_group=8).score_slates(
+        jax_params(), batch)
+    for k in ("ll_sum", "ll_mean"):
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=2e-5,
+                                   err_msg=k)
+    _ranks_equal(got["ll_sum"], want["ll_sum"], 6)
+
+    # NSP ranks need options that do not tie: weights of std 0.2
+    params, m = member(0, 0.2)
+    ranks_t, ranks_j = [], []
+    got = tev.evaluate_split(m, PBLK_T, [batch], mode="nsp", chunk_size=16,
+                             dtype=torch.float32, ranks_out=ranks_t,
+                             progress_every=0, device="cpu")
+    want = jev.evaluate_split(params, TINY, [batch], mode="nsp",
+                              chunk_size=16, dtype=jnp.float32,
+                              ranks_out=ranks_j, progress_every=0)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k] == pytest.approx(want[k], abs=1e-6), k
+    assert ranks_t == ranks_j

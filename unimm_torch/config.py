@@ -61,14 +61,18 @@ class VilbertConfig:
     # --- serving additions -------------------------------------------------
     max_seq_len: int = 256          # dialog sequence length
     max_regions: int = 37           # region count incl. the global <IMG> row
-    # answer-pass implementation: "pallas_block" runs the Hopper kernels
-    # (ops/answer_block.py, ops/ffn_block.py, ops/xent_head.py); "xla" runs
-    # their plain PyTorch versions. The context prefill is plain PyTorch
-    # either way.
+    # "pallas_block" runs the Hopper kernels: the prefix scorer's answer
+    # pass (ops/answer_block.py, ops/ffn_block.py, ops/xent_head.py) and
+    # the flat scorer's text stream (ops/attention_block.py,
+    # ops/ffn_block.py, ops/co_text_block.py); "xla" runs their plain
+    # PyTorch versions. The prefix scorer's context prefill is plain
+    # PyTorch either way.
     attention_impl: str = "pallas_block"
-    # under "pallas_block": also route the answer pass's text FFNs through
-    # the FFN kernel
+    # under "pallas_block": also route the text FFNs through the FFN kernel
     fused_ffn: bool = True
+    # under "pallas_block": also route the text side of every connection
+    # layer of the flat scorer through the co-attention kernel
+    fused_co: bool = False
 
     def __post_init__(self):
         if len(self.v_biattention_id) != len(self.t_biattention_id):

@@ -17,6 +17,7 @@
 //                         registers, a max/exp-sum pass, then an exact
 //                         softmax pass that multiplies by V
 //   3. out_ln_kernel      Wo + bo + residual + LayerNorm on 32-row tiles
+//                         (block_parts.cuh)
 // What bounds it on an H100: ~7 GFLOP per 1280-row slate against ~5 MB of
 // its activations and biases (the 4.7 MB of weights are shared by the
 // group), so the tensor-core rate.
@@ -24,29 +25,11 @@
 // device memory between the launches; the [rows, Lcb + RB] scores and
 // probabilities never leave registers.
 
-#include "common.cuh"
+#include "block_parts.cuh"
 
 namespace {
 
-// ---- launch 1: row Q/K/V projection (gemm_nt_kernel, grid z = q/k/v) --
-struct QkvEpi {  // y = bf16(acc + b); q additionally bf16(fp32(y) * scale)
-  const bf16* b[3];
-  bf16* y[3];
-  float scale[3];
-  __device__ __forceinline__ void operator()(int z, long row, int col,
-                                             float v0, float v1) const {
-    bf16 o0 = __float2bfloat16(v0 + __bfloat162float(b[z][col]));
-    bf16 o1 = __float2bfloat16(v1 + __bfloat162float(b[z][col + 1]));
-    if (scale[z] != 1.0f) {
-      o0 = __float2bfloat16(__bfloat162float(o0) * scale[z]);
-      o1 = __float2bfloat16(__bfloat162float(o1) * scale[z]);
-    }
-    __nv_bfloat162 o;
-    o.x = o0;
-    o.y = o1;
-    *reinterpret_cast<__nv_bfloat162*>(y[z] + row * HID + col) = o;
-  }
-};
+// launch 1: row Q/K/V projection (gemm_nt_kernel + QkvEpi, block_parts.cuh)
 
 // ---- launch 2: attention over (cached context ++ row block) keys ---------
 // One CTA per (query tile of QT = min(RB, 128) rows, head, slate); each warp
@@ -250,102 +233,8 @@ __global__ void __launch_bounds__(AT_MAX_QT * 2)
   }
 }
 
-// ---- launch 3: output projection + residual + LayerNorm ------------------
-// One CTA per 32 rows holds all 768 output columns, so the LayerNorm runs in
-// the same launch: 8 warps, warp w computes columns [96 w, 96 w + 96) of
-// both 16-row halves (24 accumulator tiles), Wo streamed in k slices of 32.
-constexpr int OL_ROWS = 32, OL_THREADS = 256, OL_BK = 32, OL_LD = OL_BK + 8;
-constexpr int OL_LDC = HID + 4;  // pitch of the fp32 pre-LayerNorm tile
-
-size_t out_ln_smem_bytes() {
-  const size_t a = (size_t)2 * OL_ROWS * OL_LD * 2;
-  const size_t w = (size_t)2 * HID * OL_LD * 2;
-  const size_t c = (size_t)OL_ROWS * OL_LDC * 4;
-  return a + (w > c ? w : c);
-}
-
-__global__ void __launch_bounds__(OL_THREADS)
-    out_ln_kernel(const bf16* __restrict__ ctx, const bf16* __restrict__ x,
-                  const bf16* __restrict__ wo, const bf16* __restrict__ bo,
-                  const bf16* __restrict__ gamma,
-                  const bf16* __restrict__ beta, float eps,
-                  bf16* __restrict__ out, int M) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);      // [2][32][OL_LD]
-  bf16* sW = sA + 2 * OL_ROWS * OL_LD;           // [2][768][OL_LD]
-  float* sC = reinterpret_cast<float*>(sW);      // epilogue, aliases sW
-  const long m0 = (long)blockIdx.x * OL_ROWS;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int valid = rows_left(m0, M, OL_ROWS);
-
-  auto stage = [&](int st, int k0) {
-    stage_tile(sA + st * OL_ROWS * OL_LD, OL_LD, ctx + m0 * HID + k0, HID,
-               OL_ROWS, OL_BK, valid, tid, OL_THREADS);
-    stage_tile(sW + st * HID * OL_LD, OL_LD, wo + k0, HID, HID, OL_BK, HID,
-               tid, OL_THREADS);
-  };
-  float acc[2][12][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 12; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
-  const int a_off = (lane & 15) * OL_LD + (lane >> 4) * 8;
-  const int b_off = (warp * 96 + (lane & 7) + ((lane >> 4) << 3)) * OL_LD +
-                    ((lane >> 3) & 1) * 8;
-  constexpr int NK = HID / OL_BK;
-  stage(0, 0);
-  cp_commit();
-  for (int kt = 0; kt < NK; ++kt) {
-    if (kt + 1 < NK) stage((kt + 1) & 1, (kt + 1) * OL_BK);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const bf16* a = sA + (kt & 1) * OL_ROWS * OL_LD + a_off;
-    const bf16* b = sW + (kt & 1) * HID * OL_LD + b_off;
-#pragma unroll
-    for (int kk = 0; kk < OL_BK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) ldmatrix_x4(af[i], a + i * 16 * OL_LD + kk);
-#pragma unroll
-      for (int jj = 0; jj < 6; ++jj) {
-        uint32_t bfr[4];
-        ldmatrix_x4(bfr, b + jj * 16 * OL_LD + kk);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * jj], af[i], bfr[0], bfr[1]);
-          mma_bf16(acc[i][2 * jj + 1], af[i], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  const int gr = lane >> 2, gc = (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 12; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<float2*>(
-            sC + (i * 16 + gr + hh * 8) * OL_LDC + warp * 96 + j * 8 + gc) =
-            make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
-  __syncthreads();
-
-  // h = (acc + bo) + x, then LayerNorm
-  for (int r = warp * 4; r < warp * 4 + 4 && r < valid; ++r) {
-    float h[HID / 32];
-#pragma unroll
-    for (int j = 0; j < HID / 32; ++j) {
-      const int c = lane + 32 * j;
-      h[j] = (sC[r * OL_LDC + c] + __bfloat162float(bo[c])) +
-             __bfloat162float(x[(m0 + r) * HID + c]);
-    }
-    ln_row_store(h, gamma, beta, eps, out + (m0 + r) * HID, lane);
-  }
-}
+// launch 3: output projection + residual + LayerNorm (out_ln_kernel,
+// block_parts.cuh)
 
 }  // namespace
 
@@ -366,7 +255,8 @@ extern "C" int unimm_answer_block(
             static_cast<const bf16*>(bv)},
            {static_cast<bf16*>(q_buf), static_cast<bf16*>(k_buf),
             static_cast<bf16*>(v_buf)},
-           {0.125f, 1.0f, 1.0f}};  // q scale: 1 / sqrt(head_dim 64)
+           {0.125f, 1.0f, 1.0f},  // q scale: 1 / sqrt(head_dim 64)
+           HID};
   cudaError_t err = launch_gemm_nt(g, 3, e, st);
   if (err != cudaSuccess) return err;
 
@@ -385,14 +275,6 @@ extern "C" int unimm_answer_block(
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t ln_smem = out_ln_smem_bytes();
-  cudaFuncSetAttribute(out_ln_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)ln_smem);
-  out_ln_kernel<<<(M + OL_ROWS - 1) / OL_ROWS, OL_THREADS, ln_smem, st>>>(
-      static_cast<const bf16*>(ctx_buf), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(wo), static_cast<const bf16*>(bo),
-      static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta), eps,
-      static_cast<bf16*>(out), M);
-  return cudaGetLastError();
+  return launch_out_ln(ctx_buf, x, wo, bo, gamma, beta, eps, out, M, HID,
+                       st);
 }

@@ -1,65 +1,225 @@
-"""Candidate-ranking evaluation on the prefix-cache path: generative
-sequence log-likelihood ranking (reference val_lm.py) and its
-token-averaged form (val_avg_lm.py).
+"""Candidate-ranking evaluation: generative sequence log-likelihood ranking
+(reference val_lm.py), its token-averaged form (val_avg_lm.py),
+discriminative NSP-probability ranking (train.py visdial_evaluate, val.py)
+and the multi-model ensemble with per-slate min-max normalisation
+(val.py, evaluate.py).
 
-The port of the JAX package's ``eval/evaluator.py`` serving loop:
-``RankingEvaluator.score_slates(_async)`` scores [B, R, O] val batches
-through the prefix-cache scorer; ``evaluate_split`` coalesces loader
-batches, keeps ``pipeline_depth`` of them in flight, and accumulates R@k /
-MRR / mean rank and NDCG.
+The port of the JAX package's ``eval/evaluator.py`` serving loop on one
+device. ``RankingEvaluator.score_flat(_async)`` scores a flat [N, ...]
+batch in fixed-size padded chunks (sorted by attended extent, each chunk
+sliced to its length bucket) through ``models/unimm.forward_eval``;
+``score_slates(_async)`` scores [B, R, O] val batches through the
+prefix-cache scorer when only answer log-likelihoods are needed and sends
+the slates it cannot take through the flat scorer. ``evaluate_split`` and
+``evaluate_ensemble`` coalesce loader batches, keep ``pipeline_depth`` of
+them in flight, and accumulate R@k / MRR / mean rank and NDCG.
 
-Not in this slice: the flat chunked scorer (discriminative ``mode="nsp"``
-and the fallback for slates the prefix scorer cannot take) and the mesh /
-multi-process arguments. A batch that would need them raises
-``NotImplementedError``; nothing quietly takes another path.
+Not in this slice: the mesh / multi-process arguments (``mesh``,
+``process_merge``, multi-process ``dump_ranks_merged``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import json
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from unimm_torch.config import VilbertConfig
+from unimm_torch.data.dataset import flatten_for_forward
 from unimm_torch.eval.prefix import PrefixScorer
+from unimm_torch.models import unimm, vilbert
+from unimm_torch.ops import masks as M_masks
 from unimm_torch.ops import metrics as M
 
-FLAT_NOT_PORTED = ("the flat chunked scorer (discriminative ranking and slates "
-             "the prefix scorer cannot take) is not ported yet: ROADMAP.md "
-             "queue A, 'flat and discriminative path'")
+# per-chunk sequence arrays; position ids are always regenerated from the
+# descriptor on the device
+_SEQ_KEYS = ("tokens", "segments", "mode", "ctx_end", "ans_len",
+             "mlm_labels", "img_index")
+_IMG_KEYS = ("image_feat", "image_loc", "image_mask")
 
 
 class RankingEvaluator:
-    def __init__(self, cfg: VilbertConfig, *, dtype=torch.bfloat16,
-                 bucket_div: int = 8, prefix_group: int = 40,
+    def __init__(self, cfg: VilbertConfig, *, chunk_size: int = 256,
+                 dtype=torch.bfloat16, need_lm=True, need_nsp=True,
+                 length_buckets=True, bucket_div: int = 8,
+                 gen_prefix=True, prefix_group: int = 40,
                  prefix_rowblock: int = 0, device="cuda"):
-        """Answer log-likelihood scoring (the reference's need_lm, no NSP)
-        through the prefix-cache scorer (eval/prefix.py)."""
+        """``length_buckets``: score sequences sorted by their attended
+        extent (``masks.attended_extent``), each chunk sliced to the
+        smallest covering multiple of L / ``bucket_div``; exact, since rows
+        and columns past the extent are fully masked. Scores are restored
+        to the caller's order.
+
+        ``gen_prefix``: for LM-only scoring (``need_nsp=False``), score
+        slates whose options share a context through the prefix-cache
+        scorer (``score_slates``); ineligible slates take the flat path.
+
+        The compute-dtype copy of each model is made once and reused while
+        its parameters are unchanged (``vilbert.ComputeModels``), one per
+        ensemble member."""
         self.cfg = cfg
+        self.chunk = chunk_size
         self.dtype = dtype
-        self._prefix = PrefixScorer(cfg, dtype=dtype, group=prefix_group,
-                                    bucket_div=bucket_div,
-                                    row_block=prefix_rowblock, device=device)
+        self.length_buckets = length_buckets
+        self._bucket_div = bucket_div
+        self._need_lm = need_lm
+        self._need_nsp = need_nsp
+        self.device = vilbert.resolve_device(device)
+        self._compute_model = vilbert.ComputeModels(dtype)
+        self._prefix = None
+        if (gen_prefix and need_lm and not need_nsp
+                and not cfg.in_batch_pairs and not cfg.fast_mode):
+            self._prefix = PrefixScorer(
+                cfg, dtype=dtype, group=prefix_group, bucket_div=bucket_div,
+                row_block=prefix_rowblock,
+                compute_models=self._compute_model, device=self.device)
 
-    def score_slates(self, model, batch) -> dict:
-        """Score a [B, R, O] val batch; returns flat [B*R*O] ll_sum /
-        ll_mean arrays in the batch's order."""
-        return self.score_slates_async(model, batch)()
+    def _fwd(self, cast, d_bias, chunk, pmax):
+        out = unimm.forward_eval(cast, self.cfg, chunk, dtype=self.dtype,
+                                 need_lm=self._need_lm,
+                                 need_nsp=self._need_nsp,
+                                 max_label_positions=pmax,
+                                 decoder_bias=d_bias)
+        res = {}
+        if self._need_nsp:
+            # P(next) = softmax(logits)[:, 0]  (train.py:261-263)
+            res["nsp_prob"] = torch.softmax(out["nsp_logits"], dim=-1)[:, 0]
+        if self._need_lm:
+            res["ll_sum"] = -out["lm_nll_sum"]
+            res["ll_mean"] = -out["lm_nll_mean"]
+        return res
 
-    def score_slates_async(self, model, batch):
-        """Stage and launch a [B, R, O] val batch; return a closure that
-        fetches and assembles the flat score dict."""
-        B, R, O = np.asarray(batch["tokens"]).shape[:3]
-        fin = self._prefix.score_async(model, batch)
-        if not self._prefix.last_ok.all():
-            raise NotImplementedError(
-                f"{int((~self._prefix.last_ok).sum())} slate(s) not eligible "
-                f"for prefix scoring; {FLAT_NOT_PORTED}")
+    def _label_bucket(self, flat) -> int:
+        """Smallest power-of-two label budget (>= 8) covering this batch:
+        the head's cost is linear in the budget, real answers carry ~8
+        label tokens."""
+        if not self._need_lm:
+            return unimm.MAX_LABEL_POSITIONS
+        counts = (np.asarray(flat["mlm_labels"]) != -1).sum(axis=-1)
+        need = int(counts.max(initial=1))
+        p = 8
+        while p < need:
+            p *= 2
+        return min(p, unimm.MAX_LABEL_POSITIONS)
+
+    def _length_order(self, flat):
+        """(sort order, sorted extents) by attended extent; the label
+        guard keeps the buckets exact for synthetic inputs with labels past
+        the extent."""
+        ext = M_masks.attended_extent(
+            flat["mode"], flat["ctx_end"], flat["ans_len"],
+            flat["tokens"].shape[-1],
+            flat.get("mlm_labels") if self._need_lm else None)
+        order = np.argsort(ext, kind="stable")
+        return order, ext[order]
+
+    def _put(self, v):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(
+            self.device, non_blocking=True)
+
+    def score_flat(self, model, flat: Dict[str, np.ndarray]) -> dict:
+        """Score a flat [N, ...] batch in fixed-size padded chunks; returns
+        [N] score arrays (nsp_prob and / or ll_sum, ll_mean) in input
+        order."""
+        return self.score_flat_async(model, flat)()
+
+    @torch.no_grad()
+    def score_flat_async(self, model, flat: Dict[str, np.ndarray]):
+        """Stage and launch every chunk of a flat batch; return a closure
+        that fetches and assembles the score dict. Per-image arrays
+        (compact storage + img_index) are staged once per batch; the
+        sequence arrays move per chunk. Launches are asynchronous on the
+        card, so a caller can stage the next batch before finalizing this
+        one."""
+        N = flat["tokens"].shape[0]
+        Lmax = flat["tokens"].shape[-1]
+        compact = "img_index" in flat
+        pmax = self._label_bucket(flat)
+        order = None
+        if self.length_buckets and N > 1:
+            order, ext_sorted = self._length_order(flat)
+            seq_keys = [k for k in _SEQ_KEYS if k in flat] + \
+                [k for k in _IMG_KEYS if k in flat and not compact]
+            flat = dict(flat, **{k: np.asarray(flat[k])[order]
+                                 for k in seq_keys})
+        cast = self._compute_model(model)
+        # the fp32 tied-decoder bias, read before the compute-dtype cast
+        d_bias = model.cls.predictions.bias.detach().float()
+        imgs = ({k: self._put(flat[k]) for k in _IMG_KEYS if k in flat}
+                if compact else {})
+        chunk_keys = list(_SEQ_KEYS) + ([] if compact else list(_IMG_KEYS))
+        outs = []
+        for s in range(0, N, self.chunk):
+            e = min(s + self.chunk, N)
+            chunk = {k: np.asarray(flat[k])[s:e] for k in chunk_keys
+                     if k in flat}
+            pad = self.chunk - (e - s)
+            if pad:
+                chunk = {k: np.concatenate(
+                    [v, np.repeat(v[-1:], pad, axis=0)]) for k, v in
+                    chunk.items()}
+            if order is not None:
+                Lb = M_masks.quarter_bucket(int(ext_sorted[s:e].max()), Lmax,
+                                            div=self._bucket_div)
+                if Lb < Lmax:
+                    for k in ("tokens", "segments", "mlm_labels"):
+                        if k in chunk:
+                            chunk[k] = chunk[k][:, :Lb]
+            chunk = {k: self._put(v) for k, v in chunk.items()}
+            chunk.update(imgs)
+            outs.append((e - s, self._fwd(cast, d_bias, chunk, pmax)))
 
         def finalize():
-            scores, _ = fin()
-            return {k: v.reshape(B * R * O) for k, v in scores.items()}
+            fetched = [{k: v[:n].cpu().numpy() for k, v in res.items()}
+                       for n, res in outs]
+            scores = {k: np.concatenate([o[k] for o in fetched])
+                      for k in fetched[0]}
+            if order is not None:
+                inv = np.empty_like(order)
+                inv[order] = np.arange(N)
+                scores = {k: v[inv] for k, v in scores.items()}
+            return scores
+
+        return finalize
+
+    def score_slates(self, model, batch: Dict[str, np.ndarray]) -> dict:
+        """Score a [B, R, O] val batch; returns flat [B*R*O] score arrays
+        in the batch's order, with the keys of ``score_flat``."""
+        return self.score_slates_async(model, batch)()
+
+    def score_slates_async(self, model, batch: Dict[str, np.ndarray]):
+        """Stage and launch a [B, R, O] val batch; return a closure that
+        fetches and assembles the flat score dict. Slates the prefix scorer
+        cannot take (decided on the host at dispatch) are launched through
+        the flat scorer at the same time."""
+        B, R, O = np.asarray(batch["tokens"]).shape[:3]
+        if self._prefix is None:
+            return self.score_flat_async(
+                model, flatten_for_forward(batch, train=False,
+                                           compact_images=True))
+        fin_prefix = self._prefix.score_async(model, batch)
+        ok = self._prefix.last_ok
+        fin_flat, m = None, None
+        if not ok.all():
+            flat = flatten_for_forward(batch, train=False,
+                                       compact_images=True)
+            m = np.repeat(~ok, O)
+            # per-image arrays pass whole; every per-sequence array,
+            # img_index included, is masked to the ineligible rows
+            sub = {k: (v if k in _IMG_KEYS else v[m])
+                   for k, v in flat.items()}
+            fin_flat = self.score_flat_async(model, sub)
+
+        def finalize():
+            pref, _ = fin_prefix()
+            scores = {k: v.reshape(B * R * O).copy() for k, v in pref.items()}
+            if fin_flat is not None:
+                fb = fin_flat()
+                for k in scores:
+                    scores[k][m] = fb[k]
+            return scores
 
         return finalize
 
@@ -118,24 +278,45 @@ def _serving_loop(loader, dispatch, consume, *, pipeline_depth: int,
         consume(*p)
 
 
+def _evaluator(cfg, mode, **kw):
+    """The evaluator for ``mode`` and the score key it ranks by: NSP
+    scores through the flat scorer (``score_slates`` has no prefix scorer
+    then), ll_sum / ll_mean through the prefix scorer and its flat
+    fallback."""
+    if mode not in ("nsp", "ll_sum", "ll_mean"):
+        raise ValueError(f"mode {mode!r}: 'nsp', 'll_sum' or 'll_mean'")
+    need_lm = mode != "nsp"
+    return (RankingEvaluator(cfg, need_lm=need_lm, need_nsp=not need_lm,
+                             **kw),
+            "nsp_prob" if mode == "nsp" else mode)
+
+
+def _valid(batch, B):
+    # rows duplicated by a loader's tail padding: scored (fixed shapes) but
+    # never ranked or observed
+    return (np.asarray(batch["valid"]) if "valid" in batch
+            else np.ones(B, bool))
+
+
 def evaluate_split(model, cfg: VilbertConfig, loader, *, mode: str,
-                   dtype=torch.bfloat16, ranks_out: Optional[list] = None,
+                   chunk_size: int = 256, dtype=torch.bfloat16,
+                   ranks_out: Optional[list] = None,
                    progress_every: int = 10, log=print,
-                   prefix_group: int = 40, prefix_rowblock: int = 0,
-                   pipeline_depth: int = 1, coalesce: int = 2,
-                   device="cuda") -> dict:
+                   gen_prefix: bool = True, prefix_group: int = 40,
+                   prefix_rowblock: int = 0, pipeline_depth: int = 1,
+                   coalesce: int = 2, device="cuda") -> dict:
     """Run ranking eval over a loader of [B, R, O] val batches.
 
-    mode: 'll_sum' (val_lm) or 'll_mean' (val_avg_lm); 'nsp' needs the flat
-    scorer and raises. Batches carry gt_option_inds [B, R], round_id [B],
+    mode: 'nsp' (discriminative, the flat scorer), 'll_sum' (val_lm) or
+    'll_mean' (val_avg_lm; both through the prefix scorer with the flat
+    fallback). Batches carry gt_option_inds [B, R], round_id [B],
     gt_relevance [B, O], image_id [B] when ``ranks_out`` is given, and
     optionally a boolean ``valid`` [B] mask of rows to observe. Returns the
     metric dict (R@k / mean / MRR, per round, and NDCG).
     """
-    if mode not in ("ll_sum", "ll_mean"):
-        raise NotImplementedError(f"mode {mode!r}: {FLAT_NOT_PORTED}")
-    ev = RankingEvaluator(cfg, dtype=dtype, prefix_group=prefix_group,
-                          prefix_rowblock=prefix_rowblock, device=device)
+    ev, key = _evaluator(cfg, mode, chunk_size=chunk_size, dtype=dtype,
+                         gen_prefix=gen_prefix, prefix_group=prefix_group,
+                         prefix_rowblock=prefix_rowblock, device=device)
     sparse = M.SparseGTMetrics()
     ndcg = M.NDCG()
     logged = 0
@@ -146,9 +327,8 @@ def evaluate_split(model, cfg: VilbertConfig, loader, *, mode: str,
     def consume(done, batch, finalize):
         nonlocal logged
         B, R, O = np.asarray(batch["tokens"]).shape[:3]
-        out = finalize()[mode].reshape(B, R, O)
-        valid = (np.asarray(batch["valid"]) if "valid" in batch
-                 else np.ones(B, bool))
+        out = finalize()[key].reshape(B, R, O)
+        valid = _valid(batch, B)
         if ranks_out is not None:
             ranks = M.scores_to_ranks(out)
             for b in range(B):
@@ -176,3 +356,95 @@ def evaluate_split(model, cfg: VilbertConfig, loader, *, mode: str,
     _serving_loop(loader, dispatch, consume,
                   pipeline_depth=pipeline_depth, coalesce=coalesce)
     return {**sparse.retrieve(), **ndcg.retrieve()}
+
+
+def minmax_per_slate(scores: np.ndarray) -> np.ndarray:
+    """Per-slate min-max normalisation for ensembling (val.py:151-158)."""
+    lo = scores.min(axis=-1, keepdims=True)
+    hi = scores.max(axis=-1, keepdims=True)
+    return (scores - lo) / np.maximum(hi - lo, 1e-12)
+
+
+def evaluate_ensemble(models: Sequence, cfg: VilbertConfig, loader, *,
+                      mode: str = "nsp", chunk_size: int = 256,
+                      dtype=torch.bfloat16, ranks_out: Optional[list] = None,
+                      test_split: bool = False, log=print,
+                      gen_prefix: bool = True, prefix_group: int = 40,
+                      prefix_rowblock: int = 0, pipeline_depth: int = 1,
+                      coalesce: int = 1, progress_every: int = 10,
+                      device="cuda") -> dict:
+    """Multi-checkpoint ensemble: per-model scores are min-max normalised
+    per slate and summed (val.py:151-164 / evaluate.py:108-132). With
+    ``test_split`` the loader yields [B, 1, 100] slates and ranks_out
+    records the EvalAI format (round_id from the data); no metrics are
+    computed (the test split has no ground truth). Pipelining, coalescing
+    and the ``valid`` mask as in ``evaluate_split``; every member's chunks
+    of a group are launched before the previous group is fetched."""
+    ev, key = _evaluator(cfg, mode, chunk_size=chunk_size, dtype=dtype,
+                         gen_prefix=gen_prefix, prefix_group=prefix_group,
+                         prefix_rowblock=prefix_rowblock, device=device)
+    sparse = M.SparseGTMetrics()
+    ndcg = M.NDCG()
+    logged = 0
+
+    def dispatch(batch):
+        return [ev.score_slates_async(m, batch) for m in models]
+
+    def consume(done, batch, fins):
+        nonlocal logged
+        B, R, O = np.asarray(batch["tokens"]).shape[:3]
+        total = np.zeros((B, R, O), np.float64)
+        for fin in fins:
+            total += minmax_per_slate(fin()[key].reshape(B, R, O))
+        valid = _valid(batch, B)
+        if ranks_out is not None:
+            ranks = M.scores_to_ranks(total)
+            for b in range(B):
+                if not valid[b]:
+                    continue
+                if test_split:
+                    ranks_out.append({
+                        "image_id": int(batch["image_id"][b]),
+                        "round_id": int(np.asarray(batch["round_id"])
+                                        .reshape(B)[b]),
+                        "ranks": [int(x) for x in ranks[b, 0]],
+                    })
+                else:
+                    for r in range(R):
+                        ranks_out.append({
+                            "image_id": int(batch["image_id"][b]),
+                            "round_id": r + 1,
+                            "ranks": [int(x) for x in ranks[b, r]],
+                        })
+        if not test_split:
+            sparse.observe(total[valid],
+                           np.asarray(batch["gt_option_inds"])[valid])
+            rid = np.asarray(batch["round_id"]).reshape(B)
+            ndcg.observe(total[np.arange(B), rid - 1][valid],
+                         np.asarray(batch["gt_relevance"])[valid])
+        if progress_every and done // progress_every > logged:
+            logged = done // progress_every
+            log(f"eval batches: {done}")
+
+    _serving_loop(loader, dispatch, consume,
+                  pipeline_depth=pipeline_depth, coalesce=coalesce)
+    if test_split:
+        return {}
+    return {**sparse.retrieve(), **ndcg.retrieve()}
+
+
+def dump_ranks(ranks: list, path: str):
+    """Write the ranks list as JSON (one process)."""
+    with open(path, "w") as f:
+        json.dump(ranks, f)
+
+
+def dump_ranks_merged(ranks: list, path: str) -> int:
+    """Write one predictions file sorted by (image_id, round_id), as the
+    reference's single save_name file (val_lm.py:186-190); returns the
+    record count. One process only: the data-sharded multi-process merge
+    is not in this slice."""
+    ranks = sorted(ranks, key=lambda e: (e["image_id"], e["round_id"]))
+    with open(path, "w") as f:
+        json.dump(ranks, f)
+    return len(ranks)

@@ -121,15 +121,17 @@ class PrefixScorer:
 
     ``group``: slates per group; groups share one context bucket Lcb and
     are balanced to equal sizes. ``row_block``: 0 picks the row block per
-    group (``_rb_for``), else fixed. Ineligible slates are left to the
-    caller (``last_ok`` after ``score_async``).
+    group (``_rb_for``), else fixed. ``compute_models``: the
+    ``vilbert.ComputeModels`` cache of compute-dtype copies to use (one of
+    its own by default; the evaluator shares its cache). Ineligible slates
+    are left to the caller (``last_ok`` after ``score_async``).
     """
 
     _IMG_KEYS = ("image_feat", "image_loc", "image_mask")
 
     def __init__(self, cfg: VilbertConfig, *, dtype=torch.bfloat16,
                  group: int = 40, bucket_div: int = 8, row_block: int = 0,
-                 device="cuda"):
+                 compute_models=None, device="cuda"):
         if cfg.in_batch_pairs or cfg.fast_mode:
             raise ValueError("prefix scoring needs in_batch_pairs and "
                              "fast_mode off")
@@ -140,7 +142,8 @@ class PrefixScorer:
         self._rb = row_block
         self.device = vilbert.resolve_device(device)
         self._ctx_cfg = cfg.replace(attention_impl="xla")
-        self._cast = None
+        self._compute_model = (compute_models if compute_models is not None
+                               else vilbert.ComputeModels(dtype))
         self.last_ok = None
 
     def _rb_for(self, Lcb: int, need: int) -> int:
@@ -175,16 +178,6 @@ class PrefixScorer:
             return ffn_block(hb, p_inter, p_out,
                              act=cfg.hidden_act).reshape(h.shape)
         return ffn
-
-    def _compute_model(self, model):
-        """The model in the compute dtype, cast once and reused while the
-        source model's parameters are unchanged."""
-        versions = tuple(p._version for p in model.parameters())
-        if (self._cast is None or self._cast[0] is not model
-                or self._cast[1] != versions):
-            self._cast = (model, versions,
-                          vilbert.cast_floating(model, self.dtype))
-        return self._cast[2]
 
     def _put(self, arrays):
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(

@@ -1,12 +1,15 @@
 """UniMM-UL top-level eval functions: descriptors -> biases -> encoder ->
-answer log-likelihoods.
+answer log-likelihoods and NSP logits.
 
-The port of the JAX package's ``models/unimm.py`` eval path on its bias
-branch. ``encode`` is what the prefix scorer's context prefill runs;
-``forward_eval`` is the flat full-sequence scorer, the oracle the tests hold
-the prefix scorer against. Answer NLL is taken at gathered label positions
-by an online softmax over the tied decoder; the [N, L, vocab] logits never
-exist.
+The port of the JAX package's ``models/unimm.py`` eval path. ``encode``
+dispatches on ``cfg.attention_impl``: "pallas_block" runs the text stream
+through the Hopper kernels (attention block, FFN, and under
+``cfg.fused_co`` the co-attention text side), which make the text mask
+from the descriptor, so no [B, L, L] bias is built; "xla" runs the plain
+PyTorch encoder over additive biases (what the prefix scorer's context
+prefill runs). ``forward_eval`` is the flat full-sequence scorer. Answer
+NLL is taken at gathered label positions by an online softmax over the
+tied decoder; the [N, L, vocab] logits never exist.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ from unimm_torch.config import VilbertConfig
 from unimm_torch.models import vilbert
 from unimm_torch.ops import losses as L
 from unimm_torch.ops import masks
+from unimm_torch.ops.attention_block import attention_block
+from unimm_torch.ops.co_text_block import co_text_block
+from unimm_torch.ops.ffn_block import ffn_block
 
 # Label positions gathered per sequence on the flat eval path: the
 # generative layout bounds an answer at ~126 label tokens, so 128 covers
@@ -44,13 +50,36 @@ def encode(model, cfg: VilbertConfig, batch, *, dtype=torch.float32,
     """Run the two-stream encoder from a descriptor batch (dict of tensors
     on one device): tokens/segments [B, L], mode/ctx_end/ans_len [B],
     image_feat [B, R, F], image_loc [B, R, 5], image_mask [B, R], optional
-    img_index [B]. Returns (t_seq, v_seq, pooled_t, pooled_v)."""
+    img_index [B]. Returns (t_seq, v_seq, pooled_t, pooled_v).
+
+    ``model`` is best passed already in ``dtype`` (``cast_floating``
+    returns such a model as it is; any other is copied on every call)."""
     batch = expand_images(batch)
     model = vilbert.cast_floating(model, dtype)
     p = model.bert
     Lmax = batch["tokens"].shape[-1]
     mode, ce, al = batch["mode"], batch["ctx_end"], batch["ans_len"]
-    t_bias = masks.text_self_bias(mode, ce, al, Lmax, dtype)
+    t_bias = text_fused_block = text_fused_ffn = text_fused_co = None
+    if cfg.attention_impl == "pallas_block":
+        desc = torch.stack([torch.as_tensor(mode), torch.as_tensor(ce),
+                            torch.as_tensor(al)], -1).to(torch.int32)
+
+        def text_fused_block(p_attn, x):
+            return attention_block(x, desc, p_attn,
+                                   num_heads=cfg.num_attention_heads)
+
+        if cfg.fused_ffn:
+            def text_fused_ffn(p_inter, p_out, x):
+                return ffn_block(x, p_inter, p_out, act=cfg.hidden_act)
+
+        if cfg.fused_co:
+            imask = batch["image_mask"].float().contiguous()
+
+            def text_fused_co(p_conn, v_x, t_x):
+                return co_text_block(t_x, v_x, imask, p_conn,
+                                     num_heads=cfg.bi_num_attention_heads)
+    else:
+        t_bias = masks.text_self_bias(mode, ce, al, Lmax, dtype)
     v_bias = masks.image_self_bias(batch["image_mask"], dtype)
     co_bias = masks.co_attention_bias(mode, ce, al, Lmax, dtype)
     pos = batch.get("positions")
@@ -61,8 +90,10 @@ def encode(model, cfg: VilbertConfig, batch, *, dtype=torch.float32,
                                   dtype=dtype)
     v_x = vilbert.image_embeddings(p.v_embeddings, cfg, batch["image_feat"],
                                    batch["image_loc"], dtype=dtype)
-    t_seq, v_seq = vilbert.encoder(p.encoder, cfg, t_x, v_x, t_bias, v_bias,
-                                   co_bias, tap=tap)
+    t_seq, v_seq = vilbert.encoder(
+        p.encoder, cfg, t_x, v_x, t_bias, v_bias, co_bias, tap=tap,
+        text_fused_block=text_fused_block, text_fused_ffn=text_fused_ffn,
+        text_fused_co=text_fused_co)
     return (t_seq, v_seq, vilbert.pooler(p.t_pooler, t_seq),
             vilbert.pooler(p.v_pooler, v_seq))
 
@@ -80,11 +111,20 @@ def label_positions(mlm_labels, max_positions: int = MAX_LABEL_POSITIONS):
 @torch.no_grad()
 def forward_eval(model, cfg: VilbertConfig, batch, *, dtype=torch.bfloat16,
                  need_lm=True, need_nsp=True,
-                 max_label_positions: int = MAX_LABEL_POSITIONS):
+                 max_label_positions: int = MAX_LABEL_POSITIONS,
+                 decoder_bias=None):
     """Flat eval scoring pass (reference val_lm.py:121-143 semantics).
 
     Returns a dict with nsp_logits [B, 2], lm_nll_sum [B] (answer NLL
-    summed over label tokens) and lm_nll_mean [B] (token-averaged)."""
+    summed over label tokens) and lm_nll_mean [B] (token-averaged).
+
+    A caller that scores many chunks passes ``model`` already in
+    ``dtype`` (one ``cast_floating`` per model) and ``decoder_bias``, the
+    fp32 tied-decoder bias of the source model, which the JAX package
+    reads before its compute-dtype cast; without it the bias is read from
+    ``model`` and a model in another dtype is cast on this call."""
+    if decoder_bias is None:
+        decoder_bias = model.cls.predictions.bias.float()
     cast = vilbert.cast_floating(model, dtype)
     t_seq, _, pooled_t, pooled_v = encode(cast, cfg, batch, dtype=dtype)
     out = {}
@@ -97,10 +137,7 @@ def forward_eval(model, cfg: VilbertConfig, batch, *, dtype=torch.bfloat16,
         pos, labs = label_positions(batch["mlm_labels"], max_label_positions)
         hidden = vilbert.mlm_head_at_positions(cast, cfg, t_seq, pos)
         decoder = cast.bert.embeddings.word_embeddings.weight
-        # the fp32 decoder bias of the uncast model, as the JAX package reads
-        # it before the compute-dtype cast
-        bias = model.cls.predictions.bias.float()
-        nll = L.online_softmax_xent(hidden, decoder, bias, labs)
+        nll = L.online_softmax_xent(hidden, decoder, decoder_bias, labs)
         count = (labs != -1).float().sum(-1)
         out["lm_nll_sum"] = nll.sum(-1)
         out["lm_nll_mean"] = out["lm_nll_sum"] / torch.clamp(count, min=1.0)

@@ -188,6 +188,25 @@ def cast_floating(model: nn.Module, dtype) -> nn.Module:
     return copy.deepcopy(model, memo)
 
 
+class ComputeModels:
+    """Compute-dtype copies of source models: one ``cast_floating`` per
+    model, reused while that model's parameters are unchanged (their
+    version counters), so a scorer casts once per model and not per call.
+    Holds each source model it has seen."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+        self._by_id = {}
+
+    def __call__(self, model):
+        versions = tuple(p._version for p in model.parameters())
+        hit = self._by_id.get(id(model))
+        if hit is None or hit[0] is not model or hit[1] != versions:
+            hit = (model, versions, cast_floating(model, self.dtype))
+            self._by_id[id(model)] = hit
+        return hit[2]
+
+
 # ---------------------------------------------------------------------------
 # small building blocks
 # ---------------------------------------------------------------------------
@@ -242,8 +261,12 @@ def attention_core(q, k, v, bias):
 # transformer blocks
 # ---------------------------------------------------------------------------
 
-def self_attention_block(p, x, bias, *, num_heads):
-    """BertAttention: self-attention + output projection + residual LN."""
+def self_attention_block(p, x, bias, *, num_heads, fused_block=None):
+    """BertAttention: self-attention + output projection + residual LN.
+    ``fused_block(p, x)`` replaces the whole block (the attention-block
+    kernel, which makes the mask from the descriptor)."""
+    if fused_block is not None:
+        return fused_block(p, x)
     ps = p.self
     q = _split_heads(linear(ps.query, x), num_heads)
     k = _split_heads(linear(ps.key, x), num_heads)
@@ -253,16 +276,22 @@ def self_attention_block(p, x, bias, *, num_heads):
     return layer_norm(po.LayerNorm, linear(po.dense, ctx) + x)
 
 
-def ffn_block(p_inter, p_out, x, *, act):
-    """BertIntermediate + BertOutput."""
+def ffn_block(p_inter, p_out, x, *, act, fused_ffn=None):
+    """BertIntermediate + BertOutput. ``fused_ffn(p_inter, p_out, x)``
+    replaces the chain (the FFN kernel)."""
+    if fused_ffn is not None:
+        return fused_ffn(p_inter, p_out, x)
     h = ACT[act](linear(p_inter.dense, x))
     return layer_norm(p_out.LayerNorm, linear(p_out.dense, h) + x)
 
 
-def encoder_layer(p, x, bias, *, num_heads, act):
+def encoder_layer(p, x, bias, *, num_heads, act, fused_block=None,
+                  fused_ffn=None):
     """BertLayer / BertImageLayer."""
-    h = self_attention_block(p.attention, x, bias, num_heads=num_heads)
-    return ffn_block(p.intermediate, p.output, h, act=act)
+    h = self_attention_block(p.attention, x, bias, num_heads=num_heads,
+                             fused_block=fused_block)
+    return ffn_block(p.intermediate, p.output, h, act=act,
+                     fused_ffn=fused_ffn)
 
 
 def co_text_side(p, cfg: VilbertConfig, v_x, t_x, v_bias):
@@ -278,7 +307,8 @@ def co_text_side(p, cfg: VilbertConfig, v_x, t_x, v_bias):
     return layer_norm(po.LayerNorm2, linear(po.dense2, ctx) + t_x)
 
 
-def connection_layer(p, cfg: VilbertConfig, v_x, v_bias, t_x, co_bias):
+def connection_layer(p, cfg: VilbertConfig, v_x, v_bias, t_x, co_bias, *,
+                     fused_t_ffn=None, fused_co_text=None):
     """BertConnectionLayer: co-attention + both FFNs.
 
     Keeps the reference's argument swap (vilbert_dialog.py:775,
@@ -286,6 +316,9 @@ def connection_layer(p, cfg: VilbertConfig, v_x, v_bias, t_x, co_bias):
     context feeds the VISION residual through dense1, the text-queries-image
     context the TEXT residual through dense2. Image->text scores get only
     the co-attention bias, text->image scores only the image padding bias.
+    ``fused_co_text(p, v_x, t_x)`` replaces the text side before its FFN
+    (the co-attention kernel) and ``fused_t_ffn`` the text FFN; the image
+    side is always plain.
     """
     pb, po = p.biattention, p.biOutput
     nh = cfg.bi_num_attention_heads
@@ -294,11 +327,12 @@ def connection_layer(p, cfg: VilbertConfig, v_x, v_bias, t_x, co_bias):
     v2 = _split_heads(linear(pb.value2, t_x), nh)
     ctx_v = _merge_heads(attention_core(q1, k2, v2, co_bias))
     v_out = layer_norm(po.LayerNorm1, linear(po.dense1, ctx_v) + v_x)
-    t_out = co_text_side(p, cfg, v_x, t_x, v_bias)
+    t_out = (fused_co_text(p, v_x, t_x) if fused_co_text is not None
+             else co_text_side(p, cfg, v_x, t_x, v_bias))
     v_out = ffn_block(p.v_intermediate, p.v_output, v_out,
                       act=cfg.v_hidden_act)
     t_out = ffn_block(p.t_intermediate, p.t_output, t_out,
-                      act=cfg.hidden_act)
+                      act=cfg.hidden_act, fused_ffn=fused_t_ffn)
     return v_out, t_out
 
 
@@ -335,8 +369,15 @@ def image_embeddings(p, cfg: VilbertConfig, features, locations, *, dtype):
 # ---------------------------------------------------------------------------
 
 def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
-            tap=None):
+            tap=None, text_fused_block=None, text_fused_ffn=None,
+            text_fused_co=None):
     """BertEncoder interleave.
+
+    ``text_fused_block`` / ``text_fused_ffn`` / ``text_fused_co`` replace
+    every text layer's attention block, every text FFN (text layers and
+    connection layers) and every connection layer's text side (see
+    ``self_attention_block``, ``ffn_block``, ``connection_layer``); the
+    vision stream is always plain.
 
     ``tap(kind, idx, x)`` is called with each text layer's input ("t",
     layer, t_x) and each connection layer's vision input ("c_v", count,
@@ -348,7 +389,8 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
                                   "modes, not ported in this slice")
     def t_fn(lp, x):
         return encoder_layer(lp, x, t_bias, num_heads=cfg.num_attention_heads,
-                             act=cfg.hidden_act)
+                             act=cfg.hidden_act, fused_block=text_fused_block,
+                             fused_ffn=text_fused_ffn)
 
     def v_fn(lp, x):
         return encoder_layer(lp, x, v_bias,
@@ -367,7 +409,9 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
             if tap is not None:
                 tap("c_v", count, v_x)
             v_x, t_x = connection_layer(p.c_layer[count], cfg, v_x, v_bias,
-                                        t_x, co_bias)
+                                        t_x, co_bias,
+                                        fused_t_ffn=text_fused_ffn,
+                                        fused_co_text=text_fused_co)
         v_start, t_start = v_end, t_end
     for i in range(v_start, cfg.v_num_hidden_layers):
         v_x = v_fn(p.v_layer[i], v_x)

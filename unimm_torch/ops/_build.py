@@ -37,6 +37,8 @@ _SIGNATURES = {
     "unimm_answer_block": [_VP] * 20 + [_INT] * 4 + [_F32, _VP],
     "unimm_ffn_block": [_VP] * 10 + [_INT] * 3 + [_F32, _VP],
     "unimm_xent_head": [_VP] * 5 + [_INT] * 2 + [_VP],
+    "unimm_attention_block": [_VP] * 17 + [_INT] * 2 + [_F32, _VP],
+    "unimm_co_text_block": [_VP] * 18 + [_INT] * 3 + [_F32, _VP],
 }
 
 

@@ -1,0 +1,114 @@
+"""Whole-sequence BERT attention sub-block of the flat scorer, with the
+text mask made from the descriptor.
+
+``attention_block`` replaces the TPU kernel
+``unimm_tpu/ops/pallas_attention_v2.py:fused_attention_block`` (and its
+in-kernel mask, ``unimm_tpu/ops/pallas_attention.py:_mask_bias``): QKV
+projection, the dis/gen text mask from the ``(mode, ctx_end, ans_len)``
+descriptor, fp32 softmax, PV, head merge, output projection, residual,
+LayerNorm. On a CUDA tensor it launches the hand-written kernel in
+``csrc/attention_block.cu`` (three launches: Q/K/V projection, attention
+per (query tile, head, sequence) with the mask computed in the kernel,
+output projection + LayerNorm); on a CPU tensor it runs
+``attention_block_plain``, which repeats the kernel's arithmetic and
+rounding points in plain PyTorch over the ``[B, L, L]`` bias of
+``masks.mask_bias``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from unimm_torch.ops import _build
+from unimm_torch.ops.answer_block import _weights
+from unimm_torch.ops.masks import mask_bias
+
+HID = 768        # the width the CUDA kernel is built for
+HEAD_DIM = 64
+MAX_LEN = 256    # the longest sequence whose K/V fit one CTA's shared memory
+
+
+def attention_block_plain(x, desc, p_attn, *, num_heads, eps=1e-12):
+    """Plain PyTorch version of the kernel, with its rounding points:
+    projections accumulate in fp32 and round to x.dtype after the bias; q
+    is scaled in fp32 and rounded; scores, mask and softmax are fp32; the
+    probabilities and each head's context round to x.dtype; the output
+    projection, bias, residual and LayerNorm run in fp32."""
+    wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta = _weights(p_attn)
+    dt = x.dtype
+    B, L, Hd = x.shape
+    D = Hd // num_heads
+    xf = x.float()
+
+    def proj(w, b):
+        return (xf @ w.float().t() + b.float()).to(dt)
+
+    def heads(t):        # [B, L, Hd] -> [B, H, L, D] fp32
+        return t.reshape(B, L, num_heads, D).permute(0, 2, 1, 3).float()
+
+    q = (proj(wq, bq).float() * (1.0 / math.sqrt(D))).to(dt)
+    k, v = proj(wk, bk), proj(wv, bv)
+    s = heads(q) @ heads(k).transpose(-1, -2) + mask_bias(desc, L)[:, None]
+    p = torch.softmax(s, dim=-1).to(dt).float()
+    ctx = (p @ heads(v)).to(dt).permute(0, 2, 1, 3).reshape(B, L, Hd)
+    h32 = (ctx.float() @ wo.float().t() + bo.float()) + xf
+    mean = h32.mean(-1, keepdim=True)
+    var = (h32 - mean).square().mean(-1, keepdim=True)
+    y = (h32 - mean) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(dt)
+
+
+def _require(cond, msg):
+    if not cond:
+        raise ValueError(f"attention_block: {msg}")
+
+
+def attention_block(x, desc, p_attn, *, num_heads, eps=1e-12):
+    """LayerNorm(x + Wo . attention(x under the descriptor's text mask) +
+    bo) for whole sequences.
+
+    x [B, L, 768]; desc [B, 3] int32 (mode, ctx_end, ans_len); p_attn the
+    layer's ``attention`` module in the compute dtype. A CPU tensor runs
+    ``attention_block_plain``; a CUDA tensor launches the kernel (bf16
+    activations and weights, 32 <= L <= 256 with L % 32 == 0) or raises.
+    """
+    if x.device.type == "cpu":
+        return attention_block_plain(x, desc, p_attn, num_heads=num_heads,
+                                     eps=eps)
+    weights = _weights(p_attn)
+    _require(x.dim() == 3, f"x must be [B, L, {HID}], got {tuple(x.shape)}")
+    B, L, Hd = x.shape
+    _require(Hd == HID and Hd // num_heads == HEAD_DIM,
+             f"kernel is built for width {HID} in heads of {HEAD_DIM}, got "
+             f"{Hd} / {num_heads}")
+    _require(L % 32 == 0 and 32 <= L <= MAX_LEN,
+             f"sequence length {L} must be a multiple of 32 in "
+             f"[32, {MAX_LEN}]")
+    _require(tuple(desc.shape) == (B, 3) and desc.dtype == torch.int32,
+             f"desc must be int32 [{B}, 3], got {desc.dtype} "
+             f"{tuple(desc.shape)}")
+    shapes = [(HID, HID), (HID,)] * 4 + [(HID,), (HID,)]
+    for t, shp in zip(weights, shapes):
+        _require(tuple(t.shape) == shp, f"weight shape {tuple(t.shape)}")
+    for t in (x,) + weights:
+        _require(t.dtype == torch.bfloat16,
+                 f"activations and weights must be bfloat16, got {t.dtype}")
+    for t in (x, desc) + weights:
+        _require(t.device == x.device, "all tensors on one device")
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 "inputs must be contiguous and 16-byte aligned")
+    _require(x.device.type == "cuda", f"unsupported device {x.device}")
+    lib = _build.library()
+    q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))
+    code = lib.unimm_attention_block(
+        x.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in weights),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
+        out.data_ptr(), B, L, eps, _build.stream(x.device))
+    _build.check(code, "attention_block")
+    attention_block.launches += 1
+    return out
+
+
+attention_block.launches = 0

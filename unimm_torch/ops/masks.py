@@ -17,6 +17,7 @@ utils/data_utils.py:139-288 generative, :291-428 discriminative):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -10000.0  # additive-mask fill value (reference vilbert_dialog.py:1418)
@@ -63,6 +64,17 @@ def position_ids(mode, ctx_end, ans_len, max_len: int):
     return torch.where(mode == 0, dis, gen).long()
 
 
+def mask_bias(desc, max_len: int):
+    """[B, max_len, max_len] fp32 additive text-mask bias from a [B, 3]
+    (mode, ctx_end, ans_len) descriptor: the plain version of the bias the
+    attention-block kernel makes in its body (the JAX package's
+    ``ops/pallas_attention._mask_bias``, whose arithmetic select of the
+    dis / gen zones equals this one for the modes 0 and 1)."""
+    desc = torch.as_tensor(desc)
+    return to_additive(text_attention_mask(desc[:, 0], desc[:, 1],
+                                           desc[:, 2], max_len))
+
+
 def to_additive(mask_bool, dtype=torch.float32):
     """(1 - mask) * -10000 additive bias."""
     zero = torch.zeros((), dtype=dtype, device=mask_bool.device)
@@ -87,6 +99,24 @@ def co_attention_bias(mode, ctx_end, ans_len, max_len: int,
     """[..., 1, 1, max_len] additive bias for image-attends-text scores."""
     return to_additive(co_text_mask(mode, ctx_end, ans_len, max_len),
                        dtype)[..., None, None, :]
+
+
+def attended_extent(mode, ctx_end, ans_len, max_len: int, mlm_labels=None):
+    """Host-side (numpy) per-sequence attended extent: the first row/column
+    index past which the self-attention mask is all closed. dis: ctx_end;
+    gen: ctx_end + ans_len (rows >= T attend nothing and no open row
+    reaches past T). With ``mlm_labels`` the label positions bound the
+    extent too, a guard for synthetic inputs. Scoring a sequence at any
+    padded length >= its extent gives the same scores (the length buckets
+    of the flat scorer)."""
+    mode = np.asarray(mode)
+    ext = np.where(mode == 0, np.asarray(ctx_end),
+                   np.asarray(ctx_end) + np.asarray(ans_len))
+    if mlm_labels is not None:
+        labs = np.asarray(mlm_labels)
+        ext = np.maximum(ext, ((labs != -1) *
+                               np.arange(1, labs.shape[-1] + 1)).max(-1))
+    return np.clip(ext, 1, max_len)
 
 
 def quarter_bucket(ext_max: int, max_len: int, div: int = 4) -> int:

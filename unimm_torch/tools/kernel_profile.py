@@ -2,16 +2,19 @@
 
     python3 -m unimm_torch.tools.kernel_profile [--iters 5]
     python3 -m unimm_torch.tools.kernel_profile --main-path
+    python3 -m unimm_torch.tools.kernel_profile --dis-path
 
 Default: for each kernel wrapper at main-path shapes, a JSON line with the
 mean device time per call of every CUDA kernel the call launched (the
 sub-kernels of one wrapper seen one by one). ``--main-path``: one warm
-``evaluate_split`` over 2 coalesced pinned batches at the default config,
-with its wall time, the summed device time of all kernels, the device idle
-share (1 - device / wall; one stream, so kernels do not overlap), the
-kernels that took the most device time, and the PyTorch operators whose
-kernels took the most (inclusive). Both end with the card's name and
-power limit.
+generative ``evaluate_split`` over 2 coalesced pinned batches (one slate
+group pair) at the default config; ``--dis-path``: one warm
+discriminative ``evaluate_split(mode="nsp")`` over 2 coalesced pinned
+``make_dis_batch`` batches (one group of 16 chunks). Each reports its wall
+time, the summed device time of all kernels, the device idle share (1 -
+device / wall; one stream, so kernels do not overlap), the kernels that
+took the most device time, and the PyTorch operators whose kernels took
+the most (inclusive). All end with the card's name and power limit.
 """
 
 import argparse
@@ -39,7 +42,7 @@ def _kernel_times(fn, iters):
     return out
 
 
-def main_path(dev):
+def main_path(dev, dis=False):
     import time
 
     import numpy as np
@@ -53,12 +56,17 @@ def main_path(dev):
     cfg = VilbertConfig()
     model = vilbert.init_model(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
-    batches = [workload.with_ranking_targets(
-        workload.make_val_batch(rng, cfg, 2, 10, 100), rng) for _ in range(2)]
+    if dis:
+        batches = [workload.make_dis_batch(rng, cfg, 2, 10, 100)
+                   for _ in range(2)]
+    else:
+        batches = [workload.with_ranking_targets(
+            workload.make_val_batch(rng, cfg, 2, 10, 100), rng)
+            for _ in range(2)]
 
     def run():
-        evaluate_split(model, cfg, batches, mode="ll_sum", progress_every=0,
-                       device=dev)
+        evaluate_split(model, cfg, batches, mode="nsp" if dis else "ll_sum",
+                       progress_every=0, device=dev)
         torch.cuda.synchronize()
 
     run()
@@ -82,7 +90,8 @@ def main_path(dev):
     rows.sort(reverse=True)
     ops.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(json.dumps({"main_path_wall_ms": wall * 1e3,
+    print(json.dumps({"path": "dis" if dis else "gen",
+                      "main_path_wall_ms": wall * 1e3,
                       "device_busy_ms": busy,
                       "device_idle_share": 1 - busy / (wall * 1e3),
                       "top_kernels": [{"ms": r[0], "launches": r[1],
@@ -96,6 +105,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--main-path", action="store_true")
+    ap.add_argument("--dis-path", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_profile: needs a CUDA device")
@@ -104,12 +114,15 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    if args.main_path:
-        main_path(torch.device("cuda", 0))
+    if args.main_path or args.dis_path:
+        main_path(torch.device("cuda", 0), dis=args.dis_path)
         print(card)
         return
+    from unimm_torch.config import VilbertConfig
     from unimm_torch.models import vilbert
     from unimm_torch.ops.answer_block import answer_block
+    from unimm_torch.ops.attention_block import attention_block
+    from unimm_torch.ops.co_text_block import co_text_block
     from unimm_torch.ops.ffn_block import ffn_block
     from unimm_torch.ops.masks import NEG_INF
     from unimm_torch.ops.xent_head import xent_head
@@ -154,6 +167,22 @@ def main():
     t = _kernel_times(lambda: xent_head(h, w, b, lab), args.iters)
     print(json.dumps({"wrapper": "xent_head", "shape": "M=25600 V=30522",
                       "ms": t}), flush=True)
+    for L in (192, 256):
+        x = rand(256, L, 768)
+        desc = torch.zeros(256, 3, dtype=torch.int32, device=dev)
+        desc[:, 1] = L - 8
+        t = _kernel_times(lambda: attention_block(x, desc, attn,
+                                                  num_heads=12), args.iters)
+        print(json.dumps({"wrapper": "attention_block",
+                          "shape": f"[256, {L}, 768]", "ms": t}), flush=True)
+    conn = module(lambda: vilbert._connection(VilbertConfig()))
+    t_x, v_x = rand(256, 224, 768), rand(256, 37, 1024)
+    im = torch.ones(256, 37, device=dev)
+    t = _kernel_times(lambda: co_text_block(t_x, v_x, im, conn, num_heads=8),
+                      args.iters)
+    print(json.dumps({"wrapper": "co_text_block",
+                      "shape": "[256, 224, 768] x [256, 37, 1024]", "ms": t}),
+          flush=True)
     print(card)
 
 

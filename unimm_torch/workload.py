@@ -1,11 +1,14 @@
-"""The val_lm serving workload: shared-context generative slates.
+"""The serving workloads: shared-context generative slates (val_lm) and
+discriminative NSP-ranking slates.
 
-Copies of the JAX package's ``scripts/bench_workload.make_val_batch`` and
-``realistic_ctx_range`` with the same defaults and the same per-option RNG
-draw order, so a seed gives the same batches in both packages. Per (dialog,
-round): one shared context of 58-191 tokens; per option a 2-8 token answer
-appended as the first copy plus a masked second copy carrying the labels,
-the layout encode_gen emits for real VisDial slates.
+Copies of the JAX package's ``scripts/bench_workload.make_val_batch``,
+``make_dis_batch`` and ``realistic_ctx_range`` with the same defaults and
+the same per-option RNG draw order, so a seed gives the same batches in
+both packages. Per (dialog, round): one shared context of 58-191 tokens;
+per option a 2-8 token answer. Generative: the answer appended as the
+first copy plus a masked second copy carrying the labels, the layout
+encode_gen emits for real VisDial slates. Discriminative: the answer
+appended once, mode 0, the layout encode_dis emits.
 """
 
 import numpy as np
@@ -22,6 +25,48 @@ def realistic_ctx_range(L):
         hi = min(L - 18, int(base * 1.15))
         return lo, max(lo + 1, hi)
     return fn
+
+
+def make_dis_batch(rng, cfg, B=2, R=10, O=100, ctx_range=(58, 192),
+                   ans_range=(2, 9), feat_dim=None, ctx_range_fn=None):
+    """A [B, R, O] discriminative (NSP-ranking) val batch drawn from
+    ``rng``: context + one answer copy per option, mode 0, ctx_end = the
+    real length, ans_len 0, no labels; the ranking targets
+    (gt_option_inds, round_id, gt_relevance, image_id) are drawn after
+    the images, as the JAX package draws them."""
+    L, Rg = cfg.max_seq_len, cfg.max_regions
+    if feat_dim is None:
+        feat_dim = 2048
+    tokens = np.zeros((B, R, O, L), np.int32)
+    segments = np.zeros((B, R, O, L), np.int32)
+    ctx_end = np.zeros((B, R, O), np.int32)
+    for b in range(B):
+        for r in range(R):
+            lc = int(rng.integers(*(ctx_range_fn(r) if ctx_range_fn
+                                    else ctx_range)))
+            ctx = rng.integers(1, cfg.vocab_size, lc).astype(np.int32)
+            cs = rng.integers(0, 2, lc).astype(np.int32)
+            for o in range(O):
+                a = int(rng.integers(*ans_range))
+                ans = rng.integers(1, cfg.vocab_size, a).astype(np.int32)
+                t1 = min(lc + a, L)
+                tokens[b, r, o, :lc] = ctx
+                segments[b, r, o, :lc] = cs
+                tokens[b, r, o, lc:t1] = ans[:t1 - lc]
+                ctx_end[b, r, o] = t1
+    return {
+        "tokens": tokens, "segments": segments,
+        "mode": np.zeros((B, R, O), np.int32),
+        "ctx_end": ctx_end, "ans_len": np.zeros((B, R, O), np.int32),
+        "mlm_labels": np.full((B, R, O, L), -1, np.int32),
+        "image_feat": rng.normal(size=(B, Rg, feat_dim)).astype(np.float32),
+        "image_loc": rng.normal(size=(B, Rg, 5)).astype(np.float32),
+        "image_mask": np.ones((B, Rg), np.float32),
+        "gt_option_inds": rng.integers(0, O, (B, R)).astype(np.int32),
+        "round_id": rng.integers(1, R + 1, (B,)).astype(np.int32),
+        "gt_relevance": rng.random((B, O)).astype(np.float32),
+        "image_id": np.arange(B).astype(np.int64),
+    }
 
 
 def make_val_batch(rng, cfg, B=2, R=10, O=100, ctx_range=(58, 192),
