@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same bf16 inputs, at the kernels' width (768) and small
 batches, plus the wrappers' refusals, a short prefix-scorer run through
-its three kernels and a short flat-scorer run through its three. Every test needs a CUDA device and skips without one.
+its three kernels, a short flat-scorer run through its three, and the
+training attention block (forward and backward, with dropout) and the
+fused AdamW. Every test needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -14,8 +16,10 @@ import torch
 
 from unimm_torch.config import VilbertConfig
 from unimm_torch.models import vilbert
+from unimm_torch.ops import adamw as tadam
 from unimm_torch.ops import answer_block as tab
 from unimm_torch.ops import attention_block as tatb
+from unimm_torch.ops import attention_block_train as tabt
 from unimm_torch.ops import co_text_block as tco
 from unimm_torch.ops import ffn_block as tfb
 from unimm_torch.ops import xent_head as txh
@@ -215,3 +219,91 @@ def test_flat_scorer_through_the_kernels(dev):
     # probability near 0.5 by a quarter of it
     np.testing.assert_allclose(got["nsp_prob"], plain["nsp_prob"],
                                rtol=0, atol=5e-3)
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|, in fp32."""
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    return float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("L,drop", [(256, 0.1), (96, 0.1), (32, 0.0)])
+def test_attention_block_train_matches_plain(dev, L, drop):
+    """The training block's forward (y, ctx) and backward kernel (dx_qkv,
+    dq, dk, dv) against their plain twins on the same bf16 inputs and the
+    same Philox seed, with mixed descriptors and attention and hidden
+    dropout: the forward within the eval block's bound, the backward's
+    bf16 outputs within 2% of their largest entry (they round P, dS and
+    the outputs at the same points; only fp32 summation order differs)."""
+    gen = torch.Generator(device=dev).manual_seed(L)
+    B = 8
+    attn = _module(lambda: vilbert._attention(768), gen, dev)
+    ws = tuple(t.contiguous() for t in tab._weights(attn))
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = _mixed_desc(B, L, np.random.default_rng(L)).to(dev)
+    m_o = ((torch.rand(B, L, 768, generator=gen, device=dev) > drop).float()
+           / (1 - drop)) if drop else None
+    kw = dict(num_heads=12, attn_drop=drop)
+    n0 = tabt.attention_block_train_fwd.launches
+    y, ctx = tabt.attention_block_train_fwd(x, desc, 77, m_o, *ws, **kw)
+    assert tabt.attention_block_train_fwd.launches == n0 + 1
+    y_p, ctx_p = tabt.attention_block_train_fwd_plain(x, desc, 77, m_o, *ws,
+                                                      **kw)
+    _close(y, y_p, 5e-2, 2e-2)
+    _close(ctx, ctx_p, 2e-2, 2e-2)
+    dctx = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    n0 = tabt.attention_block_train_bwd.launches
+    got = tabt.attention_block_train_bwd(x, dctx, desc, 77, *ws[:6], **kw)
+    assert tabt.attention_block_train_bwd.launches == n0 + 1
+    want = tabt.attention_block_train_bwd_plain(x, dctx, desc, 77, *ws[:6],
+                                                **kw)
+    for name, g, w in zip(("dx", "dq", "dk", "dv"), got, want):
+        assert _rel_err(g, w) <= 2e-2, name
+
+
+def test_attention_block_train_autograd(dev):
+    """The autograd Function on the card: its gradients of x and the ten
+    weights against the same Function's plain path on the CPU (same bf16
+    inputs, seed and masks)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, L = 4, 128
+    attn = _module(lambda: vilbert._attention(768), gen, dev)
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = _mixed_desc(B, L, np.random.default_rng(3)).to(dev)
+    m_o = (torch.rand(B, L, 768, generator=gen, device=dev) > 0.1).float() / 0.9
+    dy = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+
+    def grads(device):
+        xs = x.to(device).requires_grad_()
+        ws = [t.detach().to(device).requires_grad_()
+              for t in tab._weights(attn)]
+        y = tabt.AttentionBlockTrain.apply(
+            xs, desc.to(device), 5, m_o.to(device), *ws, 12, 0.1, 1e-12)
+        return torch.autograd.grad(y, [xs] + ws, dy.to(device))
+
+    names = ["x", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "gamma",
+             "beta"]
+    for name, g, w in zip(names, grads(dev), grads("cpu")):
+        # the key bias shifts every score of a row by the same amount, to
+        # which the softmax is blind: its gradient is rounding noise
+        if name != "bk":
+            assert _rel_err(g.cpu(), w) <= 3e-2, name
+
+
+@pytest.mark.parametrize("shape", [(30522, 768), (768,), (1001,), (3, 5)])
+def test_adamw_matches_plain_bit_for_bit(dev, shape):
+    gen = torch.Generator(device=dev).manual_seed(len(shape))
+
+    def rnd(scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    g, p, mu, nu = rnd(1e-2), rnd(), rnd(1e-3), rnd(1e-5).abs()
+    args = (2e-5, 0.01, 1.0 - 0.9 ** 3, 1.0 - 0.999 ** 3)
+    want = tadam.adamw_update_leaf_plain(g, p, mu, nu, *args)
+    n0 = tadam.adamw_update_leaf.launches
+    got = tadam.adamw_update_leaf(g.clone(), p, mu.clone(), nu.clone(),
+                                  *args)
+    assert tadam.adamw_update_leaf.launches == n0 + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -10,13 +10,15 @@ The port's ``VilbertModel`` carries the reference ``state_dict`` names, so:
   ``model_state_dict`` with strict key matching after stripping the
   ``module.`` / ``bert_pretrained.`` prefixes and the legacy gamma/beta
   names; the tied ``cls.predictions.decoder.weight`` must equal the word
-  embeddings it is tied to.
+  embeddings it is tied to;
+* ``language_param_set`` / ``group_label`` give each parameter its
+  optimizer group (train/optim.py), as the reference train.py groups them.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -96,3 +98,29 @@ def load_reference_state_dict(model: torch.nn.Module,
         raise ValueError(f"{TIED_DECODER} is not tied to {WORD_EMBEDDINGS}")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+# ---------------------------------------------------------------------------
+# optimizer parameter groups (reference train.py:322-347)
+# ---------------------------------------------------------------------------
+
+def language_param_set(language_weights: List[str]) -> set:
+    """The reference names in config/language_weights.json, normalised."""
+    return {_normalize_key(k) for k in language_weights}
+
+
+def group_label(name: Union[str, Tuple[str, ...]], lang_set: set) -> str:
+    """One of 'lang_decay', 'lang_nodecay', 'img_decay', 'img_nodecay' for
+    the parameter ``name`` (a state_dict key, or a JAX pytree path).
+
+    As the reference groups them: membership in language_weights.json
+    decides the learning rate; a substring match on "bias" or
+    "LayerNorm.weight" decides weight decay. The substring rule is the
+    reference's, quirks included: it was written for names whose
+    LayerNorm scale was still called "gamma", and it also exempts any name
+    that merely contains "bias" (e.g. the biattention weights)."""
+    if not isinstance(name, str):
+        name = torch_name(tuple(name))
+    lang = name in lang_set
+    no_decay = ("bias" in name) or ("LayerNorm.weight" in name)
+    return ("lang" if lang else "img") + ("_nodecay" if no_decay else "_decay")

@@ -4,10 +4,12 @@ encoder.
 The port's own copy of the JAX package's ``VilbertConfig``: the same model
 fields and defaults, read from the same JSON schema as the reference
 ``BertConfig`` (config/bert_base_6layer_6conect.json), so configuration
-files are shared between the two packages; the JAX package's training
-options are not carried. ``attention_impl="pallas_block"`` keeps its name
-and here means "run the hand-written Hopper kernels" on the eval paths that
-have them; ``"xla"`` means the plain PyTorch versions.
+files are shared between the two packages, with the JAX package's training
+options ``remat``, ``mlm_loss_impl`` and ``max_train_label_positions``.
+``attention_impl="pallas_block"`` keeps its name and here means "run the
+hand-written Hopper kernels" on the paths that have them (eval, and the
+training step's text attention blocks); ``"xla"`` means the plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -64,8 +66,9 @@ class VilbertConfig:
     # "pallas_block" runs the Hopper kernels: the prefix scorer's answer
     # pass (ops/answer_block.py, ops/ffn_block.py, ops/xent_head.py) and
     # the flat scorer's text stream (ops/attention_block.py,
-    # ops/ffn_block.py, ops/co_text_block.py); "xla" runs their plain
-    # PyTorch versions. The prefix scorer's context prefill is plain
+    # ops/ffn_block.py, ops/co_text_block.py) and, in training, the text
+    # attention blocks (ops/attention_block_train.py); "xla" runs their
+    # plain PyTorch versions. The prefix scorer's context prefill is plain
     # PyTorch either way.
     attention_impl: str = "pallas_block"
     # under "pallas_block": also route the text FFNs through the FFN kernel
@@ -73,6 +76,19 @@ class VilbertConfig:
     # under "pallas_block": also route the text side of every connection
     # layer of the flat scorer through the co-attention kernel
     fused_co: bool = False
+    # --- training (the JAX package's defaults) -----------------------------
+    # rematerialise encoder layers in the backward pass; not ported yet
+    # (training with it raises)
+    remat: bool = False
+    # training MLM loss: "gathered" takes the NLL at <=
+    # max_train_label_positions gathered label positions through the
+    # chunk-recomputing online softmax (no [N, L, vocab] logits in either
+    # pass); "dense" materialises the full logits as the reference does
+    mlm_loss_impl: str = "gathered"
+    # per-sequence label budget of the gathered path (labels past it are
+    # dropped; train/step.py counts such sequences and can route them to
+    # the dense path)
+    max_train_label_positions: int = 160
 
     def __post_init__(self):
         if len(self.v_biattention_id) != len(self.t_biattention_id):
@@ -95,6 +111,8 @@ class VilbertConfig:
             raise ValueError(f"attention_impl {self.attention_impl!r}: the "
                              "port has 'xla' (plain) and 'pallas_block' "
                              "(Hopper kernels)")
+        if self.mlm_loss_impl not in ("gathered", "dense"):
+            raise ValueError(f"mlm_loss_impl {self.mlm_loss_impl!r}")
 
     # -- constructors --------------------------------------------------------
     @classmethod
@@ -107,7 +125,7 @@ class VilbertConfig:
             elif k in fields:
                 known[k] = tuple(v) if isinstance(v, list) else v
             # unknown keys (bi_intermediate_size, ..., and the JAX
-            # package's training options) are accepted and ignored, as the
+            # package's other options) are accepted and ignored, as the
             # reference from_dict does
         return cls(**known)
 

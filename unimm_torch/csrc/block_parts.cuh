@@ -33,7 +33,9 @@ struct QkvEpi {
 
 // ---- output projection + residual + LayerNorm -----------------------------
 // out = LN(fp32(ctx Wo^T) + bo + x) * gamma + beta for ctx [M, K] and
-// Wo [768, K] (K % 32 == 0), x and out [M, 768]. One CTA per 32 rows holds
+// Wo [768, K] (K % 32 == 0), x and out [M, 768]; with a hidden-dropout
+// scale mask mo [M, 768] fp32 (training) the sum is (fp32(ctx Wo^T) + bo)
+// * mo + x. One CTA per 32 rows holds
 // all 768 output columns, so the LayerNorm runs in the same launch: 8 warps,
 // warp w computes columns [96 w, 96 w + 96) of both 16-row halves (24
 // accumulator tiles), Wo streamed in k slices of 32.
@@ -51,7 +53,8 @@ __global__ void __launch_bounds__(OL_THREADS)
     out_ln_kernel(const bf16* __restrict__ ctx, const bf16* __restrict__ x,
                   const bf16* __restrict__ wo, const bf16* __restrict__ bo,
                   const bf16* __restrict__ gamma,
-                  const bf16* __restrict__ beta, float eps,
+                  const bf16* __restrict__ beta,
+                  const float* __restrict__ mo, float eps,
                   bf16* __restrict__ out, int M, int K) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sA = reinterpret_cast<bf16*>(smem);      // [2][32][OL_LD]
@@ -117,14 +120,15 @@ __global__ void __launch_bounds__(OL_THREADS)
             make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
   __syncthreads();
 
-  // h = (acc + bo) + x, then LayerNorm
+  // h = (acc + bo) [* mo] + x, then LayerNorm
   for (int r = warp * 4; r < warp * 4 + 4 && r < valid; ++r) {
     float h[HID / 32];
 #pragma unroll
     for (int j = 0; j < HID / 32; ++j) {
       const int c = lane + 32 * j;
-      h[j] = (sC[r * OL_LDC + c] + __bfloat162float(bo[c])) +
-             __bfloat162float(x[(m0 + r) * HID + c]);
+      float o = sC[r * OL_LDC + c] + __bfloat162float(bo[c]);
+      if (mo != nullptr) o *= mo[(m0 + r) * HID + c];
+      h[j] = o + __bfloat162float(x[(m0 + r) * HID + c]);
     }
     ln_row_store(h, gamma, beta, eps, out + (m0 + r) * HID, lane);
   }
@@ -133,7 +137,7 @@ __global__ void __launch_bounds__(OL_THREADS)
 cudaError_t launch_out_ln(const void* ctx, const void* x, const void* wo,
                           const void* bo, const void* gamma, const void* beta,
                           float eps, void* out, int M, int K,
-                          cudaStream_t st) {
+                          cudaStream_t st, const float* mo = nullptr) {
   const size_t smem = out_ln_smem_bytes();
   cudaFuncSetAttribute(out_ln_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -141,8 +145,8 @@ cudaError_t launch_out_ln(const void* ctx, const void* x, const void* wo,
   out_ln_kernel<<<(M + OL_ROWS - 1) / OL_ROWS, OL_THREADS, smem, st>>>(
       static_cast<const bf16*>(ctx), static_cast<const bf16*>(x),
       static_cast<const bf16*>(wo), static_cast<const bf16*>(bo),
-      static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta), eps,
-      static_cast<bf16*>(out), M, K);
+      static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta), mo,
+      eps, static_cast<bf16*>(out), M, K);
   return cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""ViLBERT two-stream co-attention encoder (UniMM-UL core model), eval mode.
+"""ViLBERT two-stream co-attention encoder (UniMM-UL core model).
 
 The parameters live in ``VilbertModel``, an ``nn.Module`` tree whose
 ``state_dict`` keys are exactly the reference names
@@ -11,7 +11,12 @@ over those modules, as in the JAX package's ``models/vilbert.py``:
   (ops/masks.py);
 * mixed precision via ``dtype`` with fp32 LayerNorm statistics and fp32
   softmax;
-* no dropout: this slice of the port serves, it does not train.
+* in training (``train=True``) the five dropout sites of the JAX package
+  (attention probabilities, the attention output, the FFN output, the
+  connection layer's outputs and the embeddings; plus the NSP pooling
+  head) draw from an explicit ``DropoutRng``, and ``call_in_dtype`` runs a
+  function over a differentiable compute-dtype view of the fp32 master
+  weights, so bf16 compute feeds its gradients back to them.
 
 Layer order for the shipped 6-connection config is the reference
 interleave: t0..t5, [co0, v0, t6], ..., [co5, v5, t11].
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import copy
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -174,6 +180,13 @@ def init_model(cfg: VilbertConfig, seed: int = 0,
     return model
 
 
+def train_model(cfg: VilbertConfig, seed: int = 0,
+                device="cuda") -> VilbertModel:
+    """``init_model`` in train mode with gradients on: fp32 master
+    weights for the training step."""
+    return init_model(cfg, seed, device).train().requires_grad_(True)
+
+
 def cast_floating(model: nn.Module, dtype) -> nn.Module:
     """The model with floating parameters in the compute dtype: the model
     itself when they already are, else a cast copy (the original, with its
@@ -186,6 +199,31 @@ def cast_floating(model: nn.Module, dtype) -> nn.Module:
     memo = {id(p): nn.Parameter(p.detach().to(dtype), requires_grad=False)
             for p in params}
     return copy.deepcopy(model, memo)
+
+
+class _Call(nn.Module):
+    """Holds a model so that ``torch.func.functional_call`` can run any
+    function over it."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn, *args, **kwargs):
+        return fn(self.model, *args, **kwargs)
+
+
+def call_in_dtype(model: nn.Module, dtype, fn, /, *args, **kwargs):
+    """``fn(view, *args, **kwargs)`` where ``view`` is ``model`` with each
+    floating parameter replaced by its cast to ``dtype``: a differentiable
+    view (the JAX package casts inside the differentiated function), so the
+    gradients of bf16 compute reach the fp32 master parameters. The tied
+    decoder is the one cast word-embedding tensor, read by both the
+    embedding lookup and the output xent, so its two gradients add up."""
+    params = {"model." + n: (p.to(dtype) if p.is_floating_point() else p)
+              for n, p in model.named_parameters()}
+    return torch.func.functional_call(_Call(model), params, (fn,) + args,
+                                      kwargs)
 
 
 class ComputeModels:
@@ -205,6 +243,49 @@ class ComputeModels:
             hit = (model, versions, cast_floating(model, self.dtype))
             self._by_id[id(model)] = hit
         return hit[2]
+
+
+# ---------------------------------------------------------------------------
+# dropout
+# ---------------------------------------------------------------------------
+
+class DropoutRng:
+    """The dropout stream of one training step: a generator on ``device``
+    for the masks, and a host generator for the seeds of the attention
+    block's in-kernel Philox stream (drawn without a device sync). The
+    sites draw from it in the model's order, so a seed gives the same
+    masks on every call."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.dev = torch.Generator(device=self.device)
+        self.dev.manual_seed(seed)
+        self.host = torch.Generator()
+        # another stream than the device generator's, on a CPU device too
+        self.host.manual_seed(seed ^ 0x5DEECE66D)
+
+
+def dropout_scale_mask(rng: DropoutRng, shape, rate: float,
+                       dtype=torch.float32):
+    """Bernoulli(1 - rate) scale mask: 1 / keep where kept, else 0."""
+    keep = 1.0 - rate
+    mask = torch.empty(shape, dtype=torch.float32, device=rng.device)
+    mask.bernoulli_(keep, generator=rng.dev).mul_(1.0 / keep)
+    return mask.to(dtype)
+
+
+def dropout(x, rate: float, train: bool, rng: Optional[DropoutRng]):
+    """Inverted dropout: x * mask in fp32, rounded back to x.dtype."""
+    if not train or rate == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("dropout in training needs a DropoutRng")
+    return (x * dropout_scale_mask(rng, x.shape, rate)).to(x.dtype)
+
+
+def dropout_seed(rng: DropoutRng) -> int:
+    """A host int seed in [0, 2^31 - 1) for an in-kernel dropout stream."""
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=rng.host))
 
 
 # ---------------------------------------------------------------------------
@@ -246,14 +327,16 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def attention_core(q, k, v, bias):
+def attention_core(q, k, v, bias, *, drop_rate=0.0, train=False, rng=None):
     """Softmax attention over split heads; ``bias`` is additive and
-    broadcasts to [B, H, S, K]; softmax in fp32."""
+    broadcasts to [B, H, S, K]; softmax in fp32; probability dropout in
+    training."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.matmul(q, k.transpose(-1, -2)) * scale
     if bias is not None:
         scores = scores + bias.to(scores.dtype)
     probs = torch.softmax(scores, dim=-1, dtype=torch.float32).to(q.dtype)
+    probs = dropout(probs, drop_rate, train, rng)
     return torch.matmul(probs, v)
 
 
@@ -261,40 +344,55 @@ def attention_core(q, k, v, bias):
 # transformer blocks
 # ---------------------------------------------------------------------------
 
-def self_attention_block(p, x, bias, *, num_heads, fused_block=None):
+def self_attention_block(p, x, bias, *, num_heads, fused_block=None,
+                         attn_drop=0.0, hidden_drop=0.0, train=False,
+                         rng=None, fused_block_train=None):
     """BertAttention: self-attention + output projection + residual LN.
     ``fused_block(p, x)`` replaces the whole block (the attention-block
-    kernel, which makes the mask from the descriptor)."""
+    kernel, which makes the mask from the descriptor);
+    ``fused_block_train(p, x, rng)`` is its differentiable training form
+    with both dropout sites."""
+    if fused_block_train is not None:
+        return fused_block_train(p, x, rng)
     if fused_block is not None:
         return fused_block(p, x)
     ps = p.self
     q = _split_heads(linear(ps.query, x), num_heads)
     k = _split_heads(linear(ps.key, x), num_heads)
     v = _split_heads(linear(ps.value, x), num_heads)
-    ctx = _merge_heads(attention_core(q, k, v, bias))
+    ctx = _merge_heads(attention_core(q, k, v, bias, drop_rate=attn_drop,
+                                      train=train, rng=rng))
     po = p.output
-    return layer_norm(po.LayerNorm, linear(po.dense, ctx) + x)
+    h = dropout(linear(po.dense, ctx), hidden_drop, train, rng)
+    return layer_norm(po.LayerNorm, h + x)
 
 
-def ffn_block(p_inter, p_out, x, *, act, fused_ffn=None):
+def ffn_block(p_inter, p_out, x, *, act, fused_ffn=None, hidden_drop=0.0,
+              train=False, rng=None):
     """BertIntermediate + BertOutput. ``fused_ffn(p_inter, p_out, x)``
     replaces the chain (the FFN kernel)."""
     if fused_ffn is not None:
         return fused_ffn(p_inter, p_out, x)
     h = ACT[act](linear(p_inter.dense, x))
-    return layer_norm(p_out.LayerNorm, linear(p_out.dense, h) + x)
+    h = dropout(linear(p_out.dense, h), hidden_drop, train, rng)
+    return layer_norm(p_out.LayerNorm, h + x)
 
 
 def encoder_layer(p, x, bias, *, num_heads, act, fused_block=None,
-                  fused_ffn=None):
+                  fused_ffn=None, attn_drop=0.0, hidden_drop=0.0,
+                  train=False, rng=None, fused_block_train=None):
     """BertLayer / BertImageLayer."""
     h = self_attention_block(p.attention, x, bias, num_heads=num_heads,
-                             fused_block=fused_block)
+                             fused_block=fused_block, attn_drop=attn_drop,
+                             hidden_drop=hidden_drop, train=train, rng=rng,
+                             fused_block_train=fused_block_train)
     return ffn_block(p.intermediate, p.output, h, act=act,
-                     fused_ffn=fused_ffn)
+                     fused_ffn=fused_ffn, hidden_drop=hidden_drop,
+                     train=train, rng=rng)
 
 
-def co_text_side(p, cfg: VilbertConfig, v_x, t_x, v_bias):
+def co_text_side(p, cfg: VilbertConfig, v_x, t_x, v_bias, *, train=False,
+                 rng=None):
     """Text side of BertConnectionLayer before its FFN: text queries attend
     image keys/values under the image padding bias, then dense2 + residual
     + LayerNorm2."""
@@ -303,12 +401,17 @@ def co_text_side(p, cfg: VilbertConfig, v_x, t_x, v_bias):
     q2 = _split_heads(linear(pb.query2, t_x), nh)
     k1 = _split_heads(linear(pb.key1, v_x), nh)
     v1 = _split_heads(linear(pb.value1, v_x), nh)
-    ctx = _merge_heads(attention_core(q2, k1, v1, v_bias))
-    return layer_norm(po.LayerNorm2, linear(po.dense2, ctx) + t_x)
+    ctx = _merge_heads(attention_core(
+        q2, k1, v1, v_bias, drop_rate=cfg.v_attention_probs_dropout_prob,
+        train=train, rng=rng))
+    t_h = dropout(linear(po.dense2, ctx), cfg.hidden_dropout_prob, train,
+                  rng)
+    return layer_norm(po.LayerNorm2, t_h + t_x)
 
 
 def connection_layer(p, cfg: VilbertConfig, v_x, v_bias, t_x, co_bias, *,
-                     fused_t_ffn=None, fused_co_text=None):
+                     fused_t_ffn=None, fused_co_text=None, train=False,
+                     rng=None):
     """BertConnectionLayer: co-attention + both FFNs.
 
     Keeps the reference's argument swap (vilbert_dialog.py:775,
@@ -325,14 +428,23 @@ def connection_layer(p, cfg: VilbertConfig, v_x, v_bias, t_x, co_bias, *,
     q1 = _split_heads(linear(pb.query1, v_x), nh)
     k2 = _split_heads(linear(pb.key2, t_x), nh)
     v2 = _split_heads(linear(pb.value2, t_x), nh)
-    ctx_v = _merge_heads(attention_core(q1, k2, v2, co_bias))
-    v_out = layer_norm(po.LayerNorm1, linear(po.dense1, ctx_v) + v_x)
+    ctx_v = _merge_heads(attention_core(
+        q1, k2, v2, co_bias, drop_rate=cfg.attention_probs_dropout_prob,
+        train=train, rng=rng))
+    v_h = dropout(linear(po.dense1, ctx_v), cfg.v_hidden_dropout_prob, train,
+                  rng)
+    v_out = layer_norm(po.LayerNorm1, v_h + v_x)
     t_out = (fused_co_text(p, v_x, t_x) if fused_co_text is not None
-             else co_text_side(p, cfg, v_x, t_x, v_bias))
+             else co_text_side(p, cfg, v_x, t_x, v_bias, train=train,
+                               rng=rng))
     v_out = ffn_block(p.v_intermediate, p.v_output, v_out,
-                      act=cfg.v_hidden_act)
+                      act=cfg.v_hidden_act,
+                      hidden_drop=cfg.v_hidden_dropout_prob, train=train,
+                      rng=rng)
     t_out = ffn_block(p.t_intermediate, p.t_output, t_out,
-                      act=cfg.hidden_act, fused_ffn=fused_t_ffn)
+                      act=cfg.hidden_act, fused_ffn=fused_t_ffn,
+                      hidden_drop=cfg.hidden_dropout_prob, train=train,
+                      rng=rng)
     return v_out, t_out
 
 
@@ -341,7 +453,7 @@ def connection_layer(p, cfg: VilbertConfig, v_x, v_bias, t_x, co_bias, *,
 # ---------------------------------------------------------------------------
 
 def text_embeddings(p, cfg: VilbertConfig, input_ids, token_type_ids,
-                    position_ids, *, dtype):
+                    position_ids, *, dtype, train=False, rng=None):
     """BertEmbeddingsDialog without the dead sinusoid buffer; segment ids
     >= type_vocab_size route to the 10-entry extension table."""
     we = F.embedding(input_ids, p.word_embeddings.weight.to(dtype))
@@ -354,14 +466,17 @@ def text_embeddings(p, cfg: VilbertConfig, input_ids, token_type_ids,
     te_ext = F.embedding(torch.where(is_ext, ext, zero),
                          p.token_type_embeddings_extension.weight.to(dtype))
     te = torch.where(is_ext[..., None], te_ext, te_base)
-    return layer_norm(p.LayerNorm, we + pe + te)
+    emb = layer_norm(p.LayerNorm, we + pe + te)
+    return dropout(emb, cfg.hidden_dropout_prob, train, rng)
 
 
-def image_embeddings(p, cfg: VilbertConfig, features, locations, *, dtype):
+def image_embeddings(p, cfg: VilbertConfig, features, locations, *, dtype,
+                     train=False, rng=None):
     """BertImageEmbeddings."""
     emb = (linear(p.image_embeddings, features.to(dtype))
            + linear(p.image_location_embeddings, locations.to(dtype)))
-    return layer_norm(p.LayerNorm, emb)
+    emb = layer_norm(p.LayerNorm, emb)
+    return dropout(emb, cfg.hidden_dropout_prob, train, rng)
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +485,8 @@ def image_embeddings(p, cfg: VilbertConfig, features, locations, *, dtype):
 
 def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
             tap=None, text_fused_block=None, text_fused_ffn=None,
-            text_fused_co=None):
+            text_fused_co=None, train=False, rng=None,
+            text_fused_block_train=None):
     """BertEncoder interleave.
 
     ``text_fused_block`` / ``text_fused_ffn`` / ``text_fused_co`` replace
@@ -383,35 +499,59 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
     layer, t_x) and each connection layer's vision input ("c_v", count,
     v_x); the prefix-cache scorer records its context caches through it.
     It never alters the computation.
+
+    ``train`` turns the dropout sites on (drawing from ``rng``, a
+    ``DropoutRng``) and ``text_fused_block_train(p, x, rng)`` replaces
+    every text layer's attention block (the training attention-block
+    kernel). The frozen prefix of ``fixed_t_layer`` / ``fixed_v_layer``
+    layers is detached: no gradient reaches its parameters or the
+    embeddings, as under the reference's no_grad.
     """
     if cfg.in_batch_pairs or cfg.fast_mode:
-        raise NotImplementedError("in_batch_pairs / fast_mode are training "
-                                  "modes, not ported in this slice")
+        raise NotImplementedError("in_batch_pairs / fast_mode are not "
+                                  "ported yet (ROADMAP Queue A item 9)")
+    if train and cfg.remat:
+        raise NotImplementedError("remat is not ported yet: recomputation "
+                                  "has to replay the dropout generators "
+                                  "(ROADMAP Queue A item 9)")
+
     def t_fn(lp, x):
         return encoder_layer(lp, x, t_bias, num_heads=cfg.num_attention_heads,
                              act=cfg.hidden_act, fused_block=text_fused_block,
-                             fused_ffn=text_fused_ffn)
+                             fused_ffn=text_fused_ffn,
+                             attn_drop=cfg.attention_probs_dropout_prob,
+                             hidden_drop=cfg.hidden_dropout_prob,
+                             train=train, rng=rng,
+                             fused_block_train=text_fused_block_train)
 
     def v_fn(lp, x):
         return encoder_layer(lp, x, v_bias,
                              num_heads=cfg.v_num_attention_heads,
-                             act=cfg.v_hidden_act)
+                             act=cfg.v_hidden_act,
+                             attn_drop=cfg.v_attention_probs_dropout_prob,
+                             hidden_drop=cfg.v_hidden_dropout_prob,
+                             train=train, rng=rng)
     v_start = t_start = 0
     for count, (v_end, t_end) in enumerate(
             zip(cfg.v_biattention_id, cfg.t_biattention_id)):
         for i in range(v_start, v_end):
             v_x = v_fn(p.v_layer[i], v_x)
+            if i < cfg.fixed_v_layer:
+                v_x = v_x.detach()
         for i in range(t_start, t_end):
             if tap is not None:
                 tap("t", i, t_x)
             t_x = t_fn(p.layer[i], t_x)
+            if i < cfg.fixed_t_layer:
+                t_x = t_x.detach()
         if cfg.with_coattention:
             if tap is not None:
                 tap("c_v", count, v_x)
             v_x, t_x = connection_layer(p.c_layer[count], cfg, v_x, v_bias,
                                         t_x, co_bias,
                                         fused_t_ffn=text_fused_ffn,
-                                        fused_co_text=text_fused_co)
+                                        fused_co_text=text_fused_co,
+                                        train=train, rng=rng)
         v_start, t_start = v_end, t_end
     for i in range(v_start, cfg.v_num_hidden_layers):
         v_x = v_fn(p.v_layer[i], v_x)
@@ -437,3 +577,40 @@ def mlm_head_at_positions(model: VilbertModel, cfg: VilbertConfig, t_seq,
     gathered = torch.gather(t_seq, 1, idx)
     h = ACT[cfg.hidden_act](linear(pt.dense, gathered))
     return layer_norm(pt.LayerNorm, h)
+
+
+def _fused_pooled(cfg, pooled_t, pooled_v, train, rng):
+    pooled = (pooled_t * pooled_v if cfg.fusion_method == "mul"
+              else pooled_t + pooled_v)
+    # fixed 0.1 in the reference (vilbert_dialog.py:1056), cfg-surfaced
+    return dropout(pooled, cfg.head_dropout_prob, train, rng)
+
+
+def _img_logits(model, cfg, v_seq):
+    pi = model.cls.imagePredictions
+    hv = ACT[cfg.hidden_act](linear(pi.transform.dense, v_seq))
+    return linear(pi.decoder, layer_norm(pi.transform.LayerNorm, hv))
+
+
+def pretraining_heads(model: VilbertModel, cfg: VilbertConfig, t_seq, v_seq,
+                      pooled_t, pooled_v, *, train=False, rng=None):
+    """BertPreTrainingHeads over a model in the compute dtype: dense MLM
+    logits through the tied decoder [N, L, V], the fused NSP logits and
+    the region-class logits."""
+    pooled = _fused_pooled(cfg, pooled_t, pooled_v, train, rng)
+    pp = model.cls.predictions
+    h = ACT[cfg.hidden_act](linear(pp.transform.dense, t_seq))
+    h = layer_norm(pp.transform.LayerNorm, h)
+    decoder = model.bert.embeddings.word_embeddings.weight
+    mlm_logits = torch.matmul(h, decoder.to(h.dtype).t()) + pp.bias
+    nsp_logits = linear(model.cls.bi_seq_relationship, pooled)
+    return mlm_logits, _img_logits(model, cfg, v_seq), nsp_logits
+
+
+def nsp_and_img_heads(model: VilbertModel, cfg: VilbertConfig, v_seq,
+                      pooled_t, pooled_v, *, train=False, rng=None):
+    """NSP + region-class heads without the MLM decode (the gathered MLM
+    path takes the answer NLL separately): (img_logits, nsp_logits)."""
+    pooled = _fused_pooled(cfg, pooled_t, pooled_v, train, rng)
+    nsp_logits = linear(model.cls.bi_seq_relationship, pooled)
+    return _img_logits(model, cfg, v_seq), nsp_logits

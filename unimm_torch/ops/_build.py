@@ -33,12 +33,19 @@ _lib = None
 build_seconds = None  # wall time of the build this process ran, if any
 
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U32, _I64 = ctypes.c_uint, ctypes.c_long
 _SIGNATURES = {
     "unimm_answer_block": [_VP] * 20 + [_INT] * 4 + [_F32, _VP],
     "unimm_ffn_block": [_VP] * 10 + [_INT] * 3 + [_F32, _VP],
     "unimm_xent_head": [_VP] * 5 + [_INT] * 2 + [_VP],
     "unimm_attention_block": [_VP] * 17 + [_INT] * 2 + [_F32, _VP],
     "unimm_co_text_block": [_VP] * 18 + [_INT] * 3 + [_F32, _VP],
+    "unimm_attention_block_train_fwd": ([_VP] * 18 + [_INT] * 2
+                                        + [_F32, _U32, _U32, _F32, _INT,
+                                           _VP]),
+    "unimm_attention_block_train_bwd": ([_VP] * 15 + [_INT] * 2
+                                        + [_U32, _U32, _F32, _INT, _VP]),
+    "unimm_adamw": [_VP] * 4 + [_I64] + [_F32] * 9 + [_VP],
 }
 
 

@@ -60,9 +60,38 @@ def attention_block_plain(x, desc, p_attn, *, num_heads, eps=1e-12):
     return (y * gamma.float() + beta.float()).to(dt)
 
 
-def _require(cond, msg):
-    if not cond:
-        raise ValueError(f"attention_block: {msg}")
+def check_inputs(name, x, desc, weights, num_heads):
+    """Raise ValueError unless the attention-block kernels (this one and
+    the training block's) take these tensors: x [B, L, 768] bf16 with
+    32 <= L <= 256 and L % 32 == 0, heads of 64, desc int32 [B, 3], the
+    weights bf16 [768, 768] / [768], all contiguous, aligned and on one
+    CUDA device."""
+    def require(cond, msg):
+        if not cond:
+            raise ValueError(f"{name}: {msg}")
+    require(x.dim() == 3, f"x must be [B, L, {HID}], got {tuple(x.shape)}")
+    B, L, Hd = x.shape
+    require(Hd == HID and Hd // num_heads == HEAD_DIM,
+            f"kernel is built for width {HID} in heads of {HEAD_DIM}, got "
+            f"{Hd} / {num_heads}")
+    require(L % 32 == 0 and 32 <= L <= MAX_LEN,
+            f"sequence length {L} must be a multiple of 32 in "
+            f"[32, {MAX_LEN}]")
+    require(tuple(desc.shape) == (B, 3) and desc.dtype == torch.int32,
+            f"desc must be int32 [{B}, 3], got {desc.dtype} "
+            f"{tuple(desc.shape)}")
+    # wq, bq, wk, bk, wv, bv[, wo, bo, gamma, beta]
+    shapes = [(HID, HID), (HID,)] * 4 + [(HID,), (HID,)]
+    for t, shp in zip(weights, shapes):
+        require(tuple(t.shape) == shp, f"weight shape {tuple(t.shape)}")
+    for t in (x,) + tuple(weights):
+        require(t.dtype == torch.bfloat16,
+                f"activations and weights must be bfloat16, got {t.dtype}")
+    for t in (x, desc) + tuple(weights):
+        require(t.device == x.device, "all tensors on one device")
+        require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                "inputs must be contiguous and 16-byte aligned")
+    require(x.device.type == "cuda", f"unsupported device {x.device}")
 
 
 def attention_block(x, desc, p_attn, *, num_heads, eps=1e-12):
@@ -78,28 +107,8 @@ def attention_block(x, desc, p_attn, *, num_heads, eps=1e-12):
         return attention_block_plain(x, desc, p_attn, num_heads=num_heads,
                                      eps=eps)
     weights = _weights(p_attn)
-    _require(x.dim() == 3, f"x must be [B, L, {HID}], got {tuple(x.shape)}")
-    B, L, Hd = x.shape
-    _require(Hd == HID and Hd // num_heads == HEAD_DIM,
-             f"kernel is built for width {HID} in heads of {HEAD_DIM}, got "
-             f"{Hd} / {num_heads}")
-    _require(L % 32 == 0 and 32 <= L <= MAX_LEN,
-             f"sequence length {L} must be a multiple of 32 in "
-             f"[32, {MAX_LEN}]")
-    _require(tuple(desc.shape) == (B, 3) and desc.dtype == torch.int32,
-             f"desc must be int32 [{B}, 3], got {desc.dtype} "
-             f"{tuple(desc.shape)}")
-    shapes = [(HID, HID), (HID,)] * 4 + [(HID,), (HID,)]
-    for t, shp in zip(weights, shapes):
-        _require(tuple(t.shape) == shp, f"weight shape {tuple(t.shape)}")
-    for t in (x,) + weights:
-        _require(t.dtype == torch.bfloat16,
-                 f"activations and weights must be bfloat16, got {t.dtype}")
-    for t in (x, desc) + weights:
-        _require(t.device == x.device, "all tensors on one device")
-        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
-                 "inputs must be contiguous and 16-byte aligned")
-    _require(x.device.type == "cuda", f"unsupported device {x.device}")
+    check_inputs("attention_block", x, desc, weights, num_heads)
+    B, L, _ = x.shape
     lib = _build.library()
     q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))
     code = lib.unimm_attention_block(

@@ -3,6 +3,7 @@
     python3 -m unimm_torch.tools.kernel_profile [--iters 5]
     python3 -m unimm_torch.tools.kernel_profile --main-path
     python3 -m unimm_torch.tools.kernel_profile --dis-path
+    python3 -m unimm_torch.tools.kernel_profile --train-step
 
 Default: for each kernel wrapper at main-path shapes, a JSON line with the
 mean device time per call of every CUDA kernel the call launched (the
@@ -10,7 +11,9 @@ sub-kernels of one wrapper seen one by one). ``--main-path``: one warm
 generative ``evaluate_split`` over 2 coalesced pinned batches (one slate
 group pair) at the default config; ``--dis-path``: one warm
 discriminative ``evaluate_split(mode="nsp")`` over 2 coalesced pinned
-``make_dis_batch`` batches (one group of 16 chunks). Each reports its wall
+``make_dis_batch`` batches (one group of 16 chunks); ``--train-step``: one
+warm training step (``train/step.make_train_step``, fused AdamW) at the
+default config on a 240-sequence ``make_train_batch``. Each reports its wall
 time, the summed device time of all kernels, the device idle share (1 -
 device / wall; one stream, so kernels do not overlap), the kernels that
 took the most device time, and the PyTorch operators whose kernels took
@@ -43,10 +46,7 @@ def _kernel_times(fn, iters):
 
 
 def main_path(dev, dis=False):
-    import time
-
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from unimm_torch import workload
     from unimm_torch.config import VilbertConfig
@@ -70,6 +70,48 @@ def main_path(dev, dis=False):
         torch.cuda.synchronize()
 
     run()
+    _profile(run, "dis" if dis else "gen")
+
+
+def train_step(dev):
+    from pathlib import Path
+
+    import numpy as np
+
+    from unimm_torch import workload
+    from unimm_torch.config import VilbertConfig
+    from unimm_torch.models import vilbert
+    from unimm_torch.train import optim
+    from unimm_torch.train import step as tstep
+
+    cfg = VilbertConfig()
+    model = vilbert.train_model(cfg, seed=0, device=dev)
+    lang = optim.load_language_weights(
+        Path(__file__).resolve().parents[2] / "config"
+        / "language_weights.json")
+    state = tstep.init_state(model, optim.make_fused_optimizer(
+        model, optim.OptimConfig(warmup_steps=10, t_total=1000), lang))
+    step = tstep.make_train_step(cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             workload.make_train_batch(np.random.default_rng(0), cfg,
+                                       240).items()}
+
+    def run():
+        step(state, batch)
+        torch.cuda.synchronize()
+
+    with torch.enable_grad():
+        run()
+        run()
+        _profile(run, "train")
+
+
+def _profile(run, label):
+    """Profile one ``run()`` and print its breakdown."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -90,7 +132,7 @@ def main_path(dev, dis=False):
     rows.sort(reverse=True)
     ops.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(json.dumps({"path": "dis" if dis else "gen",
+    print(json.dumps({"path": label,
                       "main_path_wall_ms": wall * 1e3,
                       "device_busy_ms": busy,
                       "device_idle_share": 1 - busy / (wall * 1e3),
@@ -106,6 +148,7 @@ def main():
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--main-path", action="store_true")
     ap.add_argument("--dis-path", action="store_true")
+    ap.add_argument("--train-step", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_profile: needs a CUDA device")
@@ -116,6 +159,10 @@ def main():
                           text=True).stdout.strip()
     if args.main_path or args.dis_path:
         main_path(torch.device("cuda", 0), dis=args.dis_path)
+        print(card)
+        return
+    if args.train_step:
+        train_step(torch.device("cuda", 0))
         print(card)
         return
     from unimm_torch.config import VilbertConfig

@@ -1,0 +1,112 @@
+"""The training step: forward, the three losses, backward and the grouped
+AdamW update.
+
+The port of the JAX package's ``train/step.py`` (the reference train
+iteration, train.py:445-463, without its GradScaler: bf16 needs no loss
+scaling). PyTorch runs eagerly, so there is no jit: ``make_train_step``
+returns a function that takes one step on a state dict and updates the
+model and the optimizer in place (the JAX step donates its state).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from unimm_torch.config import VilbertConfig
+from unimm_torch.models import unimm, vilbert
+from unimm_torch.ops import losses as L
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The dropout seed of step ``step`` of a run seeded with ``seed``:
+    one stream per (seed, step), as ``jax.random.fold_in(rng, step)``."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(
+        1, np.uint64)[0])
+
+
+def init_state(model: torch.nn.Module, opt, seed: int = 0) -> Dict[str, Any]:
+    """The state a step takes: the fp32 master model, its optimizer (from
+    ``train.optim``), the step count and the run's dropout seed."""
+    return {"model": model, "opt": opt, "step": 0, "seed": seed}
+
+
+def make_train_step(cfg: VilbertConfig, *, lm_coeff=1.0, nsp_coeff=1.0,
+                    img_coeff=1.0, dtype=torch.bfloat16):
+    """Returns ``train_step(state, batch, nsp_weight=None) -> (state,
+    metrics)``: one forward over ``batch`` (a descriptor batch of tensors
+    on the model's device, see ``unimm.forward_train``) in ``dtype``, the
+    backward into the parameters' ``.grad``, and one optimizer call. The
+    metrics are device scalars: loss, lm_loss, nsp_loss, img_loss and
+    label_budget_overflow, the sequences whose label count exceeds
+    ``cfg.max_train_label_positions`` (their tail labels are dropped on the
+    gathered path)."""
+
+    def train_step(state, batch, nsp_weight=None):
+        model = state["model"]
+        rng = vilbert.DropoutRng(step_seed(state["seed"], state["step"]),
+                                 batch["tokens"].device)
+        parts = unimm.forward_train(model, cfg, batch, rng=rng,
+                                    nsp_weight=nsp_weight, dtype=dtype)
+        loss = L.combine_losses(parts["lm"], parts["img"], parts["nsp"],
+                                lm_coeff, nsp_coeff, img_coeff)
+        for p in model.parameters():
+            p.grad = None
+        loss.backward()
+        state["opt"].step()
+        state["step"] += 1
+        n_lab = (batch["mlm_labels"] != -1).sum(-1)
+        metrics = {"loss": loss.detach(), "lm_loss": parts["lm"].detach(),
+                   "nsp_loss": parts["nsp"].detach(),
+                   "img_loss": parts["img"].detach(),
+                   "label_budget_overflow": (
+                       n_lab > cfg.max_train_label_positions).sum()}
+        return state, metrics
+
+    return train_step
+
+
+def make_train_step_with_fallback(cfg: VilbertConfig, *,
+                                  policy: str = "dense", **kw):
+    """``make_train_step`` that never drops labels silently on the
+    gathered MLM path (the reference always materialises full logits, so
+    every label counts). Returns ``step(state, batch, nsp_weight=None,
+    host_mlm_labels=None)``; ``host_mlm_labels`` is the host [N, L] label
+    array (read from the batch when omitted).
+
+    policy:
+      'dense' - a batch in which a sequence carries more than
+                cfg.max_train_label_positions labels takes a step with
+                mlm_loss_impl='dense' (the exact full-logits path);
+      'error' - raise ValueError instead;
+      'allow' - keep the gathered step (the metric still counts them).
+    """
+    if policy not in ("dense", "error", "allow"):
+        raise ValueError(f"policy {policy!r}")
+    gathered = make_train_step(cfg, **kw)
+    if cfg.mlm_loss_impl != "gathered" or policy == "allow":
+        def plain(state, batch, nsp_weight=None, host_mlm_labels=None):
+            return gathered(state, batch, nsp_weight)
+        return plain
+    dense = make_train_step(dataclasses.replace(cfg, mlm_loss_impl="dense"),
+                            **kw)
+
+    def step(state, batch, nsp_weight=None, host_mlm_labels=None):
+        labels = (host_mlm_labels if host_mlm_labels is not None
+                  else batch["mlm_labels"].cpu().numpy())
+        n = (np.asarray(labels) != -1).sum(axis=-1)
+        if n.max(initial=0) > cfg.max_train_label_positions:
+            if policy == "error":
+                raise ValueError(
+                    "gathered-MLM label budget overflow: a sequence carries "
+                    "more than max_train_label_positions="
+                    f"{cfg.max_train_label_positions} labels and its tail "
+                    "would be dropped; raise the budget or use the 'dense' "
+                    "policy")
+            return dense(state, batch, nsp_weight)
+        return gathered(state, batch, nsp_weight)
+
+    return step

@@ -1,5 +1,5 @@
 """The serving workloads: shared-context generative slates (val_lm) and
-discriminative NSP-ranking slates.
+discriminative NSP-ranking slates; and the synthetic training batch.
 
 Copies of the JAX package's ``scripts/bench_workload.make_val_batch``,
 ``make_dis_batch`` and ``realistic_ctx_range`` with the same defaults and
@@ -119,3 +119,41 @@ def with_ranking_targets(batch, rng):
             "round_id": rng.integers(1, R + 1, (B,)).astype(np.int32),
             "gt_relevance": rng.random((B, O)).astype(np.float32),
             "image_id": np.arange(B).astype(np.int64)}
+
+
+def make_train_batch(rng, cfg, B=240):
+    """A [B]-sequence training batch drawn from ``rng`` (numpy arrays): the
+    JAX package's scripts/bench_train.py:make_batch, draw for draw. Mixed
+    discriminative / generative descriptors (context 60-199, answer 2-8);
+    10-39 MLM labels per sequence at positions inside its extent, weight 1,
+    and -1 (unlikelihood) for the first quarter of the batch; random NSP
+    labels; Dirichlet region-class targets and image_label in {-1, 0, 1}."""
+    L, R = cfg.max_seq_len, cfg.max_regions
+    ctx_end = rng.integers(60, 200, B).astype(np.int32)
+    ans_len = rng.integers(2, 9, B).astype(np.int32)
+    labels = np.full((B, L), -1, np.int32)
+    n_lab = rng.integers(10, 40, B)
+    for i in range(B):
+        hi = max(int(ctx_end[i]) - 2, 12)
+        k = min(int(n_lab[i]), hi)
+        pos = rng.permutation(hi)[:k] + 1
+        labels[i, pos] = rng.integers(0, cfg.vocab_size, k)
+    w = np.zeros((B, L), np.float32)
+    w[labels != -1] = 1.0
+    w[: B // 4][labels[: B // 4] != -1] = -1.0
+    return {
+        "tokens": rng.integers(1, cfg.vocab_size, (B, L)).astype(np.int32),
+        "segments": rng.integers(0, 2, (B, L)).astype(np.int32),
+        "mode": rng.integers(0, 2, B).astype(np.int32),
+        "ctx_end": ctx_end,
+        "ans_len": ans_len,
+        "mlm_labels": labels, "lm_weight": w,
+        "next_sentence_label": rng.integers(0, 2, B).astype(np.int32),
+        "image_feat": rng.normal(size=(B, R, cfg.v_feature_size)).astype(
+            np.float32),
+        "image_loc": rng.normal(size=(B, R, 5)).astype(np.float32),
+        "image_mask": np.ones((B, R), np.int32),
+        "image_target": rng.dirichlet(np.ones(cfg.v_target_size),
+                                      (B, R)).astype(np.float32),
+        "image_label": rng.choice([-1, 0, 1], (B, R)).astype(np.int32),
+    }
