@@ -228,17 +228,34 @@ def _rel_err(got, want):
     return float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
 
 
+def _wide_attention(gen, dev):
+    """A bf16 attention module with projections of std 0.05 and LayerNorm
+    near (1, 0): the scores are O(1), so the softmax is far from uniform,
+    and ctx Wo is O(1) against the residual, so the block's output reacts
+    to its attention and dropout masks."""
+    with torch.device(dev):
+        m = vilbert._attention(768)
+    with torch.no_grad():
+        for lin in (m.self.query, m.self.key, m.self.value, m.output.dense):
+            lin.weight.normal_(0.0, 0.05, generator=gen)
+            lin.bias.normal_(0.0, 0.02, generator=gen)
+        m.output.LayerNorm.weight.normal_(1.0, 0.1, generator=gen)
+        m.output.LayerNorm.bias.normal_(0.0, 0.1, generator=gen)
+    return m.to(torch.bfloat16).requires_grad_(False)
+
+
 @pytest.mark.parametrize("L,drop", [(256, 0.1), (96, 0.1), (32, 0.0)])
 def test_attention_block_train_matches_plain(dev, L, drop):
     """The training block's forward (y, ctx) and backward kernel (dx_qkv,
     dq, dk, dv) against their plain twins on the same bf16 inputs and the
     same Philox seed, with mixed descriptors and attention and hidden
-    dropout: the forward within the eval block's bound, the backward's
-    bf16 outputs within 2% of their largest entry (they round P, dS and
-    the outputs at the same points; only fp32 summation order differs)."""
+    dropout: y within the eval block's bound; ctx and the backward's bf16
+    outputs within 2% of their largest entry (they round P, dS and the
+    outputs at the same points; only fp32 summation order differs). Under
+    another Philox seed the same bounds must fail."""
     gen = torch.Generator(device=dev).manual_seed(L)
     B = 8
-    attn = _module(lambda: vilbert._attention(768), gen, dev)
+    attn = _wide_attention(gen, dev)
     ws = tuple(t.contiguous() for t in tab._weights(attn))
     x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
     desc = _mixed_desc(B, L, np.random.default_rng(L)).to(dev)
@@ -251,7 +268,13 @@ def test_attention_block_train_matches_plain(dev, L, drop):
     y_p, ctx_p = tabt.attention_block_train_fwd_plain(x, desc, 77, m_o, *ws,
                                                       **kw)
     _close(y, y_p, 5e-2, 2e-2)
-    _close(ctx, ctx_p, 2e-2, 2e-2)
+    assert _rel_err(ctx, ctx_p) <= 2e-2
+    if drop:
+        y_o, ctx_o = tabt.attention_block_train_fwd_plain(
+            x, desc, 78, m_o, *ws, **kw)
+        assert _rel_err(ctx, ctx_o) > 2e-2
+        with pytest.raises(AssertionError):
+            _close(y, y_o, 5e-2, 2e-2)
     dctx = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
     n0 = tabt.attention_block_train_bwd.launches
     got = tabt.attention_block_train_bwd(x, dctx, desc, 77, *ws[:6], **kw)
@@ -268,7 +291,7 @@ def test_attention_block_train_autograd(dev):
     inputs, seed and masks)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     B, L = 4, 128
-    attn = _module(lambda: vilbert._attention(768), gen, dev)
+    attn = _wide_attention(gen, dev)
     x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
     desc = _mixed_desc(B, L, np.random.default_rng(3)).to(dev)
     m_o = (torch.rand(B, L, 768, generator=gen, device=dev) > 0.1).float() / 0.9

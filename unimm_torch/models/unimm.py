@@ -172,17 +172,6 @@ def forward_eval(model, cfg: VilbertConfig, batch, *, dtype=torch.bfloat16,
     return out
 
 
-def label_budget(mlm_labels, cfg: VilbertConfig) -> int:
-    """The gathered positions per sequence the training losses take: the
-    batch's largest label count (a multiple of 8), at most
-    ``cfg.max_train_label_positions``. The positions past a sequence's
-    labels are padding of NLL 0 and gradient 0, so taking fewer of them
-    than the JAX package's fixed budget changes no loss and no gradient;
-    it reads one number from the device."""
-    n = int((mlm_labels != -1).sum(-1).max()) if mlm_labels.numel() else 0
-    return min(cfg.max_train_label_positions, max(8, -(-n // 8) * 8))
-
-
 def forward_train(model, cfg: VilbertConfig, batch, *, rng=None,
                   nsp_weight=None, dtype=torch.bfloat16, train=True):
     """Training losses (reference vilbert_dialog.py:1559-1624 semantics)
@@ -198,21 +187,19 @@ def forward_train(model, cfg: VilbertConfig, batch, *, rng=None,
     from the master weights, as the JAX package reads it before its cast.
     """
     batch = expand_images(batch)
-    budget = (label_budget(batch["mlm_labels"], cfg)
-              if cfg.mlm_loss_impl == "gathered" else None)
     return vilbert.call_in_dtype(
         model, dtype, _forward_train, cfg, batch, rng=rng,
         nsp_weight=nsp_weight, dtype=dtype, train=train,
-        decoder_bias=model.cls.predictions.bias, budget=budget)
+        decoder_bias=model.cls.predictions.bias)
 
 
 def _forward_train(view, cfg, batch, *, rng, nsp_weight, dtype, train,
-                   decoder_bias, budget):
+                   decoder_bias):
     t_seq, v_seq, pooled_t, pooled_v = encode(view, cfg, batch, dtype=dtype,
                                               train=train, rng=rng)
     lm, img_logits, nsp_logits = lm_loss_and_heads(
         view, cfg, t_seq, v_seq, pooled_t, pooled_v, batch, train=train,
-        rng=rng, decoder_bias=decoder_bias, budget=budget)
+        rng=rng, decoder_bias=decoder_bias)
     img_loss_fn = (L.masked_img_loss_mse if cfg.predict_feature
                    else L.masked_img_loss)
     return {
@@ -226,20 +213,19 @@ def _forward_train(view, cfg, batch, *, rng, nsp_weight, dtype, train,
 
 
 def lm_loss_and_heads(view, cfg: VilbertConfig, t_seq, v_seq, pooled_t,
-                      pooled_v, batch, *, train, rng, decoder_bias,
-                      budget=None):
+                      pooled_v, batch, *, train, rng, decoder_bias):
     """The MLM likelihood + unlikelihood loss and the NSP / image head
     logits, by ``cfg.mlm_loss_impl``: "gathered" takes the NLL at
-    ``budget`` gathered label positions (default
-    ``cfg.max_train_label_positions``) through the chunk-recomputing
-    online softmax; "dense" materialises the [N, L, vocab] logits (the
-    exactness oracle). ``view`` is the compute-dtype model view,
+    ``cfg.max_train_label_positions`` gathered label positions through the
+    chunk-recomputing online softmax; "dense" materialises the
+    [N, L, vocab] logits (the exactness oracle). ``view`` is the
+    compute-dtype model view,
     ``decoder_bias`` the fp32 tied-decoder bias (gathered path; the dense
     path adds the view's bias, as the JAX package does)."""
     norm = batch.get("lm_norm")
     if cfg.mlm_loss_impl == "gathered":
         pos, labs = label_positions(batch["mlm_labels"],
-                                    budget or cfg.max_train_label_positions)
+                                    cfg.max_train_label_positions)
         w_g = torch.gather(batch["lm_weight"], -1, pos)
         hidden = vilbert.mlm_head_at_positions(view, cfg, t_seq, pos)
         decoder = view.bert.embeddings.word_embeddings.weight.to(
