@@ -40,6 +40,21 @@ prints its seconds):
      step and one AdamW launch per parameter tensor, ms/step, sequences/s
      and peak memory; the fused update against the plain one bit for bit;
      (c) 8 steps on one batch lower the loss.
+  9. per-head attention and remat (phase 3 also holds B6's forward and
+     backward and B9 against their plain twins, each with a control on
+     the flipped descriptors): (a) ``evaluate_split(mode="nsp")`` under
+     ``attention_impl="pallas"`` over 2 pinned and 2 realistic dis
+     batches, 12 B6 launches per chunk and nothing else, NSP margins
+     against the all-plain evaluator, steady dialogs/s beside phase 5's;
+     (b) training under "pallas" at attention dropout 0: at B 64 the text
+     attention gradients against the "xla" step on the same masks (phase
+     8 (a)'s fp32 yardstick), then 3 timed B 240 steps (12 + 12 B6
+     launches a step); (c) remat: 3 timed B 240 steps under "pallas" (24
+     forward, 12 backward B6 launches a step) and "pallas_block" (12 + 12
+     B5), and at B 64 the gradients against the step without remat,
+     within the spread of two runs of that step; (d) "pallas" at the
+     default dropouts launches no B6; (e) ``tools/bench_attn`` runs every
+     variant.
 The last lines are the kernels JSON, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -144,12 +159,27 @@ def seeded_module(make, gen, dev, std=0.02):
 # percent of its largest entry: each output is held to
 # max |d| <= 2e-2 max |plain| (the atol column; rtol 0). The fused AdamW
 # equals its plain twin bit for bit (no FMA contraction on either side).
+# The per-head attention kernels (B6 forward and backward, B9) take bf16
+# q, k, v straight from the caller (no projection inside) and round where
+# their twins do: B6's forward and B9 the probabilities and the output,
+# B6's backward only its outputs (its twin keeps P and dS in fp32; the
+# kernel carries them as hi + lo bf16 pairs, 2^-17 relative). Only fp32
+# summation order differs, which moves a bf16 rounding by one step, 2^-8
+# of the entry: each output is held to max |d| <= TA_REL max |plain|
+# (the atol column; rtol 0), and the twin on the descriptors with every
+# mode flipped must miss that bound. On an H100 (700 W) the readings were
+# at most 2.6e-3 (forward), 3.1e-3 (backward) and 2.0e-3 (B9), the
+# controls at least 0.41: the gate is about three times the worst
+# reading.
+TA_REL = 1e-2
 TOL = {"answer_block": (5e-2, 2e-2), "ffn_block": (5e-2, 2e-2),
        "xent_head": (2e-3, 1e-4), "attention_block": (5e-2, 2e-2),
        "co_text_block": (5e-2, 2e-2),
        "attention_block_train_fwd": (5e-2, 2e-2),
        "attention_block_train_bwd": (2e-2, 0.0),
-       "adamw_update_leaf": (0.0, 0.0)}
+       "adamw_update_leaf": (0.0, 0.0),
+       "text_attention_fwd": (TA_REL, 0.0),
+       "text_attention_bwd": (TA_REL, 0.0), "attention_v2": (TA_REL, 0.0)}
 B5_CTX_REL = 2e-2
 WIDE_STD = 0.05
 
@@ -593,6 +623,124 @@ def check_adamw(dev, gen, shape):
                 library_ms=time_ms(lib.step, 20))
 
 
+def split_heads(B, L, gen, dev):
+    """A [B, 12, L, 64] bf16 tensor as the per-head path hands it to B6:
+    the head-split view of a [B, L, 768] projection (no copy)."""
+    t = torch.randn(B, L, 768, generator=gen, device=dev).to(torch.bfloat16)
+    return t.view(B, L, 12, 64).transpose(1, 2)
+
+
+def flip_mode(desc):
+    """The control's wrong descriptors: each sequence's mode flipped."""
+    wrong = desc.clone()
+    wrong[:, 0] = 1 - wrong[:, 0]
+    return wrong
+
+
+def check_heads_attention(dev, gen, name, B, L, desc_fn, block_b=None):
+    """B6's forward (the head-split view of a projection, as the model
+    gives it) or B9 (contiguous [B, 12, L, 64], as its bench gives it, at
+    ``block_b``) against its plain twin, with the control: the twin on the
+    flipped descriptors must miss the same bound."""
+    import torch.nn.functional as F
+    from unimm_torch.ops import attention_v2 as av2
+    from unimm_torch.ops import text_attention as ta
+    from unimm_torch.ops.masks import mask_bias
+
+    H, D = 12, 64
+    q, k, v = (split_heads(B, L, gen, dev) for _ in range(3))
+    if block_b is None:
+        def kern():
+            return ta.text_attention_fwd(q, k, v, desc)
+        plain_fn = ta.text_attention_fwd_plain
+    else:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+
+        def kern():
+            return av2.attention_v2(q, k, v, desc, block_b=block_b)
+        plain_fn = av2.attention_v2_plain
+    desc = desc_fn(B, L, gen)
+    mask = mask_bias(desc, L)[:, None].to(torch.bfloat16)
+
+    def plain():
+        return plain_fn(q, k, v, desc)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    tol = TOL[name][0]
+    err = rel_err(got, want)
+    control = rel_err(got, plain_fn(q, k, v, flip_mode(desc)))
+    if control <= tol:
+        raise SystemExit(f"{name}: the check passes the flipped "
+                         f"descriptors: {control} <= {tol}")
+    n = B * H * L * D
+    b_ms, b_by = bound(4 * B * H * L * L * D, 4 * n * 2 + B * 12)
+    return dict(shape=f"[{B}, {H}, {L}, {D}] {desc_fn.__name__}"
+                + ("" if block_b is None else f" block_b {block_b}"),
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                out_rel_err=err, control_rel_err=control,
+                max_abs_out=float(want.float().abs().max()), ok=err <= tol,
+                ms=time_ms(kern, 10), plain_ms=time_ms(plain, 3, 1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 10))
+
+
+def check_text_attention_bwd(dev, gen, B, L, desc_fn):
+    """B6's backward against its plain twin (fp32 operands) on the same
+    bf16 inputs; the twin on the flipped descriptors must miss the bound
+    for each of dq, dk, dv."""
+    import torch.nn.functional as F
+    from unimm_torch.ops import text_attention as ta
+    from unimm_torch.ops.masks import mask_bias
+
+    H, D = 12, 64
+    q, k, v, do = (split_heads(B, L, gen, dev) for _ in range(4))
+    desc = desc_fn(B, L, gen)
+
+    def kern():
+        return ta.text_attention_bwd(q, k, v, desc, do)
+
+    def plain():
+        return ta.text_attention_bwd_plain(q, k, v, desc, do)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    tol = TOL["text_attention_bwd"][0]
+    errs = {n: rel_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got,
+                                                want)}
+    wrong = ta.text_attention_bwd_plain(q, k, v, flip_mode(desc), do)
+    control = {n: rel_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got,
+                                                   wrong)}
+    del wrong
+    if min(control.values()) <= tol:
+        raise SystemExit(f"text_attention_bwd: the check passes the flipped "
+                         f"descriptors: {control} <= {tol}")
+    n = B * H * L * D
+    # five L x L x 64 products a head (the scores, dP, dq, dk, dv) on bf16
+    # inputs; q, k, v, do in, dq, dk, dv out
+    b_ms, b_by = bound(10 * B * H * L * L * D, 7 * n * 2 + B * 12)
+    mask = mask_bias(desc, L)[:, None].to(torch.bfloat16)
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+
+        def library():
+            return torch.autograd.grad(o, [qg, kg, vg], do,
+                                       retain_graph=True)
+
+        lib_ms = time_ms(library, 10)
+    return dict(shape=f"[{B}, {H}, {L}, {D}] {desc_fn.__name__}",
+                max_abs_err=max(float((g.float() - w.float()).abs().max())
+                                for g, w in zip(got, want)),
+                dq_rel_err=errs["dq"], dk_rel_err=errs["dk"],
+                dv_rel_err=errs["dv"], control_rel_errs=control,
+                ok=max(errs.values()) <= tol, ms=time_ms(kern, 10),
+                plain_ms=time_ms(plain, 2, 1), bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
 KERNELS = [
     ("answer_block", "unimm_torch/csrc/answer_block.cu",
      "unimm_tpu/ops/pallas_prefix.py:151"),
@@ -610,7 +758,40 @@ KERNELS = [
      "unimm_tpu/ops/pallas_attention_v2.py:370"),
     ("adamw_update_leaf", "unimm_torch/csrc/adamw.cu",
      "unimm_tpu/ops/pallas_optim.py:90"),
+    ("text_attention_fwd", "unimm_torch/csrc/text_attention.cu",
+     "unimm_tpu/ops/pallas_attention.py:121"),
+    ("text_attention_bwd", "unimm_torch/csrc/text_attention.cu",
+     "unimm_tpu/ops/pallas_attention.py:137"),
+    ("attention_v2", "unimm_torch/csrc/attention_v2.cu",
+     "unimm_tpu/ops/pallas_attention_v2.py:79"),
 ]
+
+
+def heads_cases(dev, gen):
+    """Phase 3's cases of the per-head attention kernels: B6's forward at
+    the flat path's main and longest buckets and the training step's shape,
+    then the edge descriptors at L 32 and 96; its backward at the training
+    step's shape and at L 96; B9 at its bench's shape."""
+    return {
+        "text_attention_fwd": [
+            check_heads_attention(dev, gen, "text_attention_fwd", 256, 192,
+                                  dis_desc),
+            check_heads_attention(dev, gen, "text_attention_fwd", 256, 256,
+                                  dis_desc),
+            check_heads_attention(dev, gen, "text_attention_fwd", 240, 256,
+                                  train_desc),
+            check_heads_attention(dev, gen, "text_attention_fwd", 20, 32,
+                                  edge_desc),
+            check_heads_attention(dev, gen, "text_attention_fwd", 20, 96,
+                                  edge_desc)],
+        "text_attention_bwd": [
+            check_text_attention_bwd(dev, gen, 240, 256, train_desc),
+            check_text_attention_bwd(dev, gen, 20, 96, edge_desc)],
+        "attention_v2": [
+            check_heads_attention(dev, gen, "attention_v2", 512, 256,
+                                  train_desc, block_b=bb)
+            for bb in (1, 4, 8)],
+    }
 
 
 def phase_kernels(dev):
@@ -648,6 +829,7 @@ def phase_kernels(dev):
     cases["adamw_update_leaf"] = [check_adamw(dev, gen, (30522, 768)),
                       check_adamw(dev, gen, (768,)),
                       check_adamw(dev, gen, (1001,))]
+    cases.update(heads_cases(dev, gen))
     failed = []
     for name, cs in cases.items():
         atol, rtol = TOL[name]
@@ -671,12 +853,16 @@ def wrappers():
     from unimm_torch.ops.attention_block import attention_block
     from unimm_torch.ops.attention_block_train import (
         attention_block_train_bwd, attention_block_train_fwd)
+    from unimm_torch.ops.attention_v2 import attention_v2
     from unimm_torch.ops.co_text_block import co_text_block
     from unimm_torch.ops.ffn_block import ffn_block
+    from unimm_torch.ops.text_attention import (text_attention_bwd,
+                                                text_attention_fwd)
     from unimm_torch.ops.xent_head import xent_head
     return (answer_block, ffn_block, xent_head, attention_block,
             co_text_block, attention_block_train_fwd,
-            attention_block_train_bwd, adamw_update_leaf)
+            attention_block_train_bwd, adamw_update_leaf, text_attention_fwd,
+            text_attention_bwd, attention_v2)
 
 
 def counted(fn):
@@ -1177,6 +1363,224 @@ def phase_train(dev, card, runs, cfg=None, B=240, B_small=64):
     return res_a, res_b
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the per-head attention path and remat
+# ---------------------------------------------------------------------------
+
+# the text-layer attention leaves, whose backward B6 computes under "pallas"
+TEXT_ATTN_LEAF = r"bert\.encoder\.layer\.\d+\.attention\..*"
+# Remat gate: each parameter's gradient under remat differs from the step
+# without it by at most REMAT_SPREAD times the largest difference between
+# two runs of that step (same seed): both forwards run the same kernels on
+# the same inputs and the recompute replays the dropout stream, so the
+# difference is the run-to-run spread of the backward's reductions, zero
+# where they are deterministic.
+REMAT_SPREAD = 2.0
+
+
+def train_grads(model, cfg, batch, seed, dtype=torch.bfloat16):
+    """Loss parts and every parameter's gradient of one forward_train on
+    ``model`` with dropout drawn from ``DropoutRng(seed)``."""
+    from unimm_torch.models import unimm, vilbert
+    for p in model.parameters():
+        p.grad = None
+    parts = unimm.forward_train(model, cfg, batch, dtype=dtype,
+                                rng=vilbert.DropoutRng(seed, batch[
+                                    "tokens"].device))
+    sum(parts.values()).backward()
+    return ({k: float(v.detach()) for k, v in parts.items()},
+            {n: p.grad for n, p in model.named_parameters()})
+
+
+def remat_spread(dev, cfg, batch):
+    """The step under remat against two runs of the step without it (B
+    64, one seed): per parameter, max |remat - run 1| and max |run 2 -
+    run 1|. Returns (summary, failures)."""
+    from unimm_torch.models import vilbert
+    model = vilbert.train_model(cfg, seed=0, device=dev)
+    l1, g1 = train_grads(model, cfg, batch, 4)
+    g1 = {n: g.clone() for n, g in g1.items() if g is not None}
+    l2, g2 = train_grads(model, cfg, batch, 4)
+    lr, gr = train_grads(model, cfg.replace(remat=True), batch, 4)
+    worst = {"max_d_remat": 0.0, "max_spread": 0.0, "params_differing": 0,
+             "loss_equal": lr == l1, "loss_spread": l1 != l2}
+    bad = []
+    for n, a in g1.items():
+        d = float((gr[n] - a).abs().max())
+        spread = float((g2[n] - a).abs().max())
+        worst["max_d_remat"] = max(worst["max_d_remat"], d)
+        worst["max_spread"] = max(worst["max_spread"], spread)
+        worst["params_differing"] += d > 0
+        if d > REMAT_SPREAD * spread:
+            bad.append((n, d, spread))
+    if lr != l1 and l1 == l2:
+        bad.append(("loss", lr, l1))
+    return worst, bad
+
+
+def timed_steps(dev, cfg, batches, lang, steps=3, warmup=1):
+    """``steps`` timed B-240 training steps with the fused AdamW after
+    ``warmup``: (result dict, launches, parameter tensors)."""
+    from unimm_torch.models import vilbert
+    from unimm_torch.train import optim
+    from unimm_torch.train import step as tstep
+    model = vilbert.train_model(cfg, seed=0, device=dev)
+    n_params = len(list(model.parameters()))
+    state = tstep.init_state(model, optim.make_fused_optimizer(
+        model, optim.OptimConfig(warmup_steps=10, t_total=1000), lang),
+        seed=0)
+    step = tstep.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad():
+        for i in range(warmup):
+            step(state, batches[i % len(batches)])
+        metrics, secs, launches = counted(lambda: [
+            step(state, batches[i % len(batches)])[1] for i in range(steps)])
+    losses = [float(m["loss"]) for m in metrics]
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"non-finite training loss {losses}")
+    B = batches[0]["tokens"].shape[0]
+    return dict(batch=B, steps=steps, losses=losses,
+                ms_per_step=secs / steps * 1e3,
+                sequences_per_s=steps * B / secs,
+                max_memory_allocated_gb=(
+                    torch.cuda.max_memory_allocated() / 1e9),
+                launches_per_step={k: v // steps
+                                   for k, v in launches.items()}), \
+        launches, n_params
+
+
+def phase_per_head(dev, card, runs, model, cfg, dis_batches, dis_steady,
+                   train_fused, B=240, B_small=64):
+    """Phase 9: the flat scorer and training under attention_impl="pallas"
+    (B6), remat under "pallas" and "pallas_block", the dispatch rule under
+    attention dropout, and the attention bench (B6, B9)."""
+    import re
+    from pathlib import Path
+
+    from unimm_torch import workload
+    from unimm_torch.models import vilbert
+    from unimm_torch.tools import bench_attn
+    from unimm_torch.train import optim
+
+    n_t = cfg.num_hidden_layers
+    cfg_p = cfg.replace(attention_impl="pallas")
+    # (a) the flat scorer under "pallas": 12 B6 launches per chunk
+    for batches in dis_batches.values():              # warm-up, not counted
+        run_split(dev, model, cfg_p, batches, "nsp")
+    res_a = {}
+    for name, batches in dis_batches.items():
+        metrics, secs, launches = run_split(dev, model, cfg_p, batches,
+                                            "nsp")
+        c = chunks(batches)
+        expect(f"pallas dis {name}", launches, {"text_attention_fwd": n_t * c})
+        runs[f"pallas_dis_{name}"] = launches
+        res_a[name] = dict(launches=launches, chunks=c, seconds=secs,
+                           r1=metrics["r@1"], ndcg=metrics["ndcg"])
+    cmp = compare_nsp(dev, model, cfg_p, sum(dis_batches.values(), []))
+    steady = {name: steady_throughput(dev, model, cfg_p, b, need_lm=False)[0]
+              for name, b in dis_batches.items()}
+    print(json.dumps({"pallas_dis_path": res_a, "pallas_vs_plain": cmp,
+                      "steady_dialogs_per_s": {
+                          "pallas": steady, "pallas_block_phase5": dis_steady},
+                      "card": card}), flush=True)
+    if not cmp["ok"]:
+        raise SystemExit(f"pallas: NSP margins disagree with plain: {cmp}")
+
+    # (b) training under "pallas" at attention dropout 0: B 64 gradients
+    # of the text attention leaves against the "xla" step on the same
+    # masks, held to phase 8 (a)'s fp32-step yardstick; then timed steps
+    lang = optim.load_language_weights(
+        Path(__file__).resolve().parent / "config" / "language_weights.json")
+    cfg_t = cfg_p.replace(attention_probs_dropout_prob=0.0)
+    small = on_device(workload.make_train_batch(np.random.default_rng(40),
+                                                cfg, B_small), dev)
+    model_t = vilbert.train_model(cfg_t, seed=0, device=dev)
+    plain = cfg_t.replace(attention_impl="xla")
+    with torch.enable_grad():
+        (parts_k, g_k), secs, launches = counted(
+            lambda: train_grads(model_t, cfg_t, small, 3))
+        expect("pallas train (b)", launches,
+               {"text_attention_fwd": n_t, "text_attention_bwd": n_t})
+        runs["pallas_train_b64"] = launches
+        g_k = {n: g.clone() for n, g in g_k.items() if g is not None}
+        parts_p, g_p = train_grads(model_t, plain, small, 3)
+        g_p = {n: g.clone() for n, g in g_p.items() if g is not None}
+        _, g_32 = train_grads(model_t, plain, small, 3, torch.float32)
+    leaf = re.compile(TEXT_ATTN_LEAF)
+    worst, bad = compare_grads(g_k, g_p, {n: g for n, g in g_32.items()
+                                          if leaf.fullmatch(n)})
+    loss_ok = all(abs(parts_k[k] - parts_p[k]) <= LOSS_RTOL * abs(parts_p[k])
+                  for k in parts_p)
+    res_b = dict(batch=B_small, losses_kernel=parts_k, losses_plain=parts_p,
+                 worst=worst, gates=dict(slack=GRAD_SLACK, floor=GRAD_FLOOR,
+                                         min_cosine=MIN_GRAD_COSINE),
+                 failures=bad[:10], seconds=secs)
+    print(json.dumps({"pallas_train_vs_plain": res_b}), flush=True)
+    if not loss_ok or bad:
+        raise SystemExit(f"pallas training step disagrees with the plain "
+                         f"path: {res_b}")
+    del model_t, g_k, g_p, g_32
+    batches = [on_device(workload.make_train_batch(
+        np.random.default_rng(50 + i), cfg, B), dev) for i in range(2)]
+    steps = {}
+    res, launches, n_params = timed_steps(dev, cfg_t, batches, lang)
+    expect("pallas train (b) B 240", launches,
+           {"text_attention_fwd": 3 * n_t, "text_attention_bwd": 3 * n_t,
+            "adamw_update_leaf": 3 * n_params})
+    runs["pallas_train"] = launches
+    steps["pallas"] = res
+
+    # (c) remat: B 240 steps, and at B 64 the gradients against the step
+    # without remat
+    remat = {}
+    for impl, c, want in (
+            ("pallas", cfg_t, {"text_attention_fwd": 2 * n_t,
+                               "text_attention_bwd": n_t}),
+            ("pallas_block", cfg, {"attention_block_train_fwd": n_t,
+                                   "attention_block_train_bwd": n_t})):
+        res, launches, n_params = timed_steps(dev, c.replace(remat=True),
+                                              batches, lang)
+        expect(f"remat {impl}", launches,
+               {**{k: 3 * v for k, v in want.items()},
+                "adamw_update_leaf": 3 * n_params})
+        runs[f"remat_{impl}"] = launches
+        steps[f"{impl}_remat"] = res
+        with torch.enable_grad():
+            worst, bad = remat_spread(dev, c, small)
+        remat[impl] = dict(worst=worst, failures=bad[:10])
+        print(json.dumps({"remat_vs_no_remat": {impl: remat[impl]}}),
+              flush=True)
+        if bad:
+            raise SystemExit(f"remat {impl}: gradients differ from the step "
+                             f"without remat: {remat[impl]}")
+    steps["pallas_block_phase8"] = train_fused
+    print(json.dumps({"train_steps_b240": steps, "card": card}), flush=True)
+
+    # (d) "pallas" at the default dropouts trains on the plain bias path
+    model_d = vilbert.train_model(cfg_p, seed=0, device=dev)
+    with torch.enable_grad():
+        _, _, launches = counted(lambda: train_grads(model_d, cfg_p, small,
+                                                     5))
+    expect("pallas train at attention dropout", launches, {})
+    runs["pallas_train_dropout"] = launches
+    del model_d, small, batches
+
+    # (e) the attention bench's entry point, every variant, a few calls
+    iters = 2
+    res_e, secs, launches = counted(lambda: bench_attn.run(
+        list(bench_attn.VARIANTS), iters=iters, dev=dev))
+    calls = (bench_attn.SETS + bench_attn.REPS) * iters
+    expect("bench_attn", launches, {"text_attention_fwd": calls,
+                                    "attention_v2": 3 * calls})
+    runs["bench_attn"] = launches
+    print(json.dumps({"bench_attn": {n: r[0] for n, r in res_e.items()},
+                      "iters": iters, "seconds": secs, "card": card}),
+          flush=True)
+    return res_a, steps
+
+
 @contextlib.contextmanager
 def phase(name):
     """Print the phase's seconds when it ends."""
@@ -1281,6 +1685,7 @@ def main():
             raise SystemExit(f"NSP margins disagree with plain: {cmp}")
         steady = {name: steady_throughput(dev, model, cfg, b, need_lm=False)
                   for name, b in (("pinned", dis_p), ("realistic", dis_r))}
+        dis_steady = {k: v[0] for k, v in steady.items()}
         print(json.dumps({"dis_dialogs_per_s": {
             "evaluate_split": {k: v["dialogs_per_s"] for k, v in dis.items()},
             "steady": {k: v[0] for k, v in steady.items()},
@@ -1372,7 +1777,12 @@ def main():
             raise SystemExit(f"fallback: top-1 agreement {top1}")
 
     with phase("8 training"):
-        phase_train(dev, card, runs)
+        _, train_b = phase_train(dev, card, runs)
+
+    with phase("9 per-head attention and remat"):
+        phase_per_head(dev, card, runs, model, cfg,
+                       {"pinned": dis_p[:2], "realistic": dis_r[:2]},
+                       dis_steady, train_b["fused"])
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -1389,7 +1799,11 @@ def main():
             "cases": [{k: c[k] for k in ("shape", "ms", "plain_ms",
                                          "bound_ms", "library_ms",
                                          "max_abs_err", "ctx_max_abs_err",
-                                         "ctx_rel_err", "rel_errs")
+                                         "ctx_rel_err", "rel_errs",
+                                         "out_rel_err", "dq_rel_err",
+                                         "dk_rel_err", "dv_rel_err",
+                                         "control_rel_err",
+                                         "control_rel_errs")
                        if k in c} for c in cs]})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,7 +3,8 @@ version on the same bf16 inputs, at the kernels' width (768) and small
 batches, plus the wrappers' refusals, a short prefix-scorer run through
 its three kernels, a short flat-scorer run through its three, and the
 training attention block (forward and backward, with dropout) and the
-fused AdamW. Every test needs a CUDA device and skips without one.
+fused AdamW, and the per-head text attention kernels (forward, backward
+and attention_v2). Every test needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -20,8 +21,10 @@ from unimm_torch.ops import adamw as tadam
 from unimm_torch.ops import answer_block as tab
 from unimm_torch.ops import attention_block as tatb
 from unimm_torch.ops import attention_block_train as tabt
+from unimm_torch.ops import attention_v2 as tav2
 from unimm_torch.ops import co_text_block as tco
 from unimm_torch.ops import ffn_block as tfb
+from unimm_torch.ops import text_attention as tta
 from unimm_torch.ops import xent_head as txh
 from unimm_torch.ops.masks import NEG_INF
 
@@ -330,3 +333,82 @@ def test_adamw_matches_plain_bit_for_bit(dev, shape):
     assert tadam.adamw_update_leaf.launches == n0 + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# B6 and B9 round at their plain twins' points; only fp32 summation order
+# (and, in B6's backward, the hi + lo split of P and dS) differs: each
+# output is held to TA_REL of its largest entry, and the plain twin under
+# the descriptors with the mode flipped must miss that bound (chip_smoke.py
+# states how the bound was read)
+TA_REL = 1e-2
+
+
+def _heads(B, L, gen, dev, split):
+    """A [B, 12, L, 64] bf16 tensor: the head-split view of a [B, L, 768]
+    tensor (as vilbert._split_heads gives it) or contiguous."""
+    t = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    t = t.view(B, L, 12, 64).transpose(1, 2)
+    return t if split else t.contiguous()
+
+
+def _flip(desc):
+    wrong = desc.clone()
+    wrong[:, 0] = 1 - wrong[:, 0]
+    return wrong
+
+
+@pytest.mark.parametrize("L,split", [(256, True), (96, False), (32, True)])
+def test_text_attention_matches_plain(dev, L, split):
+    gen = torch.Generator(device=dev).manual_seed(L)
+    B = 10
+    q, k, v, do = (_heads(B, L, gen, dev, split) for _ in range(4))
+    desc = _mixed_desc(B, L, np.random.default_rng(L)).to(dev)
+    n0 = tta.text_attention_fwd.launches
+    got = tta.text_attention_fwd(q, k, v, desc)
+    assert tta.text_attention_fwd.launches == n0 + 1
+    assert got.stride() == q.stride()
+    assert _rel_err(got, tta.text_attention_fwd_plain(q, k, v, desc)) \
+        <= TA_REL
+    assert _rel_err(got, tta.text_attention_fwd_plain(q, k, v,
+                                                      _flip(desc))) > TA_REL
+    n0 = tta.text_attention_bwd.launches
+    grads = tta.text_attention_bwd(q, k, v, desc, do)
+    assert tta.text_attention_bwd.launches == n0 + 1
+    want = tta.text_attention_bwd_plain(q, k, v, desc, do)
+    wrong = tta.text_attention_bwd_plain(q, k, v, _flip(desc), do)
+    for name, g, w, o in zip(("dq", "dk", "dv"), grads, want, wrong):
+        assert _rel_err(g, w) <= TA_REL, name
+        assert _rel_err(g, o) > TA_REL, name
+
+
+def test_text_attention_autograd(dev):
+    """TextAttention on the card against the same Function on the CPU
+    (the plain twins) on the same bf16 inputs."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, L = 4, 128
+    q, k, v, do = (_heads(B, L, gen, dev, True) for _ in range(4))
+    desc = _mixed_desc(B, L, np.random.default_rng(7)).to(dev)
+
+    def grads(device):
+        ts = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        out = tta.text_attention(*ts, desc.to(device))
+        return torch.autograd.grad(out, ts, do.to(device))
+
+    for name, g, w in zip("qkv", grads(dev), grads("cpu")):
+        assert _rel_err(g.cpu(), w) <= TA_REL, name
+
+
+@pytest.mark.parametrize("block_b", [1, 3, 4])
+def test_attention_v2_matches_plain(dev, block_b):
+    gen = torch.Generator(device=dev).manual_seed(block_b)
+    B, L = 6, 160
+    q, k, v = (_heads(B, L, gen, dev, False) for _ in range(3))
+    desc = _mixed_desc(B, L, np.random.default_rng(block_b)).to(dev)
+    n0 = tav2.attention_v2.launches
+    got = tav2.attention_v2(q, k, v, desc, block_b=block_b)
+    assert tav2.attention_v2.launches == n0 + 1
+    assert _rel_err(got, tav2.attention_v2_plain(q, k, v, desc)) <= TA_REL
+    assert _rel_err(got, tav2.attention_v2_plain(q, k, v, _flip(desc))) \
+        > TA_REL
+    # at heads of 64 the scale is 2^-3: the per-head kernel's function
+    assert torch.equal(got, tta.text_attention_fwd(q, k, v, desc))

@@ -91,8 +91,9 @@ def test_config_reads_the_reference_json():
     for f in ("hidden_size", "num_hidden_layers", "v_biattention_id",
               "t_biattention_id", "fusion_method", "vocab_size"):
         assert getattr(cfg, f) == getattr(jcfg, f), f
+    assert VilbertConfig(attention_impl="pallas").attention_impl == "pallas"
     with pytest.raises(ValueError, match="attention_impl"):
-        VilbertConfig(attention_impl="pallas")
+        VilbertConfig(attention_impl="bogus")
 
 
 def test_default_device_needs_cuda():

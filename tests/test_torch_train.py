@@ -150,7 +150,8 @@ def test_online_xent_vjp_matches_jax():
 
 @pytest.mark.parametrize("impl,mlm", [("pallas_block", "gathered"),
                                       ("pallas_block", "dense"),
-                                      ("xla", "gathered"), ("xla", "dense")])
+                                      ("xla", "gathered"), ("xla", "dense"),
+                                      ("pallas", "gathered")])
 def test_forward_train_matches_jax(impl, mlm):
     cj = TINY.replace(attention_impl=impl, mlm_loss_impl=mlm, **NO_DROP)
     ct = TINY_T.replace(attention_impl=impl, mlm_loss_impl=mlm, **NO_DROP)
@@ -176,12 +177,60 @@ def test_forward_train_matches_jax(impl, mlm):
                                    err_msg=name)
 
 
-def test_forward_train_refuses_remat():
-    ct = TINY_T.replace(remat=True)
+# --- (3b) remat --------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", ["xla", "pallas", "pallas_block"])
+def test_remat_equals_no_remat(impl):
+    """Under remat the recompute replays the dropout stream (the device
+    masks and the block kernel's Philox seeds), so at the default dropouts
+    the losses and every gradient equal the step without remat on the same
+    DropoutRng seed. "pallas" trains through its kernel only at attention
+    dropout 0 (whole text layers rematerialised); "pallas_block" keeps the
+    attention block's Function and rematerialises the text FFN."""
+    ct = TINY_T.replace(attention_impl=impl, head_dropout_prob=0.1)
+    if impl == "pallas":
+        ct = ct.replace(attention_probs_dropout_prob=0.0)
     b = to_torch(train_batch(np.random.default_rng(2), TINY))
-    with pytest.raises(NotImplementedError, match="remat"):
-        tu.forward_train(torch_model(ct), ct, b, dtype=torch.float32,
-                         rng=tv.DropoutRng(0, "cpu"))
+
+    def run(cfg):
+        model = torch_model(cfg).train().requires_grad_(True)
+        o = tu.forward_train(model, cfg, b, dtype=torch.float32,
+                             rng=tv.DropoutRng(5, "cpu"))
+        (o["lm"] + o["img"] + o["nsp"]).backward()
+        return ({k: float(v.detach()) for k, v in o.items()},
+                {n: p.grad for n, p in model.named_parameters()})
+
+    (lw, gw), (lr, gr) = run(ct), run(ct.replace(remat=True))
+    assert lr == lw
+    for name, g in gw.items():
+        assert (g is None and gr[name] is None) or torch.equal(gr[name], g), \
+            name
+
+
+def test_forward_train_remat_matches_jax():
+    """forward_train under remat against the JAX package's under remat, on
+    the per-head kernel path at dropout 0."""
+    cj = TINY.replace(attention_impl="pallas", remat=True, **NO_DROP)
+    ct = TINY_T.replace(attention_impl="pallas", remat=True, **NO_DROP)
+    b = train_batch(np.random.default_rng(8), cj)
+
+    def jloss(p):
+        o = ju.forward_train(p, cj, to_jax(b), rng=jax.random.PRNGKey(0),
+                             dtype=jnp.float32)
+        return o["lm"] + o["img"] + o["nsp"]
+
+    jv, jg = jax.value_and_grad(jloss)(jax_params())
+    model = torch_model(ct).train().requires_grad_(True)
+    to = tu.forward_train(model, ct, to_torch(b), dtype=torch.float32)
+    loss = to["lm"] + to["img"] + to["nsp"]
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jv), rtol=1e-5)
+    want = torch_tree(jg)
+    for name, p in model.named_parameters():
+        got = (p.grad.numpy() if p.grad is not None
+               else np.zeros(p.shape, np.float32))
+        np.testing.assert_allclose(got, want[name], rtol=2e-4, atol=2e-4,
+                                   err_msg=name)
 
 
 # --- (4) the grouped and fused optimizers -----------------------------------

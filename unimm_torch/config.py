@@ -8,8 +8,9 @@ files are shared between the two packages, with the JAX package's training
 options ``remat``, ``mlm_loss_impl`` and ``max_train_label_positions``.
 ``attention_impl="pallas_block"`` keeps its name and here means "run the
 hand-written Hopper kernels" on the paths that have them (eval, and the
-training step's text attention blocks); ``"xla"`` means the plain PyTorch
-versions.
+training step's text attention blocks); ``"pallas"`` runs only the text
+self-attention core on the per-head kernel; ``"xla"`` means the plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -69,7 +70,11 @@ class VilbertConfig:
     # ops/ffn_block.py, ops/co_text_block.py) and, in training, the text
     # attention blocks (ops/attention_block_train.py); "xla" runs their
     # plain PyTorch versions. The prefix scorer's context prefill is plain
-    # PyTorch either way.
+    # PyTorch either way. "pallas" runs the text self-attention core of the
+    # flat scorer and of training (at attention dropout 0) on the per-head
+    # kernel (ops/text_attention.py); the projections, Wo, dropout,
+    # LayerNorm and everything else stay plain, and so does the prefix
+    # scorer.
     attention_impl: str = "pallas_block"
     # under "pallas_block": also route the text FFNs through the FFN kernel
     fused_ffn: bool = True
@@ -77,8 +82,9 @@ class VilbertConfig:
     # layer of the flat scorer through the co-attention kernel
     fused_co: bool = False
     # --- training (the JAX package's defaults) -----------------------------
-    # rematerialise encoder layers in the backward pass; not ported yet
-    # (training with it raises)
+    # rematerialise encoder layers in the backward pass (whole text, vision
+    # and connection layers; only the text FFN under the training block
+    # kernel), replaying the dropout stream on the recompute
     remat: bool = False
     # training MLM loss: "gathered" takes the NLL at <=
     # max_train_label_positions gathered label positions through the
@@ -107,10 +113,11 @@ class VilbertConfig:
                                  "heads")
         if self.fusion_method not in ("mul", "sum"):
             raise ValueError(f"fusion_method {self.fusion_method!r}")
-        if self.attention_impl not in ("xla", "pallas_block"):
+        if self.attention_impl not in ("xla", "pallas", "pallas_block"):
             raise ValueError(f"attention_impl {self.attention_impl!r}: the "
-                             "port has 'xla' (plain) and 'pallas_block' "
-                             "(Hopper kernels)")
+                             "port has 'xla' (plain), 'pallas' (per-head "
+                             "attention kernel) and 'pallas_block' (block "
+                             "kernels)")
         if self.mlm_loss_impl not in ("gathered", "dense"):
             raise ValueError(f"mlm_loss_impl {self.mlm_loss_impl!r}")
 

@@ -17,7 +17,9 @@ columns). So per slate:
    ``answer_block`` kernel plus one ``ffn_block`` kernel, each connection
    layer a plain co-attention over the cached vision stream plus one
    ``ffn_block``, and the label head is the ``xent_head`` kernel; under
-   ``"xla"`` the same three steps run their plain versions.
+   ``"xla"`` and ``"pallas"`` (the JAX package gates these kernels on
+   ``"pallas_block"`` alone) the same three steps run their plain
+   versions.
 
 Exact up to float rounding: masked columns add exp(-1e4) = 0 to the fp32
 softmax, so the scores equal the flat full-forward scores

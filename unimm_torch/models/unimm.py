@@ -7,7 +7,11 @@ Hopper kernels, which make the text mask from the descriptor, so no
 [B, L, L] bias is built: in eval the attention block, the FFN and under
 ``cfg.fused_co`` the co-attention text side; in training the
 differentiable attention block with its in-kernel probability dropout
-(the text FFNs stay plain, as in the JAX package). "xla" runs the plain
+(the text FFNs stay plain, as in the JAX package). "pallas" runs only each
+text layer's attention core on the per-head kernel (ops/text_attention.py,
+differentiable), in eval and in training at attention dropout 0; in
+training with attention dropout it takes the plain bias path, as the JAX
+package does (the kernel has no dropout site). "xla" runs the plain
 PyTorch encoder over additive biases (what the prefix scorer's context
 prefill runs). ``forward_eval`` is the flat full-sequence scorer;
 ``forward_train`` returns the training losses. Answer NLL is taken at
@@ -27,6 +31,7 @@ from unimm_torch.ops.attention_block import attention_block
 from unimm_torch.ops.attention_block_train import attention_block_train
 from unimm_torch.ops.co_text_block import co_text_block
 from unimm_torch.ops.ffn_block import ffn_block
+from unimm_torch.ops.text_attention import text_attention
 
 # Label positions gathered per sequence on the flat eval path: the
 # generative layout bounds an answer at ~126 label tokens, so 128 covers
@@ -70,10 +75,19 @@ def encode(model, cfg: VilbertConfig, batch, *, dtype=torch.float32,
     Lmax = batch["tokens"].shape[-1]
     mode, ce, al = batch["mode"], batch["ctx_end"], batch["ans_len"]
     t_bias = text_fused_block = text_fused_ffn = text_fused_co = None
-    text_fused_block_train = None
-    if cfg.attention_impl == "pallas_block":
+    text_fused_block_train = text_fused_attn = None
+    impl = cfg.attention_impl
+    # the JAX package's rule: the per-head kernel has no dropout site, so
+    # it trains only at attention dropout 0
+    use_pallas = impl == "pallas" and not (
+        train and cfg.attention_probs_dropout_prob > 0)
+    if impl == "pallas_block" or use_pallas:
         desc = torch.stack([torch.as_tensor(mode), torch.as_tensor(ce),
                             torch.as_tensor(al)], -1).to(torch.int32)
+    if use_pallas:
+        def text_fused_attn(q, k, v):
+            return text_attention(q, k, v, desc)
+    elif impl == "pallas_block":
         if train:
             def text_fused_block_train(p_attn, x, r):
                 # the fp32 hidden-dropout mask, as the JAX package hands
@@ -121,7 +135,8 @@ def encode(model, cfg: VilbertConfig, batch, *, dtype=torch.float32,
         p.encoder, cfg, t_x, v_x, t_bias, v_bias, co_bias, tap=tap,
         text_fused_block=text_fused_block, text_fused_ffn=text_fused_ffn,
         text_fused_co=text_fused_co, train=train, rng=rng,
-        text_fused_block_train=text_fused_block_train)
+        text_fused_block_train=text_fused_block_train,
+        text_fused_attn=text_fused_attn)
     return (t_seq, v_seq, vilbert.pooler(p.t_pooler, t_seq),
             vilbert.pooler(p.v_pooler, v_seq))
 

@@ -24,12 +24,14 @@ interleave: t0..t5, [co0, v0, t6], ..., [co5, v5, t11].
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from unimm_torch.config import VilbertConfig
@@ -346,12 +348,13 @@ def attention_core(q, k, v, bias, *, drop_rate=0.0, train=False, rng=None):
 
 def self_attention_block(p, x, bias, *, num_heads, fused_block=None,
                          attn_drop=0.0, hidden_drop=0.0, train=False,
-                         rng=None, fused_block_train=None):
+                         rng=None, fused_block_train=None, fused_attn=None):
     """BertAttention: self-attention + output projection + residual LN.
-    ``fused_block(p, x)`` replaces the whole block (the attention-block
-    kernel, which makes the mask from the descriptor);
-    ``fused_block_train(p, x, rng)`` is its differentiable training form
-    with both dropout sites."""
+    ``fused_attn(q, k, v) -> ctx`` replaces the bias-based attention core
+    over the split heads (the per-head attention kernel, which makes the
+    mask from the descriptor); ``fused_block(p, x)`` replaces the whole
+    block (the attention-block kernel); ``fused_block_train(p, x, rng)`` is
+    its differentiable training form with both dropout sites."""
     if fused_block_train is not None:
         return fused_block_train(p, x, rng)
     if fused_block is not None:
@@ -360,8 +363,11 @@ def self_attention_block(p, x, bias, *, num_heads, fused_block=None,
     q = _split_heads(linear(ps.query, x), num_heads)
     k = _split_heads(linear(ps.key, x), num_heads)
     v = _split_heads(linear(ps.value, x), num_heads)
-    ctx = _merge_heads(attention_core(q, k, v, bias, drop_rate=attn_drop,
-                                      train=train, rng=rng))
+    if fused_attn is not None:
+        ctx = _merge_heads(fused_attn(q, k, v))
+    else:
+        ctx = _merge_heads(attention_core(q, k, v, bias, drop_rate=attn_drop,
+                                          train=train, rng=rng))
     po = p.output
     h = dropout(linear(po.dense, ctx), hidden_drop, train, rng)
     return layer_norm(po.LayerNorm, h + x)
@@ -380,12 +386,14 @@ def ffn_block(p_inter, p_out, x, *, act, fused_ffn=None, hidden_drop=0.0,
 
 def encoder_layer(p, x, bias, *, num_heads, act, fused_block=None,
                   fused_ffn=None, attn_drop=0.0, hidden_drop=0.0,
-                  train=False, rng=None, fused_block_train=None):
+                  train=False, rng=None, fused_block_train=None,
+                  fused_attn=None):
     """BertLayer / BertImageLayer."""
     h = self_attention_block(p.attention, x, bias, num_heads=num_heads,
                              fused_block=fused_block, attn_drop=attn_drop,
                              hidden_drop=hidden_drop, train=train, rng=rng,
-                             fused_block_train=fused_block_train)
+                             fused_block_train=fused_block_train,
+                             fused_attn=fused_attn)
     return ffn_block(p.intermediate, p.output, h, act=act,
                      fused_ffn=fused_ffn, hidden_drop=hidden_drop,
                      train=train, rng=rng)
@@ -483,17 +491,70 @@ def image_embeddings(p, cfg: VilbertConfig, features, locations, *, dtype,
 # encoder + poolers + heads
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def _replaying(rng: Optional[DropoutRng], snap: dict, recompute: bool):
+    """The dropout stream of a rematerialised segment: on its first run,
+    take the states of ``rng``'s generators before it draws; on the
+    recompute, set them back to that snapshot for the segment and restore
+    the states they had when the recompute began."""
+    if rng is None:
+        yield
+        return
+    now = (rng.dev.get_state(), rng.host.get_state())
+    if not recompute:
+        snap["state"] = now
+        yield
+        return
+    rng.dev.set_state(snap["state"][0])
+    rng.host.set_state(snap["state"][1])
+    try:
+        yield
+    finally:
+        rng.dev.set_state(now[0])
+        rng.host.set_state(now[1])
+
+
+def remat(fn, mod: nn.Module, rng: Optional[DropoutRng], *args):
+    """``fn(mod, *args)`` under activation checkpointing: the backward
+    recomputes the segment instead of keeping its activations (the JAX
+    package's ``jax.checkpoint``). Two things ``torch.utils.checkpoint``
+    alone would get wrong here:
+
+    * the recompute runs after ``call_in_dtype`` has put the fp32 master
+      parameters back, so the segment's parameters as they are bound now
+      (the compute-dtype view) are inputs of the checkpoint and are bound
+      again for the recompute;
+    * the dropout sites draw from ``rng``'s explicit generators, which
+      ``preserve_rng_state`` does not cover: ``_replaying`` gives the
+      recompute the same masks and kernel seeds as the first run.
+
+    So the loss and every gradient equal the step without remat."""
+    names, params = zip(*mod.named_parameters())
+    n, snap = len(params), {}
+
+    def body(*flat):
+        bound = {"model." + k: t for k, t in zip(names, flat[:n])}
+        return torch.func.functional_call(_Call(mod), bound,
+                                          (fn,) + flat[n:])
+
+    return torch.utils.checkpoint.checkpoint(
+        body, *params, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (_replaying(rng, snap, False),
+                            _replaying(rng, snap, True)))
+
+
 def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
             tap=None, text_fused_block=None, text_fused_ffn=None,
             text_fused_co=None, train=False, rng=None,
-            text_fused_block_train=None):
+            text_fused_block_train=None, text_fused_attn=None):
     """BertEncoder interleave.
 
-    ``text_fused_block`` / ``text_fused_ffn`` / ``text_fused_co`` replace
-    every text layer's attention block, every text FFN (text layers and
-    connection layers) and every connection layer's text side (see
-    ``self_attention_block``, ``ffn_block``, ``connection_layer``); the
-    vision stream is always plain.
+    ``text_fused_attn`` / ``text_fused_block`` / ``text_fused_ffn`` /
+    ``text_fused_co`` replace every text layer's attention core or whole
+    attention block, every text FFN (text layers and connection layers) and
+    every connection layer's text side (see ``self_attention_block``,
+    ``ffn_block``, ``connection_layer``); the vision stream is always
+    plain.
 
     ``tap(kind, idx, x)`` is called with each text layer's input ("t",
     layer, t_x) and each connection layer's vision input ("c_v", count,
@@ -506,14 +567,15 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
     kernel). The frozen prefix of ``fixed_t_layer`` / ``fixed_v_layer``
     layers is detached: no gradient reaches its parameters or the
     embeddings, as under the reference's no_grad.
+
+    Under ``cfg.remat``, when gradients are on, every vision and connection
+    layer and every text layer is rematerialised (``remat``), as in the
+    JAX package; with ``text_fused_block_train`` only each text layer's FFN
+    is, since the block kernel's Function keeps just x and its context.
     """
     if cfg.in_batch_pairs or cfg.fast_mode:
         raise NotImplementedError("in_batch_pairs / fast_mode are not "
                                   "ported yet (ROADMAP Queue A item 9)")
-    if train and cfg.remat:
-        raise NotImplementedError("remat is not ported yet: recomputation "
-                                  "has to replay the dropout generators "
-                                  "(ROADMAP Queue A item 9)")
 
     def t_fn(lp, x):
         return encoder_layer(lp, x, t_bias, num_heads=cfg.num_attention_heads,
@@ -522,7 +584,13 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
                              attn_drop=cfg.attention_probs_dropout_prob,
                              hidden_drop=cfg.hidden_dropout_prob,
                              train=train, rng=rng,
-                             fused_block_train=text_fused_block_train)
+                             fused_block_train=text_fused_block_train,
+                             fused_attn=text_fused_attn)
+
+    def t_ffn(lp, h):
+        return ffn_block(lp.intermediate, lp.output, h, act=cfg.hidden_act,
+                         hidden_drop=cfg.hidden_dropout_prob, train=train,
+                         rng=rng)
 
     def v_fn(lp, x):
         return encoder_layer(lp, x, v_bias,
@@ -531,34 +599,57 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
                              attn_drop=cfg.v_attention_probs_dropout_prob,
                              hidden_drop=cfg.v_hidden_dropout_prob,
                              train=train, rng=rng)
+
+    def c_fn(cp, vx, tx):
+        return connection_layer(cp, cfg, vx, v_bias, tx, co_bias,
+                                fused_t_ffn=text_fused_ffn,
+                                fused_co_text=text_fused_co, train=train,
+                                rng=rng)
+
+    if cfg.remat and torch.is_grad_enabled():
+        if text_fused_block_train is not None:
+            def t_layer(lp, x):
+                h = self_attention_block(
+                    lp.attention, x, None,
+                    num_heads=cfg.num_attention_heads,
+                    fused_block_train=text_fused_block_train, rng=rng)
+                return remat(t_ffn, lp, rng, h)
+        else:
+            def t_layer(lp, x):
+                return remat(t_fn, lp, rng, x)
+
+        def v_layer(lp, x):
+            return remat(v_fn, lp, rng, x)
+
+        def c_layer(cp, vx, tx):
+            return remat(c_fn, cp, rng, vx, tx)
+    else:
+        t_layer, v_layer, c_layer = t_fn, v_fn, c_fn
+
     v_start = t_start = 0
     for count, (v_end, t_end) in enumerate(
             zip(cfg.v_biattention_id, cfg.t_biattention_id)):
         for i in range(v_start, v_end):
-            v_x = v_fn(p.v_layer[i], v_x)
+            v_x = v_layer(p.v_layer[i], v_x)
             if i < cfg.fixed_v_layer:
                 v_x = v_x.detach()
         for i in range(t_start, t_end):
             if tap is not None:
                 tap("t", i, t_x)
-            t_x = t_fn(p.layer[i], t_x)
+            t_x = t_layer(p.layer[i], t_x)
             if i < cfg.fixed_t_layer:
                 t_x = t_x.detach()
         if cfg.with_coattention:
             if tap is not None:
                 tap("c_v", count, v_x)
-            v_x, t_x = connection_layer(p.c_layer[count], cfg, v_x, v_bias,
-                                        t_x, co_bias,
-                                        fused_t_ffn=text_fused_ffn,
-                                        fused_co_text=text_fused_co,
-                                        train=train, rng=rng)
+            v_x, t_x = c_layer(p.c_layer[count], v_x, t_x)
         v_start, t_start = v_end, t_end
     for i in range(v_start, cfg.v_num_hidden_layers):
-        v_x = v_fn(p.v_layer[i], v_x)
+        v_x = v_layer(p.v_layer[i], v_x)
     for i in range(t_start, cfg.num_hidden_layers):
         if tap is not None:
             tap("t", i, t_x)
-        t_x = t_fn(p.layer[i], t_x)
+        t_x = t_layer(p.layer[i], t_x)
     return t_x, v_x
 
 

@@ -46,6 +46,13 @@ _SIGNATURES = {
     "unimm_attention_block_train_bwd": ([_VP] * 15 + [_INT] * 2
                                         + [_U32, _U32, _F32, _INT, _VP]),
     "unimm_adamw": [_VP] * 4 + [_I64] + [_F32] * 9 + [_VP],
+    # q, k, v, desc, out; B, H, L; strides (sequence, head, row); scale
+    "unimm_text_attention_fwd": ([_VP] * 5 + [_INT] * 3 + [_I64, _I64, _INT]
+                                 + [_F32, _VP]),
+    "unimm_text_attention_bwd": ([_VP] * 8 + [_INT] * 3 + [_I64, _I64, _INT]
+                                 + [_F32, _VP]),
+    "unimm_attention_v2": ([_VP] * 5 + [_INT] * 3 + [_I64, _I64, _INT, _INT]
+                           + [_F32, _VP]),
 }
 
 

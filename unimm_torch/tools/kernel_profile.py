@@ -4,6 +4,7 @@
     python3 -m unimm_torch.tools.kernel_profile --main-path
     python3 -m unimm_torch.tools.kernel_profile --dis-path
     python3 -m unimm_torch.tools.kernel_profile --train-step
+        [--attention-impl {pallas_block,pallas,xla}] [--remat]
 
 Default: for each kernel wrapper at main-path shapes, a JSON line with the
 mean device time per call of every CUDA kernel the call launched (the
@@ -13,7 +14,11 @@ group pair) at the default config; ``--dis-path``: one warm
 discriminative ``evaluate_split(mode="nsp")`` over 2 coalesced pinned
 ``make_dis_batch`` batches (one group of 16 chunks); ``--train-step``: one
 warm training step (``train/step.make_train_step``, fused AdamW) at the
-default config on a 240-sequence ``make_train_batch``. Each reports its wall
+default config on a 240-sequence ``make_train_batch``.
+``--attention-impl`` sets the text stream's attention path of
+``--dis-path`` and ``--train-step`` (default "pallas_block"; "pallas" trains
+at attention dropout 0, where its kernel runs); ``--remat`` turns on
+encoder remat for ``--train-step``. Each reports its wall
 time, the summed device time of all kernels, the device idle share (1 -
 device / wall; one stream, so kernels do not overlap), the kernels that
 took the most device time, and the PyTorch operators whose kernels took
@@ -45,7 +50,7 @@ def _kernel_times(fn, iters):
     return out
 
 
-def main_path(dev, dis=False):
+def main_path(dev, dis=False, impl="pallas_block"):
     import numpy as np
 
     from unimm_torch import workload
@@ -53,7 +58,7 @@ def main_path(dev, dis=False):
     from unimm_torch.eval.evaluator import evaluate_split
     from unimm_torch.models import vilbert
 
-    cfg = VilbertConfig()
+    cfg = VilbertConfig(attention_impl=impl)
     model = vilbert.init_model(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
     if dis:
@@ -70,10 +75,10 @@ def main_path(dev, dis=False):
         torch.cuda.synchronize()
 
     run()
-    _profile(run, "dis" if dis else "gen")
+    _profile(run, f"dis {impl}" if dis else "gen")
 
 
-def train_step(dev):
+def train_step(dev, impl="pallas_block", remat=False):
     from pathlib import Path
 
     import numpy as np
@@ -84,7 +89,9 @@ def train_step(dev):
     from unimm_torch.train import optim
     from unimm_torch.train import step as tstep
 
-    cfg = VilbertConfig()
+    cfg = VilbertConfig(attention_impl=impl, remat=remat)
+    if impl == "pallas":
+        cfg = cfg.replace(attention_probs_dropout_prob=0.0)
     model = vilbert.train_model(cfg, seed=0, device=dev)
     lang = optim.load_language_weights(
         Path(__file__).resolve().parents[2] / "config"
@@ -103,7 +110,7 @@ def train_step(dev):
     with torch.enable_grad():
         run()
         run()
-        _profile(run, "train")
+        _profile(run, f"train {impl}" + (" remat" if remat else ""))
 
 
 def _profile(run, label):
@@ -149,6 +156,9 @@ def main():
     ap.add_argument("--main-path", action="store_true")
     ap.add_argument("--dis-path", action="store_true")
     ap.add_argument("--train-step", action="store_true")
+    ap.add_argument("--attention-impl", default="pallas_block",
+                    choices=("pallas_block", "pallas", "xla"))
+    ap.add_argument("--remat", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_profile: needs a CUDA device")
@@ -158,11 +168,14 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     if args.main_path or args.dis_path:
-        main_path(torch.device("cuda", 0), dis=args.dis_path)
+        main_path(torch.device("cuda", 0), dis=args.dis_path,
+                  impl=args.attention_impl if args.dis_path
+                  else "pallas_block")
         print(card)
         return
     if args.train_step:
-        train_step(torch.device("cuda", 0))
+        train_step(torch.device("cuda", 0), args.attention_impl,
+                   args.remat)
         print(card)
         return
     from unimm_torch.config import VilbertConfig
@@ -230,6 +243,23 @@ def main():
     print(json.dumps({"wrapper": "co_text_block",
                       "shape": "[256, 224, 768] x [256, 37, 1024]", "ms": t}),
           flush=True)
+    from unimm_torch.ops.attention_v2 import attention_v2
+    from unimm_torch.ops.text_attention import (text_attention_bwd,
+                                                text_attention_fwd)
+    for B in (256, 512):
+        q, k, v, do = (rand(B, 12, 256, 64) for _ in range(4))
+        desc = torch.zeros(B, 3, dtype=torch.int32, device=dev)
+        desc[:, 1] = 248
+        for name, fn in (("text_attention_fwd", lambda: text_attention_fwd(
+                              q, k, v, desc)),
+                         ("text_attention_bwd", lambda: text_attention_bwd(
+                             q, k, v, desc, do)),
+                         ("attention_v2", lambda: attention_v2(q, k, v,
+                                                               desc))):
+            t = _kernel_times(fn, args.iters)
+            print(json.dumps({"wrapper": name,
+                              "shape": f"[{B}, 12, 256, 64]", "ms": t}),
+                  flush=True)
     print(card)
 
 
