@@ -55,6 +55,12 @@ prints its seconds):
      within the spread of two runs of that step; (d) "pallas" at the
      default dropouts launches no B6; (e) ``tools/bench_attn`` runs every
      variant.
+ 10. attention-block bench (phase 3 also holds B10's four softmax modes and
+     B11's three layouts against their plain twins at the bench's shape
+     and at L 96, each with a control, and B4 at block_b 2 equal to
+     block_b 1 bit for bit): ``tools/bench_attn_block`` runs its 13
+     variants, 2 calls a measurement, with 2 B4, 2 K2, 4 B10 and 3 B11
+     launches per call round.
 The last lines are the kernels JSON, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -65,6 +71,7 @@ import math
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -102,9 +109,16 @@ def bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def within(got, want, atol, rtol):
-    """(max abs err, max rel err, ok) of got against want, in fp32."""
+def within(got, want, atol, rtol, equal_nan=False):
+    """(max abs err, max rel err, ok) of got against want, in fp32. Any
+    non-finite entry fails, except, under ``equal_nan``, NaN at the same
+    places in both (the errors are then those of the other entries)."""
     g, w = got.float(), want.float()
+    if equal_nan:
+        if not torch.equal(g.isnan(), w.isnan()):
+            return float("inf"), float("inf"), False
+        keep = ~g.isnan()
+        g, w = g[keep], w[keep]
     if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
         return float("inf"), float("inf"), False
     err = (g - w).abs()
@@ -171,6 +185,18 @@ def seeded_module(make, gen, dev, std=0.02):
 # at most 2.6e-3 (forward), 3.1e-3 (backward) and 2.0e-3 (B9), the
 # controls at least 0.41: the gate is about three times the worst
 # reading.
+# The bench's probes (B10 probe_block, B11 layout_probe_block) round at
+# B4's points and differ from their plain twins only in fp32 summation
+# order (wo_acc and transposed also sum Wo head by head, in fp32 on both
+# sides): B4's bound. Their weights have std 0.05 (WIDE_STD), so that the
+# control misses it: the twin on the flipped descriptors, or, for skip
+# (which ignores the mask), the full twin. Under noshift a row whose keys
+# are all masked is NaN on both sides; NaN must stand at the same places.
+# y hardly sees B10's context under none (p = s 1e-4 puts ~4e-3 into it),
+# so B10's context is held too, under full, none and noshift, on open
+# descriptors (every row attends every key: the context is a function of
+# the scores alone), to TA_REL of its largest entry, as B6's; its control
+# is the twin on weights whose Wq and bq are zero (every score 0).
 TA_REL = 1e-2
 TOL = {"answer_block": (5e-2, 2e-2), "ffn_block": (5e-2, 2e-2),
        "xent_head": (2e-3, 1e-4), "attention_block": (5e-2, 2e-2),
@@ -179,7 +205,8 @@ TOL = {"answer_block": (5e-2, 2e-2), "ffn_block": (5e-2, 2e-2),
        "attention_block_train_bwd": (2e-2, 0.0),
        "adamw_update_leaf": (0.0, 0.0),
        "text_attention_fwd": (TA_REL, 0.0),
-       "text_attention_bwd": (TA_REL, 0.0), "attention_v2": (TA_REL, 0.0)}
+       "text_attention_bwd": (TA_REL, 0.0), "attention_v2": (TA_REL, 0.0),
+       "probe_block": (5e-2, 2e-2), "layout_probe_block": (5e-2, 2e-2)}
 B5_CTX_REL = 2e-2
 WIDE_STD = 0.05
 
@@ -346,14 +373,34 @@ def edge_desc(B, L, gen):
     return torch.tensor(rows, dtype=torch.int32, device=gen.device)
 
 
-def check_attention_block(dev, gen, L, desc_fn, B=256):
+def library_block(attn, x, mask, H=12):
+    """B4's function as a chain of PyTorch calls: F.linear x 3,
+    scaled_dot_product_attention with the additive mask [B, 1, L, L],
+    F.linear, the residual and F.layer_norm."""
     import torch.nn.functional as F
+    B, L, Hd = x.shape
+    ps, po = attn.self, attn.output
+
+    def heads(t):
+        return t.view(B, L, H, Hd // H).transpose(1, 2)
+
+    q = heads(F.linear(x, ps.query.weight, ps.query.bias))
+    k = heads(F.linear(x, ps.key.weight, ps.key.bias))
+    v = heads(F.linear(x, ps.value.weight, ps.value.bias))
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    o = o.transpose(1, 2).reshape(B, L, Hd)
+    h = F.linear(o, po.dense.weight, po.dense.bias) + x
+    return F.layer_norm(h, (Hd,), po.LayerNorm.weight, po.LayerNorm.bias,
+                        1e-12)
+
+
+def check_attention_block(dev, gen, L, desc_fn, B=256):
     from unimm_torch.models import vilbert
     from unimm_torch.ops.attention_block import (attention_block,
                                                  attention_block_plain)
     from unimm_torch.ops.masks import mask_bias
 
-    H, D, Hd = 12, 64, 768
+    H, Hd = 12, 768
     attn = seeded_module(lambda: vilbert._attention(Hd), gen, dev)
     x = torch.randn(B, L, Hd, generator=gen, device=dev).to(torch.bfloat16)
     desc = desc_fn(B, L, gen)
@@ -367,19 +414,7 @@ def check_attention_block(dev, gen, L, desc_fn, B=256):
         return attention_block_plain(x, desc, attn, num_heads=H)
 
     def library():
-        ps, po = attn.self, attn.output
-
-        def heads(t):
-            return t.view(B, L, H, D).transpose(1, 2)
-
-        q = heads(F.linear(x, ps.query.weight, ps.query.bias))
-        k = heads(F.linear(x, ps.key.weight, ps.key.bias))
-        v = heads(F.linear(x, ps.value.weight, ps.value.bias))
-        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-        o = o.transpose(1, 2).reshape(B, L, Hd)
-        h = F.linear(o, po.dense.weight, po.dense.bias) + x
-        return F.layer_norm(h, (Hd,), po.LayerNorm.weight,
-                            po.LayerNorm.bias, 1e-12)
+        return library_block(attn, x, mask, H)
 
     got, want = kern(), plain()
     torch.cuda.synchronize()
@@ -741,6 +776,170 @@ def check_text_attention_bwd(dev, gen, B, L, desc_fn):
                 bound_by=b_by, library_ms=lib_ms)
 
 
+def bench_desc(B, L, gen):
+    """The attention-block bench's descriptors (tools/bench_attn.make_desc):
+    mode 0 or 1, ctx_end 60-199 scaled into L below 256, ans_len 2-8 (kept
+    under mode 0, which ignores it)."""
+    mode = torch.randint(0, 2, (B,), generator=gen, device=gen.device)
+    ce = torch.randint(60, 200, (B,), generator=gen, device=gen.device)
+    al = torch.randint(2, 9, (B,), generator=gen, device=gen.device)
+    ce = torch.maximum(ce * L // 256, al + 2)
+    return torch.stack([mode, ce, al], -1).to(torch.int32)
+
+
+def open_desc(B, L, gen):
+    """Discriminative descriptors at full length: every row attends every
+    key."""
+    z = torch.zeros(B, dtype=torch.int32, device=gen.device)
+    return torch.stack([z, z + L, z], -1)
+
+
+def zero_scores(attn):
+    """attn's weights with the query projection zeroed: every score is 0."""
+    ps = attn.self
+    q = SimpleNamespace(weight=torch.zeros_like(ps.query.weight),
+                        bias=torch.zeros_like(ps.query.bias))
+    return SimpleNamespace(self=SimpleNamespace(query=q, key=ps.key,
+                                                value=ps.value),
+                           output=attn.output)
+
+
+def check_probe_ctx(x, attn, kind, gen):
+    """B10's context (``kind`` full, none or noshift) against its plain
+    twin's on open descriptors, and the control: the twin without scores
+    (zero_scores) must miss the bound. (ctx err, control err)."""
+    from unimm_torch.ops import block_probe as bp
+
+    B, L, _ = x.shape
+    desc = open_desc(B, L, gen)
+
+    def ctx(p, fn):
+        return fn(x, desc, p, num_heads=12, softmax_mode=kind,
+                  return_ctx=True)[1]
+
+    got = ctx(attn, bp.probe_block)
+    err = rel_err(got, ctx(attn, bp.probe_block_plain))
+    control = rel_err(got, ctx(zero_scores(attn), bp.probe_block_plain))
+    if control <= TA_REL:
+        raise SystemExit(f"probe_block {kind}: the context check passes the "
+                         f"twin without scores: {control} <= {TA_REL}")
+    return err, control
+
+
+def check_probe(dev, gen, name, kind, B, L, desc_fn):
+    """B10 (``name`` "probe_block", ``kind`` a softmax mode) or B11
+    ("layout_probe_block", a layout) against its plain twin on the same
+    bf16 inputs, weights at WIDE_STD. The control must miss the same bound:
+    the twin on the flipped descriptors, or for skip the full twin. B10's
+    context is held as well (check_probe_ctx)."""
+    import torch.nn.functional as F
+    from unimm_torch.models import vilbert
+    from unimm_torch.ops import block_probe as bp
+    from unimm_torch.ops.masks import mask_bias
+
+    H, Hd = 12, 768
+    attn = seeded_module(lambda: vilbert._attention(Hd), gen, dev,
+                         std=WIDE_STD)
+    x = torch.randn(B, L, Hd, generator=gen, device=dev).to(torch.bfloat16)
+    desc = desc_fn(B, L, gen)
+    if name == "probe_block":
+        p = attn
+
+        def kern():
+            return bp.probe_block(x, desc, p, num_heads=H, softmax_mode=kind)
+
+        def plain(d=desc, k=kind):
+            return bp.probe_block_plain(x, d, p, num_heads=H, softmax_mode=k)
+    else:
+        p = bp.pad_heads_128(attn) if kind == "pad128" else attn
+
+        def kern():
+            return bp.layout_probe_block(x, desc, p, num_heads=H, layout=kind)
+
+        def plain(d=desc, k=kind):
+            return bp.layout_probe_block_plain(x, d, p, num_heads=H,
+                                               layout=k)
+    mask = mask_bias(desc, L)[:, None].to(x.dtype)
+    ps, po = attn.self, attn.output
+
+    def library():
+        if kind == "skip":        # v, Wo, the residual and LayerNorm
+            v = F.linear(x, ps.value.weight, ps.value.bias)
+            h = F.linear(v, po.dense.weight, po.dense.bias) + x
+            return F.layer_norm(h, (Hd,), po.LayerNorm.weight,
+                                po.LayerNorm.bias, 1e-12)
+        return library_block(attn, x, mask, H)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    atol, rtol = TOL[name]
+    nan = kind == "noshift"
+    err, rel, ok = within(got, want, atol, rtol, equal_nan=nan)
+    wrong = plain(desc, "full") if kind == "skip" else plain(flip_mode(desc))
+    c_err, _, c_ok = within(got, wrong, atol, rtol, equal_nan=nan)
+    del wrong
+    if c_ok:
+        raise SystemExit(f"{name} {kind}: the check passes its control "
+                         f"({c_err})")
+    res = dict(shape=f"{kind} [{B}, {L}, {Hd}] {desc_fn.__name__}",
+               max_abs_err=err, max_rel_err=rel, ok=ok,
+               control_max_abs_err=c_err,
+               nan_rows=int(got.float().isnan().any(-1).sum()))
+    if name == "probe_block" and kind != "skip":
+        c_err, c_control = check_probe_ctx(x, attn, kind, gen)
+        res.update(ctx_rel_err=c_err, ctx_control_rel_err=c_control,
+                   ok=ok and c_err <= TA_REL)
+    # the function's work: skip's output needs only the V and Wo products;
+    # its kernel also projects q and k (as_run_bound_ms)
+    M, W = B * L, 2 * Hd if kind == "pad128" else Hd
+    attn_flops = 0 if kind == "skip" else 4 * B * L * L * W
+    nbytes = (2 * M * Hd * 2 + B * 12
+              + (3 * (W * Hd + W) + Hd * W + 3 * Hd) * 2)
+    b_ms, b_by = bound((4 if kind == "skip" else 8) * M * Hd * W
+                       + attn_flops, nbytes)
+    if kind == "skip":
+        res["as_run_bound_ms"] = bound(8 * M * Hd * W, nbytes)[0]
+    return dict(res, ms=time_ms(kern, 10), plain_ms=time_ms(plain, 3, 1),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=None if kind in ("none", "noshift")
+                else time_ms(library, 10))
+
+
+def probe_cases(dev, gen):
+    """Phase 3's cases of B10 and B11: each mode and layout at the
+    bench's shape and descriptors, then at L 96 on the edge descriptors
+    (padding keys under none, fully masked rows under noshift)."""
+    out = {}
+    for name, kinds in (("probe_block", ("full", "none", "noshift", "skip")),
+                        ("layout_probe_block",
+                         ("wo_acc", "transposed", "pad128"))):
+        out[name] = ([check_probe(dev, gen, name, k, 512, 256, bench_desc)
+                      for k in kinds]
+                     + [check_probe(dev, gen, name, k, 20, 96, edge_desc)
+                        for k in kinds])
+    return out
+
+
+def check_block_b(dev, gen, B=256, L=256):
+    """B4 at block_b 2 against block_b 1: bit for bit (each CTA walks its
+    sequences in turn; nothing is summed across them)."""
+    from unimm_torch.models import vilbert
+    from unimm_torch.ops.attention_block import attention_block
+
+    attn = seeded_module(lambda: vilbert._attention(768), gen, dev)
+    x = torch.randn(B, L, 768, generator=gen, device=dev).to(torch.bfloat16)
+    desc = bench_desc(B, L, gen)
+    fns = {bb: (lambda bb=bb: attention_block(x, desc, attn, num_heads=12,
+                                              block_b=bb))
+           for bb in (1, 2)}
+    same = torch.equal(fns[1](), fns[2]())
+    res = dict(shape=f"[{B}, {L}, 768] bench_desc", bit_equal=same,
+               **{f"ms_block_b{bb}": time_ms(f, 10) for bb, f in fns.items()})
+    print(json.dumps({"attention_block_block_b": res}), flush=True)
+    if not same:
+        raise SystemExit("attention_block: block_b 2 differs from block_b 1")
+
+
 KERNELS = [
     ("answer_block", "unimm_torch/csrc/answer_block.cu",
      "unimm_tpu/ops/pallas_prefix.py:151"),
@@ -764,6 +963,10 @@ KERNELS = [
      "unimm_tpu/ops/pallas_attention.py:137"),
     ("attention_v2", "unimm_torch/csrc/attention_v2.cu",
      "unimm_tpu/ops/pallas_attention_v2.py:79"),
+    ("probe_block", "unimm_torch/csrc/block_probe.cu",
+     "scripts/bench_attn_block.py:144"),
+    ("layout_probe_block", "unimm_torch/csrc/block_probe.cu",
+     "scripts/bench_attn_block.py:328"),
 ]
 
 
@@ -830,6 +1033,8 @@ def phase_kernels(dev):
                       check_adamw(dev, gen, (768,)),
                       check_adamw(dev, gen, (1001,))]
     cases.update(heads_cases(dev, gen))
+    cases.update(probe_cases(dev, gen))
+    check_block_b(dev, gen)
     failed = []
     for name, cs in cases.items():
         atol, rtol = TOL[name]
@@ -854,6 +1059,7 @@ def wrappers():
     from unimm_torch.ops.attention_block_train import (
         attention_block_train_bwd, attention_block_train_fwd)
     from unimm_torch.ops.attention_v2 import attention_v2
+    from unimm_torch.ops.block_probe import layout_probe_block, probe_block
     from unimm_torch.ops.co_text_block import co_text_block
     from unimm_torch.ops.ffn_block import ffn_block
     from unimm_torch.ops.text_attention import (text_attention_bwd,
@@ -862,7 +1068,8 @@ def wrappers():
     return (answer_block, ffn_block, xent_head, attention_block,
             co_text_block, attention_block_train_fwd,
             attention_block_train_bwd, adamw_update_leaf, text_attention_fwd,
-            text_attention_bwd, attention_v2)
+            text_attention_bwd, attention_v2, probe_block,
+            layout_probe_block)
 
 
 def counted(fn):
@@ -1581,6 +1788,30 @@ def phase_per_head(dev, card, runs, model, cfg, dis_batches, dis_steady,
     return res_a, steps
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the attention-block bench
+# ---------------------------------------------------------------------------
+
+def phase_bench_block(dev, card, runs, iters=2):
+    """``tools/bench_attn_block`` over its 13 variants, ``iters`` calls a
+    measurement: per call round 2 B4 (block_b 1 and 2), 2 K2, 4 B10 and 3
+    B11 launches. Smoke numbers: PERF.md's come from the tool's default
+    ITERS."""
+    from unimm_torch.tools import bench_attn, bench_attn_block
+    res, secs, launches = counted(lambda: bench_attn_block.run(
+        list(bench_attn_block.VARIANTS), iters=iters, dev=dev))
+    calls = (bench_attn.SETS + bench_attn.REPS) * iters
+    expect("bench_attn_block", launches,
+           {"attention_block": 2 * calls, "ffn_block": 2 * calls,
+            "probe_block": 4 * calls, "layout_probe_block": 3 * calls})
+    runs["bench_attn_block"] = launches
+    if not all(0 < r[0] < math.inf for r in res.values()):
+        raise SystemExit(f"bench_attn_block: bad times {res}")
+    print(json.dumps({"bench_attn_block": {n: r[0] for n, r in res.items()},
+                      "iters": iters, "seconds": secs, "card": card}),
+          flush=True)
+
+
 @contextlib.contextmanager
 def phase(name):
     """Print the phase's seconds when it ends."""
@@ -1784,6 +2015,9 @@ def main():
                        {"pinned": dis_p[:2], "realistic": dis_r[:2]},
                        dis_steady, train_b["fused"])
 
+    with phase("10 attention-block bench"):
+        phase_bench_block(dev, card, runs)
+
     kernels = []
     for name, source, replaces in KERNELS:
         cs = cases[name]
@@ -1803,7 +2037,10 @@ def main():
                                          "out_rel_err", "dq_rel_err",
                                          "dk_rel_err", "dv_rel_err",
                                          "control_rel_err",
-                                         "control_rel_errs")
+                                         "control_rel_errs",
+                                         "control_max_abs_err", "nan_rows",
+                                         "ctx_control_rel_err",
+                                         "as_run_bound_ms")
                        if k in c} for c in cs]})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,13 +3,17 @@ version on the same bf16 inputs, at the kernels' width (768) and small
 batches, plus the wrappers' refusals, a short prefix-scorer run through
 its three kernels, a short flat-scorer run through its three, and the
 training attention block (forward and backward, with dropout) and the
-fused AdamW, and the per-head text attention kernels (forward, backward
-and attention_v2). Every test needs a CUDA device and skips without one.
+fused AdamW, the per-head text attention kernels (forward, backward
+and attention_v2), and the attention-block bench's probes (B4 at other
+block_b, the softmax-mode and layout probes). Every test needs a CUDA
+device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda -q tests/test_torch_cuda.py
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ from unimm_torch.ops import answer_block as tab
 from unimm_torch.ops import attention_block as tatb
 from unimm_torch.ops import attention_block_train as tabt
 from unimm_torch.ops import attention_v2 as tav2
+from unimm_torch.ops import block_probe as tbp
 from unimm_torch.ops import co_text_block as tco
 from unimm_torch.ops import ffn_block as tfb
 from unimm_torch.ops import text_attention as tta
@@ -412,3 +417,100 @@ def test_attention_v2_matches_plain(dev, block_b):
         > TA_REL
     # at heads of 64 the scale is 2^-3: the per-head kernel's function
     assert torch.equal(got, tta.text_attention_fwd(q, k, v, desc))
+
+
+def test_attention_block_result_does_not_depend_on_block_b(dev):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, L = 6, 160
+    attn = _module(lambda: vilbert._attention(768), gen, dev)
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = _mixed_desc(B, L, np.random.default_rng(11)).to(dev)
+    want = tatb.attention_block(x, desc, attn, num_heads=12)
+    for block_b in (2, 3, 4):          # 4 lowers to 3, a divisor of 6
+        got = tatb.attention_block(x, desc, attn, num_heads=12,
+                                   block_b=block_b)
+        assert torch.equal(got, want), block_b
+
+
+# The probes round at B4's points (chip_smoke.py states the bound): y within
+# B4's bound of the plain twin, NaN (noshift, on rows whose keys are all
+# masked) at the same places; the control, the twin on the flipped
+# descriptors (for skip, which ignores the mask, the full twin), must miss.
+def _zero_scores(attn):
+    """attn's weights with the query projection zeroed: every score is 0."""
+    ps = attn.self
+    q = SimpleNamespace(weight=torch.zeros_like(ps.query.weight),
+                        bias=torch.zeros_like(ps.query.bias))
+    return SimpleNamespace(self=SimpleNamespace(query=q, key=ps.key,
+                                                value=ps.value),
+                           output=attn.output)
+
+
+def _probe_close(got, want):
+    g, w = got.float(), want.float()
+    assert torch.equal(g.isnan(), w.isnan())
+    keep = ~g.isnan()
+    _close(g[keep], w[keep], 5e-2, 2e-2)
+
+
+@pytest.mark.parametrize("L", [96, 256])
+@pytest.mark.parametrize("mode", ["full", "none", "noshift", "skip"])
+def test_probe_block_matches_plain(dev, mode, L):
+    gen = torch.Generator(device=dev).manual_seed(L)
+    B = 6
+    attn = _wide_attention(gen, dev)
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = _mixed_desc(B, L, np.random.default_rng(L)).to(dev)
+
+    def plain(d, m=mode):
+        return tbp.probe_block_plain(x, d, attn, num_heads=12,
+                                     softmax_mode=m)
+
+    n0 = tbp.probe_block.launches
+    got = tbp.probe_block(x, desc, attn, num_heads=12, softmax_mode=mode)
+    assert tbp.probe_block.launches == n0 + 1
+    _probe_close(got, plain(desc))
+    assert bool(got.isnan().any()) == (mode == "noshift")
+    with pytest.raises(AssertionError):
+        _probe_close(got, plain(desc, "full") if mode == "skip"
+                     else plain(_flip(desc)))
+    if mode == "skip":
+        return
+    # y hardly sees the context under none (p = s 1e-4): hold the context
+    # itself, on open descriptors (a function of the scores alone), to
+    # TA_REL of its largest entry; the twin without scores must miss it
+    z = torch.zeros_like(desc)
+    open_ = torch.stack([z[:, 0], z[:, 0] + L, z[:, 0]], -1)
+    _, ctx = tbp.probe_block(x, open_, attn, num_heads=12, softmax_mode=mode,
+                             return_ctx=True)
+    assert _rel_err(ctx, tbp.probe_block_plain(
+        x, open_, attn, num_heads=12, softmax_mode=mode,
+        return_ctx=True)[1]) <= TA_REL
+    assert _rel_err(ctx, tbp.probe_block_plain(
+        x, open_, _zero_scores(attn), num_heads=12, softmax_mode=mode,
+        return_ctx=True)[1]) > TA_REL
+
+
+@pytest.mark.parametrize("L", [96, 256])
+@pytest.mark.parametrize("layout", ["wo_acc", "transposed", "pad128"])
+def test_layout_probe_block_matches_plain(dev, layout, L):
+    gen = torch.Generator(device=dev).manual_seed(L + 1)
+    B = 6
+    attn = _wide_attention(gen, dev)
+    p = tbp.pad_heads_128(attn) if layout == "pad128" else attn
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = _mixed_desc(B, L, np.random.default_rng(L)).to(dev)
+
+    def plain(d):
+        return tbp.layout_probe_block_plain(x, d, p, num_heads=12,
+                                            layout=layout)
+
+    n0 = tbp.layout_probe_block.launches
+    got = tbp.layout_probe_block(x, desc, p, num_heads=12, layout=layout)
+    assert tbp.layout_probe_block.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    _probe_close(got, plain(desc))
+    # B4's function: against B4's own kernel within the same bound
+    _probe_close(got, tatb.attention_block(x, desc, attn, num_heads=12))
+    with pytest.raises(AssertionError):
+        _probe_close(got, plain(_flip(desc)))

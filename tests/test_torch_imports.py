@@ -34,7 +34,7 @@ def test_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 30
+    assert int(out.stdout.strip().splitlines()[-1]) >= 35
 
 
 def _imported_roots(path):
@@ -50,7 +50,7 @@ def _imported_roots(path):
 def test_no_jax_import_statements():
     files = sorted((ROOT / "unimm_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
-    assert len(files) >= 31
+    assert len(files) >= 36
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "unimm_tpu"}
         assert not bad, (f, bad)

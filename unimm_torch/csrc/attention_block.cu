@@ -15,8 +15,9 @@
 // with the TPU kernel's rounding points. Three launches; the first and the
 // last are the answer block's (block_parts.cuh):
 //   1. gemm_nt_kernel     Q/K/V projection, 128x128 tiles (common.cuh)
-//   2. seq_attn_kernel    one CTA per (64-row query tile, head, sequence)
-//                         (seq_attn.cuh, shared with the training block)
+//   2. seq_attn_kernel    one CTA per (64-row query tile, head, block_b
+//                         sequences walked in turn) (seq_attn.cuh, shared
+//                         with the training block)
 //   3. out_ln_kernel      Wo + bo + residual + LayerNorm on 32-row tiles
 // What bounds it on an H100: 8 M 768^2 + 4 B L^2 768 flops (0.36 TFLOP at
 // [256, 256, 768]) against ~0.2 GB of x, output and weights: the
@@ -25,6 +26,9 @@
 // and probabilities never leave registers, and no [B, L, L] mask exists.
 // Rows past a sequence's extent are fully masked and, as in the TPU kernel,
 // take their softmax over all L keys at s - 10000: no key tile is skipped.
+// block_b (the TPU kernel's sequences per grid step) only trades CTAs for
+// per-CTA work: each CTA restages K and V for every sequence it walks, so
+// the result does not depend on it.
 
 #include "block_parts.cuh"
 #include "seq_attn.cuh"
@@ -34,7 +38,7 @@ extern "C" int unimm_attention_block(
     const void* wk, const void* bk, const void* wv, const void* bv,
     const void* wo, const void* bo, const void* gamma, const void* beta,
     void* q_buf, void* k_buf, void* v_buf, void* ctx_buf, void* out, int B,
-    int L, float eps, void* stream) {
+    int L, int block_b, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * L;
   GemmArgs g{static_cast<const bf16*>(x),
@@ -51,7 +55,7 @@ extern "C" int unimm_attention_block(
   if (err != cudaSuccess) return err;
 
   err = launch_seq_attn<false>(q_buf, k_buf, v_buf, desc, ctx_buf, B, L,
-                               DropArgs{0u, 0u, 1.0f}, st);
+                               DropArgs{0u, 0u, 1.0f}, st, block_b);
   if (err != cudaSuccess) return err;
 
   return launch_out_ln(ctx_buf, x, wo, bo, gamma, beta, eps, out, M, HID,

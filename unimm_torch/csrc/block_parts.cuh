@@ -16,8 +16,9 @@ struct QkvEpi {
   bf16* y[3];
   float scale[3];
   int ld;
-  __device__ __forceinline__ void operator()(int z, long row, int col,
-                                             float v0, float v1) const {
+  // the values of columns col, col + 1
+  __device__ __forceinline__ __nv_bfloat162 value(int z, int col, float v0,
+                                                  float v1) const {
     bf16 o0 = __float2bfloat16(v0 + __bfloat162float(b[z][col]));
     bf16 o1 = __float2bfloat16(v1 + __bfloat162float(b[z][col + 1]));
     if (scale[z] != 1.0f) {
@@ -27,7 +28,12 @@ struct QkvEpi {
     __nv_bfloat162 o;
     o.x = o0;
     o.y = o1;
-    *reinterpret_cast<__nv_bfloat162*>(y[z] + row * ld + col) = o;
+    return o;
+  }
+  __device__ __forceinline__ void operator()(int z, long row, int col,
+                                             float v0, float v1) const {
+    *reinterpret_cast<__nv_bfloat162*>(y[z] + row * ld + col) =
+        value(z, col, v0, v1);
   }
 };
 

@@ -38,7 +38,8 @@ _SIGNATURES = {
     "unimm_answer_block": [_VP] * 20 + [_INT] * 4 + [_F32, _VP],
     "unimm_ffn_block": [_VP] * 10 + [_INT] * 3 + [_F32, _VP],
     "unimm_xent_head": [_VP] * 5 + [_INT] * 2 + [_VP],
-    "unimm_attention_block": [_VP] * 17 + [_INT] * 2 + [_F32, _VP],
+    # ...; B, L, block_b; eps
+    "unimm_attention_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
     "unimm_co_text_block": [_VP] * 18 + [_INT] * 3 + [_F32, _VP],
     "unimm_attention_block_train_fwd": ([_VP] * 18 + [_INT] * 2
                                         + [_F32, _U32, _U32, _F32, _INT,
@@ -53,6 +54,9 @@ _SIGNATURES = {
                                  + [_F32, _VP]),
     "unimm_attention_v2": ([_VP] * 5 + [_INT] * 3 + [_I64, _I64, _INT, _INT]
                            + [_F32, _VP]),
+    # x, desc, ten weights, q, k, v, ctx, out; B, L, mode / layout; eps
+    "unimm_probe_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
+    "unimm_layout_probe_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
 }
 
 

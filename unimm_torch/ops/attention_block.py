@@ -60,12 +60,13 @@ def attention_block_plain(x, desc, p_attn, *, num_heads, eps=1e-12):
     return (y * gamma.float() + beta.float()).to(dt)
 
 
-def check_inputs(name, x, desc, weights, num_heads):
-    """Raise ValueError unless the attention-block kernels (this one and
-    the training block's) take these tensors: x [B, L, 768] bf16 with
-    32 <= L <= 256 and L % 32 == 0, heads of 64, desc int32 [B, 3], the
-    weights bf16 [768, 768] / [768], all contiguous, aligned and on one
-    CUDA device."""
+def check_inputs(name, x, desc, weights, num_heads, width=HID):
+    """Raise ValueError unless the attention-block kernels (this one, the
+    training block's and the bench's probes) take these tensors: x [B, L,
+    768] bf16 with 32 <= L <= 256 and L % 32 == 0, heads of 64, desc int32
+    [B, 3], the weights bf16 [width, 768] / [width] (Q, K, V), [768, width]
+    / [768] (output) and [768] (LayerNorm), all contiguous, aligned and on
+    one CUDA device. ``width`` is 768, or 1536 for heads padded to 128."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f"{name}: {msg}")
@@ -81,7 +82,8 @@ def check_inputs(name, x, desc, weights, num_heads):
             f"desc must be int32 [{B}, 3], got {desc.dtype} "
             f"{tuple(desc.shape)}")
     # wq, bq, wk, bk, wv, bv[, wo, bo, gamma, beta]
-    shapes = [(HID, HID), (HID,)] * 4 + [(HID,), (HID,)]
+    shapes = [(width, HID), (width,)] * 3 + [(HID, width), (HID,),
+                                             (HID,), (HID,)]
     for t, shp in zip(weights, shapes):
         require(tuple(t.shape) == shp, f"weight shape {tuple(t.shape)}")
     for t in (x,) + tuple(weights):
@@ -94,7 +96,17 @@ def check_inputs(name, x, desc, weights, num_heads):
     require(x.device.type == "cuda", f"unsupported device {x.device}")
 
 
-def attention_block(x, desc, p_attn, *, num_heads, eps=1e-12):
+def lower_block_b(B, block_b):
+    """The TPU kernel's rule: the largest divisor of B not above
+    ``block_b``."""
+    if block_b < 1:
+        raise ValueError(f"block_b must be >= 1, got {block_b}")
+    while B % block_b:
+        block_b -= 1
+    return block_b
+
+
+def attention_block(x, desc, p_attn, *, num_heads, eps=1e-12, block_b=1):
     """LayerNorm(x + Wo . attention(x under the descriptor's text mask) +
     bo) for whole sequences.
 
@@ -102,7 +114,11 @@ def attention_block(x, desc, p_attn, *, num_heads, eps=1e-12):
     layer's ``attention`` module in the compute dtype. A CPU tensor runs
     ``attention_block_plain``; a CUDA tensor launches the kernel (bf16
     activations and weights, 32 <= L <= 256 with L % 32 == 0) or raises.
+    ``block_b`` (lowered to the largest divisor of B, as on the TPU) is the
+    number of sequences each attention CTA walks in turn; the result does
+    not depend on it.
     """
+    block_b = lower_block_b(x.shape[0], block_b)
     if x.device.type == "cpu":
         return attention_block_plain(x, desc, p_attn, num_heads=num_heads,
                                      eps=eps)
@@ -114,7 +130,7 @@ def attention_block(x, desc, p_attn, *, num_heads, eps=1e-12):
     code = lib.unimm_attention_block(
         x.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in weights),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
-        out.data_ptr(), B, L, eps, _build.stream(x.device))
+        out.data_ptr(), B, L, block_b, eps, _build.stream(x.device))
     _build.check(code, "attention_block")
     attention_block.launches += 1
     return out

@@ -19,6 +19,7 @@ import math
 import torch
 
 from unimm_torch.ops import _build
+from unimm_torch.ops.attention_block import lower_block_b
 from unimm_torch.ops.masks import mask_bias
 from unimm_torch.ops.text_attention import check_inputs, same_layout
 
@@ -37,15 +38,12 @@ def attention_v2(q, k, v, desc, *, block_b=4):
     """[B, H, L, D] attention with ``block_b`` sequences per CTA (eval
     only). ``block_b`` is lowered to the largest divisor of B that it
     reaches, as the TPU kernel's grid does."""
-    if block_b < 1:
-        raise ValueError(f"attention_v2: block_b {block_b} < 1")
+    block_b = lower_block_b(q.shape[0], block_b)
     if q.device.type == "cpu":
         return attention_v2_plain(q, k, v, desc)
     check_inputs("attention_v2", (q, k, v), desc)
     q, k, v = same_layout(q, k, v)
     B, H, L, D = q.shape
-    while B % block_b:
-        block_b -= 1
     out = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
                               device=q.device)
     code = _build.library().unimm_attention_v2(

@@ -44,18 +44,29 @@ ITERS = 20
 SETS, REPS = 3, 6
 
 
+def normal(rng, shape, dev):
+    """A bf16 tensor on ``dev`` from a standard normal draw of ``rng``."""
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        dev, torch.bfloat16)
+
+
+def make_desc(rng, B, L, dev):
+    """The benches' int32 [B, 3] descriptors: mode 0 or 1, ctx_end 60-199
+    and ans_len 2-8, scaled into L below 256."""
+    mode = rng.integers(0, 2, B)
+    ctx_end = rng.integers(60, 200, B) * L // 256
+    ans_len = rng.integers(2, 9, B)
+    desc = np.stack([mode, np.maximum(ctx_end, ans_len + 2), ans_len], -1)
+    return torch.from_numpy(desc.astype(np.int32)).to(dev)
+
+
 def make_inputs(seed, shape, dev):
     """(q, k, v, desc) on ``dev``: bf16 [B, H, L, D] from a normal draw and
     the int32 [B, 3] descriptors."""
     B, H, L, D = shape
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-               .to(dev, torch.bfloat16) for _ in range(3))
-    mode = rng.integers(0, 2, B)
-    ctx_end = rng.integers(60, 200, B) * L // 256
-    ans_len = rng.integers(2, 9, B)
-    desc = np.stack([mode, np.maximum(ctx_end, ans_len + 2), ans_len], -1)
-    return q, k, v, torch.from_numpy(desc.astype(np.int32)).to(dev)
+    q, k, v = (normal(rng, shape, dev) for _ in range(3))
+    return q, k, v, make_desc(rng, B, L, dev)
 
 
 def xla_attn(q, k, v, desc):
@@ -76,11 +87,12 @@ VARIANTS = {"xla": xla_attn, "pallas_v1": text_attention_fwd,
 
 def bench(fn, sets, iters, dev):
     """Median, fastest and slowest ms per call of ``fn`` by the protocol
-    above."""
-    def measure(q, k, v, desc):
-        out = q
+    above: each call takes the previous call's output in place of the
+    first tensor of its input set."""
+    def measure(first, *rest):
+        out = first
         for _ in range(iters):
-            out = fn(out, k, v, desc)
+            out = fn(out, *rest)
         return out
 
     cuda = dev.type == "cuda"
@@ -113,40 +125,55 @@ def run(names, *, iters=ITERS, shape=SHAPE, dev=None):
         return {n: bench(VARIANTS[n], sets, iters, dev) for n in names}
 
 
-def main(argv=None):
+def device_and_card(name):
+    """The device a bench runs on (card 0 unless ``name`` is "cpu"; raises
+    without a card) and the line that names it: the card's name and power
+    limit from nvidia-smi, or the CPU's host clock. TF32 is off."""
+    dev = vilbert.resolve_device(name)
+    if dev.type == "cpu":
+        return dev, "cpu (host clock)"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    return torch.device("cuda", 0), card
+
+
+def cli(argv, *, key, variants, run_fn, shape, shape_help):
+    """The benches' command line (``[variant ...] [--iters N] [--shape ...]
+    [--device cuda|cpu]``): run the variants, print each one's line, then
+    one JSON line of the medians under ``key``; return {variant: (median,
+    min, max)}."""
     ap = argparse.ArgumentParser()
     ap.add_argument("variants", nargs="*",
-                    help=f"any of {', '.join(VARIANTS)} (default: all)")
+                    help=f"any of {', '.join(variants)} (default: all)")
     ap.add_argument("--iters", type=int, default=ITERS)
-    ap.add_argument("--shape", default=",".join(map(str, SHAPE)),
-                    help="B,H,L,D")
+    ap.add_argument("--shape", default=",".join(map(str, shape)),
+                    help=shape_help)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     shape = tuple(int(x) for x in args.shape.split(","))
-    dev = vilbert.resolve_device(args.device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", 0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip()
-    else:
-        card = "cpu (host clock)"
-    unknown = sorted(set(args.variants) - set(VARIANTS))
+    dev, card = device_and_card(args.device)
+    unknown = sorted(set(args.variants) - set(variants))
     if unknown:
         ap.error(f"unknown variants {unknown}")
-    names = args.variants or list(VARIANTS)
+    names = args.variants or list(variants)
     print(f"device={card} shape={list(shape)} iters={args.iters}",
           flush=True)
-    res = run(names, iters=args.iters, shape=shape, dev=dev)
+    res = run_fn(names, iters=args.iters, shape=shape, dev=dev)
     for name, (med, lo, hi) in res.items():
         print(f"{name:24s} {med:8.3f} ms/call   ({lo:.3f} min, {hi:.3f} "
               f"max)", flush=True)
-    print(json.dumps({"bench_attn": {n: r[0] for n, r in res.items()},
+    print(json.dumps({key: {n: r[0] for n, r in res.items()},
                       "shape": list(shape), "iters": args.iters,
                       "device": card}), flush=True)
     return res
+
+
+def main(argv=None):
+    return cli(argv, key="bench_attn", variants=VARIANTS, run_fn=run,
+               shape=SHAPE, shape_help="B,H,L,D")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@
 
 Default: for each kernel wrapper at main-path shapes, a JSON line with the
 mean device time per call of every CUDA kernel the call launched (the
-sub-kernels of one wrapper seen one by one). ``--main-path``: one warm
+sub-kernels of one wrapper seen one by one); the attention-block bench's
+probes at its shape [512, 256, 768], on its descriptors ("bench") and on
+descriptors under which every row attends every key ("open"), so that a
+cost that depends on fully masked rows shows. ``--main-path``: one warm
 generative ``evaluate_split`` over 2 coalesced pinned batches (one slate
 group pair) at the default config; ``--dis-path``: one warm
 discriminative ``evaluate_split(mode="nsp")`` over 2 coalesced pinned
@@ -260,7 +263,37 @@ def main():
             print(json.dumps({"wrapper": name,
                               "shape": f"[{B}, 12, 256, 64]", "ms": t}),
                   flush=True)
+    _probes(rand, attn, args.iters)
     print(card)
+
+
+def _probes(rand, attn, iters, B=512, L=256):
+    """Sub-kernel device times of every probe of the attention-block bench
+    on the bench's descriptors and on all-open ones."""
+    import numpy as np
+
+    from unimm_torch.ops import block_probe as bp
+    from unimm_torch.tools.bench_attn import make_desc
+
+    x = rand(B, L, 768)
+    dev = x.device
+    descs = {"bench": make_desc(np.random.default_rng(0), B, L, dev),
+             "open": torch.tensor([0, L, 0], dtype=torch.int32,
+                                  device=dev).repeat(B, 1)}
+    padded = bp.pad_heads_128(attn)
+    for dname, desc in descs.items():
+        runs = {f"probe_block {m}": (lambda m=m: bp.probe_block(
+            x, desc, attn, num_heads=12, softmax_mode=m))
+            for m in bp.SOFTMAX_MODES}
+        runs.update({f"layout_probe_block {lay}": (
+            lambda lay=lay: bp.layout_probe_block(
+                x, desc, padded if lay == "pad128" else attn, num_heads=12,
+                layout=lay)) for lay in bp.LAYOUTS})
+        for name, fn in runs.items():
+            wrapper, kind = name.split()
+            print(json.dumps({"wrapper": wrapper,
+                              "shape": f"{kind} [{B}, {L}, 768] {dname}",
+                              "ms": _kernel_times(fn, iters)}), flush=True)
 
 
 if __name__ == "__main__":
