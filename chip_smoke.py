@@ -7,7 +7,11 @@ the serving paths end to end and check that they went through the kernels.
 Phases (any failure exits nonzero with its traceback, and no ok line; each
 prints its seconds):
   1. device: require CUDA; print the card's name and power limit; TF32 off.
-  2. build: compile unimm_torch/csrc/*.cu for sm_90a (timed).
+  2. build: compile unimm_torch/csrc/*.cu for sm_90a (timed); print
+     ptxas's registers and spills of every kernel, the one-pass per-head
+     kernel's (B6's forward, B9) with its shared memory and CTAs an SM
+     (fails on a spill), and whether each seq_attn_kernel instance kept
+     the SASS of the first design's build (tools/sass_digest).
   3. kernels: each kernel against its plain version on the same bf16
      inputs at full width, with the stated tolerance; kernel, plain and
      one-PyTorch-call (``library_ms``) times by CUDA events; the roofline
@@ -42,7 +46,9 @@ prints its seconds):
      (c) 8 steps on one batch lower the loss.
   9. per-head attention and remat (phase 3 also holds B6's forward and
      backward and B9 against their plain twins, each with a control on
-     the flipped descriptors): (a) ``evaluate_split(mode="nsp")`` under
+     the flipped descriptors, B6's forward also at L 160 on the edge
+     descriptors and on masked tails, and B9 equal to B6's forward bit
+     for bit): (a) ``evaluate_split(mode="nsp")`` under
      ``attention_impl="pallas"`` over 2 pinned and 2 realistic dis
      batches, 12 B6 launches per chunk and nothing else, NSP margins
      against the all-plain evaluator, steady dialogs/s beside phase 5's;
@@ -144,6 +150,46 @@ def seeded_module(make, gen, dev, std=0.02):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: what the compiler made of the kernels
+# ---------------------------------------------------------------------------
+
+# the SASS digests of the first design's seq_attn_kernel instances, taken
+# from commit 0104b97's sources with tools/sass_digest
+SASS_RECORD = "unimm_torch/tools/seq_attn_kernel_sass.json"
+
+
+def report_fwd_kernel():
+    """The one-pass per-head kernel's registers and spills (ptxas), its
+    shared memory and CTAs an SM at L 256 (the runtime), failing on a
+    spill; then whether each seq_attn_kernel instance left for B4, B5, B10
+    and B11 kept the SASS of SASS_RECORD's build."""
+    from pathlib import Path
+
+    from unimm_torch.ops import attention_v2 as av2
+    from unimm_torch.ops import text_attention as ta
+    from unimm_torch.tools import sass_digest
+
+    rows = sass_digest.ptxas_report("seq_attn_fwd_kernel")
+    for r in rows:
+        print(json.dumps({"ptxas": r}), flush=True)
+    if len(rows) != 2 or any(r.get("spill_stores", 1) or
+                             r.get("spill_loads", 1) for r in rows):
+        raise SystemExit(f"seq_attn_fwd_kernel: want 2 instances without "
+                         f"spills, got {rows}")
+    print(json.dumps({"seq_attn_fwd_kernel": {
+        "text_attention_fwd": ta.fwd_kernel_info(256),
+        "attention_v2": av2.kernel_info(256)}}), flush=True)
+    recorded = json.loads((Path(__file__).resolve().parent
+                           / SASS_RECORD).read_text())
+    current = sass_digest.digests(sass_digest.built_objects())
+    print(json.dumps({"seq_attn_kernel_sass": {
+        "recorded_nvcc": recorded["nvcc"],
+        "nvcc": sass_digest.nvcc_version(),
+        "vs_recorded": sass_digest.compare(recorded["digests"], current)}}),
+        flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -181,10 +227,13 @@ def seeded_module(make, gen, dev, std=0.02):
 # summation order differs, which moves a bf16 rounding by one step, 2^-8
 # of the entry: each output is held to max |d| <= TA_REL max |plain|
 # (the atol column; rtol 0), and the twin on the descriptors with every
-# mode flipped must miss that bound. On an H100 (700 W) the readings were
-# at most 2.6e-3 (forward), 3.1e-3 (backward) and 2.0e-3 (B9), the
-# controls at least 0.41: the gate is about three times the worst
-# reading.
+# mode flipped must miss that bound. On an H100 (700 W) the first design's
+# readings were at most 2.6e-3 (forward), 3.1e-3 (backward) and 2.0e-3
+# (B9), the controls at least 0.41. The one-pass forward (B6's forward and
+# B9) rounds each probability once too, at another point (its online
+# softmax, csrc/seq_attn_fwd.cuh); its readings reach 6.7e-3 / 7.1e-3, one
+# bf16 step of an output entry in the largest entry's binade (at most 2^-7
+# of the largest entry), controls at least 0.34.
 # The bench's probes (B10 probe_block, B11 layout_probe_block) round at
 # B4's points and differ from their plain twins only in fp32 summation
 # order (wo_acc and transposed also sum Wo head by head, in fp32 on both
@@ -371,6 +420,17 @@ def edge_desc(B, L, gen):
         rows.append([(0, L, 0), (0, max(1, L // 4), 0), (1, L // 2, a),
                      (1, L - a + 2, a), (1, 5, 4)][i % 5])
     return torch.tensor(rows, dtype=torch.int32, device=gen.device)
+
+
+def tail_desc(B, L, gen):
+    """Discriminative descriptors with long fully masked tails: ctx_end in
+    [1, min(64, L)], so the first rows attend keys of the first chunk only
+    (the later chunks are closed for them) and the rows past ctx_end attend
+    no key (and weigh every key); a 16-row tile can hold both."""
+    n = torch.randint(1, min(64, L) + 1, (B,), generator=gen,
+                      device=gen.device)
+    z = torch.zeros_like(n)
+    return torch.stack([z, n, z], -1).to(torch.int32)
 
 
 def library_block(attn, x, mask, H=12):
@@ -973,8 +1033,10 @@ KERNELS = [
 def heads_cases(dev, gen):
     """Phase 3's cases of the per-head attention kernels: B6's forward at
     the flat path's main and longest buckets and the training step's shape,
-    then the edge descriptors at L 32 and 96; its backward at the training
-    step's shape and at L 96; B9 at its bench's shape."""
+    then the edge descriptors at L 32, 96 and 160 and the masked tails at
+    L 256 (skipped chunks and fully masked rows in one 16-row tile); its
+    backward at the training step's shape and at L 96; B9 at its bench's
+    shape. Then B9 must equal B6's forward bit for bit."""
     return {
         "text_attention_fwd": [
             check_heads_attention(dev, gen, "text_attention_fwd", 256, 192,
@@ -986,7 +1048,11 @@ def heads_cases(dev, gen):
             check_heads_attention(dev, gen, "text_attention_fwd", 20, 32,
                                   edge_desc),
             check_heads_attention(dev, gen, "text_attention_fwd", 20, 96,
-                                  edge_desc)],
+                                  edge_desc),
+            check_heads_attention(dev, gen, "text_attention_fwd", 20, 160,
+                                  edge_desc),
+            check_heads_attention(dev, gen, "text_attention_fwd", 64, 256,
+                                  tail_desc)],
         "text_attention_bwd": [
             check_text_attention_bwd(dev, gen, 240, 256, train_desc),
             check_text_attention_bwd(dev, gen, 20, 96, edge_desc)],
@@ -995,6 +1061,28 @@ def heads_cases(dev, gen):
                                   train_desc, block_b=bb)
             for bb in (1, 4, 8)],
     }
+
+
+def check_v2_equals_fwd(dev, gen):
+    """At heads of 64 the scale is 2^-3, so B9 (q rounded at scale) and
+    B6's forward (scores scaled) compute one function on the same sums:
+    equal bit for bit at every block_b, at the bench's shape, on the edge
+    descriptors at L 160 and on the masked tails."""
+    from unimm_torch.ops import attention_v2 as av2
+    from unimm_torch.ops import text_attention as ta
+    for B, L, desc_fn, bbs in ((512, 256, train_desc, (1, 4, 8)),
+                               (20, 160, edge_desc, (1, 4)),
+                               (64, 256, tail_desc, (1, 8))):
+        q, k, v = (split_heads(B, L, gen, dev).contiguous()
+                   for _ in range(3))
+        desc = desc_fn(B, L, gen)
+        want = ta.text_attention_fwd(q, k, v, desc)
+        for bb in bbs:
+            if not torch.equal(av2.attention_v2(q, k, v, desc, block_b=bb),
+                               want):
+                raise SystemExit(f"attention_v2 block_b {bb} differs from "
+                                 f"text_attention_fwd at [{B}, 12, {L}, 64] "
+                                 f"{desc_fn.__name__}")
 
 
 def phase_kernels(dev):
@@ -1033,6 +1121,7 @@ def phase_kernels(dev):
                       check_adamw(dev, gen, (768,)),
                       check_adamw(dev, gen, (1001,))]
     cases.update(heads_cases(dev, gen))
+    check_v2_equals_fwd(dev, gen)
     cases.update(probe_cases(dev, gen))
     check_block_b(dev, gen)
     failed = []
@@ -1845,6 +1934,7 @@ def main():
         for line in cu.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {cu.stem}: {line.strip()}", flush=True)
+    report_fwd_kernel()
 
     with phase("3 kernels"):
         cases = phase_kernels(dev)

@@ -4,7 +4,8 @@ batches, plus the wrappers' refusals, a short prefix-scorer run through
 its three kernels, a short flat-scorer run through its three, and the
 training attention block (forward and backward, with dropout) and the
 fused AdamW, the per-head text attention kernels (forward, backward
-and attention_v2), and the attention-block bench's probes (B4 at other
+and attention_v2, the one-pass forward's skipped chunks and its fit on
+the card), and the attention-block bench's probes (B4 at other
 block_b, the softmax-mode and layout probes). Every test needs a CUDA
 device and skips without one.
 
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from unimm_torch.config import VilbertConfig
 from unimm_torch.models import vilbert
 from unimm_torch.ops import adamw as tadam
@@ -417,6 +419,61 @@ def test_attention_v2_matches_plain(dev, block_b):
         > TA_REL
     # at heads of 64 the scale is 2^-3: the per-head kernel's function
     assert torch.equal(got, tta.text_attention_fwd(q, k, v, desc))
+
+
+@pytest.mark.parametrize("L,kind", [(160, "mixed"), (256, "tail")])
+def test_text_attention_fwd_edges(dev, L, kind):
+    """B6's forward where the one-pass kernel skips key chunks and weighs
+    fully masked rows over every key: the edge descriptors at L 160 (a
+    half key chunk) and the masked tails at L 256."""
+    gen = torch.Generator(device=dev).manual_seed(L + 1)
+    B = 12
+    q, k, v = (_heads(B, L, gen, dev, True) for _ in range(3))
+    desc = (_mixed_desc(B, L, np.random.default_rng(L + 1)).to(dev)
+            if kind == "mixed" else chip_smoke.tail_desc(B, L, gen))
+    got = tta.text_attention_fwd(q, k, v, desc)
+    assert _rel_err(got, tta.text_attention_fwd_plain(q, k, v, desc)) \
+        <= TA_REL
+    assert _rel_err(got, tta.text_attention_fwd_plain(q, k, v,
+                                                      _flip(desc))) > TA_REL
+
+
+@pytest.mark.parametrize("block_b", [1, 4, 8])
+def test_attention_v2_masked_tails(dev, block_b):
+    gen = torch.Generator(device=dev).manual_seed(block_b + 20)
+    B, L = 16, 256
+    q, k, v = (_heads(B, L, gen, dev, False) for _ in range(3))
+    desc = chip_smoke.tail_desc(B, L, gen)
+    got = tav2.attention_v2(q, k, v, desc, block_b=block_b)
+    assert _rel_err(got, tav2.attention_v2_plain(q, k, v, desc)) <= TA_REL
+    assert _rel_err(got, tav2.attention_v2_plain(q, k, v, _flip(desc))) \
+        > TA_REL
+    assert torch.equal(got, tta.text_attention_fwd(q, k, v, desc))
+
+
+def test_fwd_kernel_fits_the_card(dev):
+    """The one-pass kernel at L 256: no local memory (no spills), the
+    registers of __launch_bounds__(128, 3), 72 KB of shared memory (K, V
+    and 64 query rows), and at least 2 CTAs an SM."""
+    for info in (tta.fwd_kernel_info(256), tav2.kernel_info(256)):
+        assert info["local_bytes"] == 0, info
+        assert info["registers"] <= 168, info
+        assert info["smem_bytes"] == (2 * 256 + 64) * 128, info
+        assert info["ctas_per_sm"] >= 2, info
+
+
+def test_segment_embedding_gradient_is_deterministic(dev):
+    """The segment table's gradient (``vilbert._FewRowEmbedding``) is the
+    same on every run: 16384 bf16 hits on 2 rows, ten runs."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(0, 2, (64, 256), device=dev, generator=gen)
+    g = torch.randn(64, 256, 768, device=dev, generator=gen).bfloat16()
+    grads = []
+    for _ in range(10):
+        w = torch.zeros(2, 768, device=dev, requires_grad=True)
+        vilbert._FewRowEmbedding.apply(ids, w.to(torch.bfloat16)).backward(g)
+        grads.append(w.grad)
+    assert all(torch.equal(x, grads[0]) for x in grads)
 
 
 def test_attention_block_result_does_not_depend_on_block_b(dev):

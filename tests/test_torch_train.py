@@ -207,6 +207,23 @@ def test_remat_equals_no_remat(impl):
             name
 
 
+@pytest.mark.parametrize("rows", [2, 10])
+def test_segment_embedding_gradient(rows):
+    """The segment tables' lookup (``vilbert._FewRowEmbedding``) gives
+    ``F.embedding``'s output bit for bit and its gradient to fp32 order."""
+    rng = np.random.default_rng(rows)
+    ids = torch.from_numpy(rng.integers(0, rows, (6, 40)))
+    w = torch.from_numpy(rng.normal(size=(rows, 16)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(6, 40, 16)).astype(np.float32))
+    w1, w2 = (w.clone().requires_grad_() for _ in range(2))
+    out = tv._FewRowEmbedding.apply(ids, w1)
+    want = torch.nn.functional.embedding(ids, w2)
+    assert torch.equal(out, want)
+    out.backward(g)
+    want.backward(g)
+    torch.testing.assert_close(w1.grad, w2.grad, rtol=1e-6, atol=1e-6)
+
+
 def test_forward_train_remat_matches_jax():
     """forward_train under remat against the JAX package's under remat, on
     the per-head kernel path at dropout 0."""

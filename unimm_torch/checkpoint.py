@@ -10,7 +10,11 @@ The port's ``VilbertModel`` carries the reference ``state_dict`` names, so:
   ``model_state_dict`` with strict key matching after stripping the
   ``module.`` / ``bert_pretrained.`` prefixes and the legacy gamma/beta
   names; the tied ``cls.predictions.decoder.weight`` must equal the word
-  embeddings it is tied to;
+  embeddings it is tied to (the parity harness's loader);
+* ``load_reference_state_dict_lenient(model, sd)`` loads one as the
+  reference and the JAX package's ``from_torch_state_dict`` do, by
+  dict-intersection update: missing keys keep the model's values, extra
+  keys are skipped and returned;
 * ``language_param_set`` / ``group_label`` give each parameter its
   optimizer group (train/optim.py), as the reference train.py groups them.
 """
@@ -98,6 +102,38 @@ def load_reference_state_dict(model: torch.nn.Module,
         raise ValueError(f"{TIED_DECODER} is not tied to {WORD_EMBEDDINGS}")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+@torch.no_grad()
+def load_reference_state_dict_lenient(model: torch.nn.Module,
+                                      state_dict: Dict[str, Any]):
+    """Load a reference-format state dict into ``model`` by
+    dict-intersection update (reference train.py:359-364), with the JAX
+    package's ``from_torch_state_dict`` rules: keys are normalised; the
+    tied ``cls.predictions.decoder.weight`` is skipped in favour of the word
+    embeddings; a key the model lacks is collected (as given) in
+    ``skipped``; a key the checkpoint lacks keeps the model's value; a shape
+    mismatch raises ValueError and leaves the model as it was. Returns
+    (model, transferred, skipped)."""
+    params = model.state_dict()
+    updates, skipped = [], []
+    for raw, tensor in state_dict.items():
+        key = _normalize_key(raw)
+        if key == TIED_DECODER:
+            continue
+        if key not in params:
+            skipped.append(raw)
+            continue
+        value = (tensor if isinstance(tensor, torch.Tensor)
+                 else torch.as_tensor(np.asarray(tensor))).float()
+        if tuple(value.shape) != tuple(params[key].shape):
+            raise ValueError(
+                f"shape mismatch for {key}: ckpt {tuple(value.shape)} vs "
+                f"model {tuple(params[key].shape)}")
+        updates.append((key, value))
+    for key, value in updates:        # the model changes only if all fit
+        params[key].copy_(value)
+    return model, len(updates), skipped
 
 
 # ---------------------------------------------------------------------------

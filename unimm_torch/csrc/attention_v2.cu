@@ -10,20 +10,22 @@
 //   s = q_s k^T (fp32) + bias(desc);  p = softmax_fp32(s)
 //   o = bf16(bf16(p) v)
 //
-// seq_attn_kernel<false, SCALE_Q> (seq_attn.cuh), one CTA per (64-row
-// query tile, head, block_b sequences). On the TPU, block_b sequences per
-// grid step widen the DMA windows; here each CTA walks its block_b
-// sequences in turn, restaging K and V for each, so block_b only trades
-// CTAs for per-CTA work and the result does not depend on it. At a head
-// width of 64 the scale is 2^-3, so q_s is exact and the function equals
-// the per-head kernel's (text_attention.cu) bit for bit on the same sums;
-// the plain twins differ at other widths.
+// seq_attn_fwd_kernel<SCALE_Q> (seq_attn_fwd.cuh: one score pass in
+// registers, closed key chunks skipped), one CTA per (64-row query tile,
+// head, block_b sequences). On the TPU, block_b sequences per grid step
+// widen the DMA windows; here each CTA walks its block_b sequences in
+// turn and loads the next sequence's K, q and V while it computes the
+// current one, so block_b trades CTAs for overlapped loads and the result
+// does not depend on it. At a head width of 64 the scale is 2^-3, so q_s
+// is exact and the function equals the per-head kernel's
+// (text_attention.cu) bit for bit on the same sums; the plain twins
+// differ at other widths.
 //
 // What bounds it on an H100: device memory: q, k, v read and o written,
 // 4 B H L 64 x 2 bytes (805 MB at [512, 12, 256, 64], 0.24 ms at 3.35 TB/s)
 // against 4 B H L^2 64 flops (103 GFLOP, 0.10 ms at the bf16 peak).
 
-#include "seq_attn.cuh"
+#include "seq_attn_fwd.cuh"
 
 extern "C" int unimm_attention_v2(const void* q, const void* k,
                                   const void* v, const void* desc, void* out,
@@ -38,6 +40,9 @@ extern "C" int unimm_attention_v2(const void* q, const void* k,
                       static_cast<bf16*>(out),
                       lay, lay, B, H, L, block_b, scale,
                       DropArgs{0u, 0u, 1.0f}};
-  return launch_seq_attn_heads<false, SCALE_Q>(
-      a, static_cast<cudaStream_t>(stream));
+  return launch_seq_attn_fwd<SCALE_Q>(a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int unimm_attention_v2_info(int L, void* out) {
+  return seq_attn_fwd_info<SCALE_Q>(L, static_cast<int*>(out));
 }

@@ -1,12 +1,14 @@
 // The whole-sequence attention launches of the attention kernels, forward
 // and backward, and the descriptor text mask they share: attention_block.cu
 // (B4) and attention_block_train.cu (B5) on the [B, L, 768] projections of
-// a block, text_attention.cu (B6) and attention_v2.cu (B9) on [B, H, L, 64]
-// heads. A head is a [L, 64] bf16 tile read through element strides
-// (SeqLayout: sequence, head, row; the 64 columns are contiguous), so one
-// kernel reads a block's projections (L 768, 64, 768), a contiguous
-// [B, H, L, 64] tensor (H L 64, L 64, 64) and the head-split view of a
-// [B, L, H 64] tensor (L H 64, 64, H 64) without a copy.
+// a block, text_attention.cu (B6's backward) on [B, H, L, 64] heads; B6's
+// forward and B9 run the one-pass seq_attn_fwd.cuh, which takes its
+// layout and arguments from here. A head is a [L, 64] bf16 tile read
+// through element strides (SeqLayout: sequence, head, row; the 64 columns
+// are contiguous), so one kernel reads a block's projections (L 768, 64,
+// 768), a contiguous [B, H, L, 64] tensor (H L 64, L 64, 64) and the
+// head-split view of a [B, L, H 64] tensor (L H 64, 64, H 64) without a
+// copy.
 //
 // seq_attn_kernel<DROP, SCALE, SOFT, DH>: one CTA per (64-row query tile,
 // head, bb sequences walked in turn). The sequence's K and V for the head
@@ -16,8 +18,10 @@
 //
 //   s = q_h k_h^T (fp32) + bias(desc, i, j)        (0 or -10000)
 //       SCALE_NONE    q arrives scaled by 1 / sqrt(64) (B4, B5)
-//       SCALE_SCORES  s = (q_h k_h^T) * scale in fp32 (B6)
-//       SCALE_Q       q_h = bf16(q_h * scale) as it is staged (B9)
+//       SCALE_SCORES  s = (q_h k_h^T) * scale in fp32 (B6's first design)
+//       SCALE_Q       q_h = bf16(q_h * scale) as it is staged (B9's first
+//                     design; neither has a caller now, and the instances
+//                     left keep their SASS while these branches stay)
 //   p = softmax_fp32(s);  DROP: p *= Philox mask (0 or 1 / keep)
 //   ctx_h = bf16(bf16(p) v_h)
 //

@@ -9,8 +9,9 @@
 // which the wrapper passes without a copy), desc [B, 3] int32 and
 // scale = 1 / sqrt(64):
 //
-// forward (unimm_text_attention_fwd): seq_attn_kernel<false, SCALE_SCORES>,
-//   one CTA per (64-row query tile, head, sequence):
+// forward (unimm_text_attention_fwd): seq_attn_fwd_kernel<SCALE_SCORES>
+//   (seq_attn_fwd.cuh: one score pass in registers, closed key chunks
+//   skipped), one CTA per (64-row query tile, head, sequence):
 //     s = (q k^T) * scale (fp32) + bias(desc);  p = softmax_fp32(s)
 //     o = bf16(bf16(p) v)
 //   q is not pre-scaled and rounded, unlike the block kernels' q.
@@ -31,11 +32,11 @@
 // peak). Backward: q, k, v, do read and dq, dk, dv written (661 MB at
 // [240, 12, 256, 64], 0.20 ms) against five L x L x 64 products per head
 // (121 GFLOP, 0.12 ms). Neither writes an [L, L] tensor or a mask to
-// device memory. Both re-read K/V per query tile (forward) or stage all
-// four inputs per head (backward) and recompute the scores, three times in
-// the backward: what a later design (wgmma, one pass) would cut.
+// device memory. The forward's design against that bound is in
+// seq_attn_fwd.cuh. The backward stages all four inputs per head and
+// recomputes the scores three times: what a later design would cut.
 
-#include "seq_attn.cuh"
+#include "seq_attn_fwd.cuh"
 
 extern "C" int unimm_text_attention_fwd(const void* q, const void* k,
                                         const void* v, const void* desc,
@@ -49,8 +50,14 @@ extern "C" int unimm_text_attention_fwd(const void* q, const void* k,
                       static_cast<const int*>(desc),
                       static_cast<bf16*>(out),
                       lay, lay, B, H, L, 1, scale, DropArgs{0u, 0u, 1.0f}};
-  return launch_seq_attn_heads<false, SCALE_SCORES>(
-      a, static_cast<cudaStream_t>(stream));
+  return launch_seq_attn_fwd<SCALE_SCORES>(a,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// the forward kernel's registers, local bytes, shared memory and CTAs an
+// SM at length L (seq_attn_fwd_info); out: int32[4]
+extern "C" int unimm_text_attention_fwd_info(int L, void* out) {
+  return seq_attn_fwd_info<SCALE_SCORES>(L, static_cast<int*>(out));
 }
 
 extern "C" int unimm_text_attention_bwd(const void* q, const void* k,

@@ -460,6 +460,28 @@ def connection_layer(p, cfg: VilbertConfig, v_x, v_bias, t_x, co_bias, *,
 # embeddings
 # ---------------------------------------------------------------------------
 
+class _FewRowEmbedding(torch.autograd.Function):
+    """``F.embedding`` over a table of few rows (the segment tables), whose
+    gradient is the same on every run: onehot(ids)^T grad, one matrix
+    product. PyTorch's embedding backward on CUDA sums each row's many hits
+    (half of a batch's tokens land on one row) in an order that changes
+    from run to run, which moved the segment table's gradient by one
+    rounding step between two runs of one training step."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        rows = torch.arange(ctx.rows, device=ids.device)
+        onehot = (ids.reshape(-1, 1) == rows).to(grad.dtype)  # no host sync
+        return None, onehot.t() @ grad.reshape(-1, grad.shape[-1])
+
+
 def text_embeddings(p, cfg: VilbertConfig, input_ids, token_type_ids,
                     position_ids, *, dtype, train=False, rng=None):
     """BertEmbeddingsDialog without the dead sinusoid buffer; segment ids
@@ -469,10 +491,12 @@ def text_embeddings(p, cfg: VilbertConfig, input_ids, token_type_ids,
     ext = token_type_ids - cfg.type_vocab_size
     is_ext = ext >= 0
     zero = torch.zeros_like(token_type_ids)
-    te_base = F.embedding(torch.where(is_ext, zero, token_type_ids),
-                          p.token_type_embeddings.weight.to(dtype))
-    te_ext = F.embedding(torch.where(is_ext, ext, zero),
-                         p.token_type_embeddings_extension.weight.to(dtype))
+    te_base = _FewRowEmbedding.apply(
+        torch.where(is_ext, zero, token_type_ids),
+        p.token_type_embeddings.weight.to(dtype))
+    te_ext = _FewRowEmbedding.apply(
+        torch.where(is_ext, ext, zero),
+        p.token_type_embeddings_extension.weight.to(dtype))
     te = torch.where(is_ext[..., None], te_ext, te_base)
     emb = layer_norm(p.LayerNorm, we + pe + te)
     return dropout(emb, cfg.hidden_dropout_prob, train, rng)

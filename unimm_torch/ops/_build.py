@@ -54,6 +54,9 @@ _SIGNATURES = {
                                  + [_F32, _VP]),
     "unimm_attention_v2": ([_VP] * 5 + [_INT] * 3 + [_I64, _I64, _INT, _INT]
                            + [_F32, _VP]),
+    # L; out int32[4]
+    "unimm_text_attention_fwd_info": [_INT, _VP],
+    "unimm_attention_v2_info": [_INT, _VP],
     # x, desc, ten weights, q, k, v, ctx, out; B, L, mode / layout; eps
     "unimm_probe_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
     "unimm_layout_probe_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
@@ -87,7 +90,8 @@ def _digest(files) -> str:
 def build() -> Path:
     """Compile the kernels unless an up-to-date library exists; return its
     path. Compiler output (including ``-Xptxas -v`` register and shared
-    memory counts) is kept in ``build/unimm_torch/<source>.log``."""
+    memory counts) is kept in ``build/unimm_torch/<source>.log``, each
+    source's object in ``build/unimm_torch/<source>.o``."""
     global build_seconds
     cus, headers = _sources()
     digest = _digest(cus + headers)
@@ -121,8 +125,8 @@ def build() -> Path:
     subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                    check=True, capture_output=True)
     os.replace(tmp, lib)
-    for obj in objs:
-        obj.unlink()
+    for cu, obj in zip(cus, objs):      # kept for tools/sass_digest
+        os.replace(obj, BUILD_DIR / f"{cu.stem}.o")
     stamp.write_text(digest)
     build_seconds = time.perf_counter() - t0
     return lib
@@ -140,6 +144,16 @@ def library():
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def kernel_info(entry: str, L: int) -> dict:
+    """What the C entry point ``entry`` (a ``*_info`` function) reports of
+    its kernel at sequence length L: registers and local memory bytes a
+    thread (stack and spills), dynamic shared memory a CTA, CTAs an SM."""
+    out = (ctypes.c_int * 4)()
+    check(getattr(library(), entry)(L, ctypes.addressof(out)), entry)
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "ctas_per_sm"), out))
 
 
 def check(code: int, name: str):

@@ -7,7 +7,8 @@ the function of ``text_attention``'s forward, except that q is scaled in
 fp32 and rounded to its dtype before the scores (``q_s = bf16(q scale)``,
 ``s = q_s k^T`` in fp32). On the TPU ``block_b`` sequences share a grid
 step; here it sets how many sequences one CTA of ``csrc/attention_v2.cu``
-walks in turn, and the result does not depend on it. On CUDA tensors the
+walks in turn, loading the next one's K, q and V while it computes the
+current one, and the result does not depend on it. On CUDA tensors the
 wrapper launches the kernel (bf16, heads of 64, 32 <= L <= 256 with
 L % 32 == 0) or raises; on CPU tensors it runs ``attention_v2_plain``.
 """
@@ -56,3 +57,9 @@ def attention_v2(q, k, v, desc, *, block_b=4):
 
 
 attention_v2.launches = 0
+
+
+def kernel_info(L=256):
+    """The kernel's registers, local bytes, shared memory and CTAs an SM at
+    length L (``text_attention.fwd_kernel_info``'s fields)."""
+    return _build.kernel_info("unimm_attention_v2_info", L)

@@ -75,6 +75,66 @@ def mask_bias(desc, max_len: int):
                                            desc[:, 2], max_len))
 
 
+# The one-pass per-head attention kernel (csrc/seq_attn_fwd.cuh) holds a
+# warp's ROW_TILE query rows against KEY_CHUNK-key chunks.
+ROW_TILE = 16
+KEY_CHUNK = 64
+
+
+def row_intervals(desc, max_len: int):
+    """Each query row's open keys as one interval plus at most the
+    diagonal, the CPU twin of csrc/seq_attn_fwd.cuh's ``row_span`` (line for
+    line): (lo, hi, diag, open), int64 [B, max_len] each but ``open`` (bool).
+    Row i attends key j iff open and (lo <= j < hi or j == diag), which is
+    ``text_attention_mask`` for any descriptor (mode 0 is dis, any other
+    gen, as ``mask_bias`` selects them). A row that attends no key
+    (open False) takes its softmax over all max_len keys at s - 10000,
+    which is softmax(s) over them: its interval is [0, max_len), diag -1.
+
+    gen zones, with T = min(L1 + A, max_len) and Lc = L1 - A: row 0
+    [0, T); context rows [1, Lc); first-copy rows [1, i]; second-copy rows
+    [1, i - A) and the diagonal; rows >= T none. dis: rows < L1 [0, L1)."""
+    desc = torch.as_tensor(desc).long()
+    mode, L1, A = (desc[:, k, None] for k in range(3))
+    i = torch.arange(max_len, device=desc.device)[None, :]
+    T = torch.clamp(L1 + A, max=max_len)
+    Lc = L1 - A
+    zero, one, none = (torch.full_like(i + L1, v) for v in (0, 1, -1))
+    gen = mode != 0
+    lo = torch.where(~gen | (i == 0), zero, one)
+    hi = torch.where(
+        ~gen, torch.where(i < L1, L1, zero),
+        torch.where(i == 0, T,
+                    torch.where(i < Lc, Lc,
+                                torch.where(i < L1, i + 1,
+                                            torch.where(i < T, i - A,
+                                                        zero)))))
+    diag = torch.where(gen & (i != 0) & (i >= Lc) & (i >= L1) & (i < T),
+                       i + zero, none)
+    hi = torch.maximum(torch.clamp(hi, max=max_len), lo)
+    is_open = (hi > lo) | (diag >= 0)
+    lo = torch.where(is_open, lo, zero)
+    hi = torch.where(is_open, hi, zero + max_len)
+    return lo, hi, diag, is_open
+
+
+def chunk_closed(desc, max_len: int, row0: int, rows: int, c: int) -> bool:
+    """Whether no query row in [row0, row0 + rows) of the sequence with
+    descriptor ``desc`` (mode, ctx_end, ans_len) attends any key of chunk
+    c, keys [c KEY_CHUNK, min((c + 1) KEY_CHUNK, max_len)): the one-pass
+    kernel's skip rule, per warp of ROW_TILE rows. A row that attends no
+    key weighs every key, so it closes no chunk. Skipping is exact: a row
+    with an open key gives each masked key exp(s - 10000 - max) = 0 in
+    fp32."""
+    lo, hi, diag, _ = (t[0, row0:row0 + rows] for t in row_intervals(
+        torch.as_tensor(desc).reshape(1, 3), max_len))
+    k0 = c * KEY_CHUNK
+    k1 = min(k0 + KEY_CHUNK, max_len)
+    hit = ((torch.clamp(lo, min=k0) < torch.clamp(hi, max=k1))
+           | ((diag >= k0) & (diag < k1)))
+    return not bool(hit.any())
+
+
 def to_additive(mask_bool, dtype=torch.float32):
     """(1 - mask) * -10000 additive bias."""
     zero = torch.zeros((), dtype=dtype, device=mask_bool.device)

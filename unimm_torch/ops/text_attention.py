@@ -10,7 +10,9 @@ hand-written kernels of ``csrc/text_attention.cu``:
 * forward: ``softmax(q k^T * scale + bias(desc)) v`` over [B, H, L, D]
   heads: the scores in fp32, then the scale in fp32, the descriptor bias
   and an fp32 softmax; the probabilities round to v.dtype, the product
-  accumulates in fp32 and rounds to q.dtype.
+  accumulates in fp32 and rounds to q.dtype. The kernel
+  (``csrc/seq_attn_fwd.cuh``) scores once in registers and skips the key
+  chunks that ``masks.chunk_closed`` closes.
 * backward: the probabilities recomputed in fp32; dv = p^T do, dp = do v^T,
   ds = p (dp - rowsum(dp p)), dq = ds k scale, dk = ds^T q scale, every
   product with fp32 operands, each output rounded to q.dtype once.
@@ -161,6 +163,13 @@ def text_attention_bwd(q, k, v, desc, do):
 
 text_attention_fwd.launches = 0
 text_attention_bwd.launches = 0
+
+
+def fwd_kernel_info(L=MAX_LEN):
+    """The forward kernel's registers and local bytes (stack and spills) a
+    thread, dynamic shared memory a CTA at length L and CTAs an SM, as the
+    card's runtime reports them (builds the library)."""
+    return _build.kernel_info("unimm_text_attention_fwd_info", L)
 
 
 class TextAttention(torch.autograd.Function):
