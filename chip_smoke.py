@@ -9,9 +9,11 @@ prints its seconds):
   1. device: require CUDA; print the card's name and power limit; TF32 off.
   2. build: compile unimm_torch/csrc/*.cu for sm_90a (timed); print
      ptxas's registers and spills of every kernel, the one-pass per-head
-     kernel's (B6's forward, B9) with its shared memory and CTAs an SM
-     (fails on a spill), and whether each seq_attn_kernel instance kept
-     the SASS of the first design's build (tools/sass_digest).
+     kernel's (B6's forward, B9) and the attention backward's two kernels
+     (B6's and B5's backward) with their shared memory and CTAs an SM
+     (fails on a spill of either), and whether each seq_attn_kernel and
+     seq_attn_fwd_kernel instance kept the SASS of the recorded build
+     (tools/sass_digest).
   3. kernels: each kernel against its plain version on the same bf16
      inputs at full width, with the stated tolerance; kernel, plain and
      one-PyTorch-call (``library_ms``) times by CUDA events; the roofline
@@ -46,9 +48,11 @@ prints its seconds):
      (c) 8 steps on one batch lower the loss.
   9. per-head attention and remat (phase 3 also holds B6's forward and
      backward and B9 against their plain twins, each with a control on
-     the flipped descriptors, B6's forward also at L 160 on the edge
-     descriptors and on masked tails, and B9 equal to B6's forward bit
-     for bit): (a) ``evaluate_split(mode="nsp")`` under
+     the flipped descriptors, B6's forward and backward also at L 32 and
+     160 on the edge descriptors and on masked tails, B9 equal to B6's
+     forward bit for bit, and B5's and B6's backward equal bit for bit
+     across two runs, B5's with the twin under another Philox seed as a
+     control): (a) ``evaluate_split(mode="nsp")`` under
      ``attention_impl="pallas"`` over 2 pinned and 2 realistic dis
      batches, 12 B6 launches per chunk and nothing else, NSP margins
      against the all-plain evaluator, steady dialogs/s beside phase 5's;
@@ -153,32 +157,50 @@ def seeded_module(make, gen, dev, std=0.02):
 # phase 2: what the compiler made of the kernels
 # ---------------------------------------------------------------------------
 
-# the SASS digests of the first design's seq_attn_kernel instances, taken
-# from commit 0104b97's sources with tools/sass_digest
+# the SASS digests of the forward kernels' instances (seq_attn_kernel for
+# B4, B5's forward, B10, B11; seq_attn_fwd_kernel for B6's forward, B9),
+# taken from commit 63840be's sources with tools/sass_digest
 SASS_RECORD = "unimm_torch/tools/seq_attn_kernel_sass.json"
 
 
-def report_fwd_kernel():
-    """The one-pass per-head kernel's registers and spills (ptxas), its
-    shared memory and CTAs an SM at L 256 (the runtime), failing on a
-    spill; then whether each seq_attn_kernel instance left for B4, B5, B10
-    and B11 kept the SASS of SASS_RECORD's build."""
+def report_spills(pattern, n):
+    """ptxas's registers and spills of the n instances of the kernels whose
+    name contains pattern; fails unless there are n, none spilling."""
+    from unimm_torch.tools import sass_digest
+
+    rows = sass_digest.ptxas_report(pattern)
+    for r in rows:
+        print(json.dumps({"ptxas": r}), flush=True)
+    if len(rows) != n or any(r.get("spill_stores", 1) or
+                             r.get("spill_loads", 1) for r in rows):
+        raise SystemExit(f"{pattern}: want {n} instances without spills, "
+                         f"got {rows}")
+
+
+def report_attention_kernels():
+    """The one-pass per-head kernel's and the attention backward's two
+    kernels' registers and spills (ptxas: 2 forward instances; dq and dk /
+    dv for B6, B5 and B5 at dropout 0), their shared memory and CTAs an SM
+    at L 256 (the runtime), failing on a spill; then whether each
+    seq_attn_kernel and seq_attn_fwd_kernel instance kept the SASS of
+    SASS_RECORD's build."""
     from pathlib import Path
 
+    from unimm_torch.ops import attention_block_train as abt
     from unimm_torch.ops import attention_v2 as av2
     from unimm_torch.ops import text_attention as ta
     from unimm_torch.tools import sass_digest
 
-    rows = sass_digest.ptxas_report("seq_attn_fwd_kernel")
-    for r in rows:
-        print(json.dumps({"ptxas": r}), flush=True)
-    if len(rows) != 2 or any(r.get("spill_stores", 1) or
-                             r.get("spill_loads", 1) for r in rows):
-        raise SystemExit(f"seq_attn_fwd_kernel: want 2 instances without "
-                         f"spills, got {rows}")
+    report_spills("seq_attn_fwd_kernel", 2)
+    report_spills("seq_attn_bwd_dq_kernel", 3)
+    report_spills("seq_attn_bwd_dkdv_kernel", 3)
     print(json.dumps({"seq_attn_fwd_kernel": {
         "text_attention_fwd": ta.fwd_kernel_info(256),
         "attention_v2": av2.kernel_info(256)}}), flush=True)
+    print(json.dumps({"seq_attn_bwd_kernels": {
+        "text_attention_bwd": ta.bwd_kernel_info(256),
+        "attention_block_train_bwd": abt.bwd_kernel_info(256)}}),
+        flush=True)
     recorded = json.loads((Path(__file__).resolve().parent
                            / SASS_RECORD).read_text())
     current = sass_digest.digests(sass_digest.built_objects())
@@ -566,9 +588,11 @@ def rel_err(got, want):
 def check_attention_block_train(dev, gen, B, L, desc_fn, drop=0.1):
     """B5's forward and backward kernels against their plain twins on the
     same bf16 inputs, Philox seed and hidden-dropout mask: two result
-    dicts (forward, backward). The forward's control holds the kernel's
-    output against the plain twin under another Philox seed: that must
-    fail both forward bounds, or the check could not see a wrong mask."""
+    dicts (forward, backward). The controls hold the kernels' outputs
+    against the plain twins under another Philox seed: that must fail both
+    forward bounds and the backward's bound for each output, or the check
+    could not see a wrong mask. The backward run again on the same inputs
+    must give the same bits."""
     import torch.nn.functional as F
     from unimm_torch.models import vilbert
     from unimm_torch.ops import attention_block_train as abt
@@ -599,9 +623,12 @@ def check_attention_block_train(dev, gen, B, L, desc_fn, drop=0.1):
         return abt.attention_block_train_bwd(x, dctx, desc, seed, *ws[:6],
                                              **kw)
 
-    def bwd_plain():
-        return abt.attention_block_train_bwd_plain(x, dctx, desc, seed,
+    def bwd_plain_seed(sd):
+        return abt.attention_block_train_bwd_plain(x, dctx, desc, sd,
                                                    *ws[:6], **kw)
+
+    def bwd_plain():
+        return bwd_plain_seed(seed)
 
     # the library chain: F.linear x 3 + scaled_dot_product_attention with
     # the additive mask and dropout_p, then F.linear, the hidden-dropout
@@ -647,10 +674,23 @@ def check_attention_block_train(dev, gen, B, L, desc_fn, drop=0.1):
             raise SystemExit(f"attention_block_train_fwd: the check passes "
                              f"under another Philox seed: {control}")
         del y_o, ctx_o
+    b_tol = TOL["attention_block_train_bwd"][0]
     b_errs = {n: rel_err(g, w) for n, g, w in
               zip(("dx", "dq", "dk", "dv"), got, want)}
-    b_ok = all(e <= TOL["attention_block_train_bwd"][0]
-               for e in b_errs.values())
+    b_ok = all(e <= b_tol for e in b_errs.values())
+    b_control = {}
+    if drop > 0:
+        wrong = bwd_plain_seed(seed + 1)
+        b_control = {n: rel_err(g, w) for n, g, w in
+                     zip(("dx", "dq", "dk", "dv"), got, wrong)}
+        del wrong
+        if min(b_control.values()) <= b_tol:
+            raise SystemExit(f"attention_block_train_bwd: the check passes "
+                             f"under another Philox seed: {b_control}")
+    same_bits = all(torch.equal(g, h) for g, h in zip(got, bwd()))
+    if not same_bits:
+        raise SystemExit("attention_block_train_bwd: two runs on the same "
+                         "inputs differ")
     b_abs = max(float((g.float() - w.float()).abs().max())
                 for g, w in zip(got, want))
     M = B * L
@@ -678,6 +718,7 @@ def check_attention_block_train(dev, gen, B, L, desc_fn, drop=0.1):
                                        retain_graph=True)
 
         bwd_case = dict(shape=shape, max_abs_err=b_abs, rel_errs=b_errs,
+                        other_seed_rel_errs=b_control, same_bits=same_bits,
                         ok=b_ok, ms=time_ms(bwd, 10),
                         plain_ms=time_ms(bwd_plain, 2, 1), bound_ms=bb_ms,
                         bound_by=bb_by, library_ms=time_ms(library_bwd, 10))
@@ -785,7 +826,7 @@ def check_heads_attention(dev, gen, name, B, L, desc_fn, block_b=None):
 def check_text_attention_bwd(dev, gen, B, L, desc_fn):
     """B6's backward against its plain twin (fp32 operands) on the same
     bf16 inputs; the twin on the flipped descriptors must miss the bound
-    for each of dq, dk, dv."""
+    for each of dq, dk, dv; a second run must give the same bits."""
     import torch.nn.functional as F
     from unimm_torch.ops import text_attention as ta
     from unimm_torch.ops.masks import mask_bias
@@ -805,6 +846,10 @@ def check_text_attention_bwd(dev, gen, B, L, desc_fn):
     tol = TOL["text_attention_bwd"][0]
     errs = {n: rel_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got,
                                                 want)}
+    same_bits = all(torch.equal(g, h) for g, h in zip(got, kern()))
+    if not same_bits:
+        raise SystemExit("text_attention_bwd: two runs on the same inputs "
+                         "differ")
     wrong = ta.text_attention_bwd_plain(q, k, v, flip_mode(desc), do)
     control = {n: rel_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got,
                                                    wrong)}
@@ -831,7 +876,8 @@ def check_text_attention_bwd(dev, gen, B, L, desc_fn):
                                 for g, w in zip(got, want)),
                 dq_rel_err=errs["dq"], dk_rel_err=errs["dk"],
                 dv_rel_err=errs["dv"], control_rel_errs=control,
-                ok=max(errs.values()) <= tol, ms=time_ms(kern, 10),
+                same_bits=same_bits, ok=max(errs.values()) <= tol,
+                ms=time_ms(kern, 10),
                 plain_ms=time_ms(plain, 2, 1), bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
 
@@ -1035,8 +1081,10 @@ def heads_cases(dev, gen):
     the flat path's main and longest buckets and the training step's shape,
     then the edge descriptors at L 32, 96 and 160 and the masked tails at
     L 256 (skipped chunks and fully masked rows in one 16-row tile); its
-    backward at the training step's shape and at L 96; B9 at its bench's
-    shape. Then B9 must equal B6's forward bit for bit."""
+    backward at the training step's shape, on the edge descriptors at L
+    32, 96 and 160 and on the masked tails at L 256 (skipped key and query
+    chunks both ways); B9 at its bench's shape. Then B9 must equal B6's
+    forward bit for bit."""
     return {
         "text_attention_fwd": [
             check_heads_attention(dev, gen, "text_attention_fwd", 256, 192,
@@ -1055,7 +1103,10 @@ def heads_cases(dev, gen):
                                   tail_desc)],
         "text_attention_bwd": [
             check_text_attention_bwd(dev, gen, 240, 256, train_desc),
-            check_text_attention_bwd(dev, gen, 20, 96, edge_desc)],
+            check_text_attention_bwd(dev, gen, 20, 32, edge_desc),
+            check_text_attention_bwd(dev, gen, 20, 96, edge_desc),
+            check_text_attention_bwd(dev, gen, 20, 160, edge_desc),
+            check_text_attention_bwd(dev, gen, 64, 256, tail_desc)],
         "attention_v2": [
             check_heads_attention(dev, gen, "attention_v2", 512, 256,
                                   train_desc, block_b=bb)
@@ -1110,9 +1161,12 @@ def phase_kernels(dev):
                           check_co_text_block(dev, gen, B=5, L=32)],
     }
     # the training step's shape first, then the edge descriptors at a
-    # length with a half key chunk
+    # length with a half key chunk, with and without attention dropout
+    # (phase 8 (a) trains at dropout 0: the backward's other instance)
     b5 = [check_attention_block_train(dev, gen, 240, 256, train_desc),
-          check_attention_block_train(dev, gen, 20, 96, edge_desc)]
+          check_attention_block_train(dev, gen, 20, 96, edge_desc),
+          check_attention_block_train(dev, gen, 20, 96, edge_desc,
+                                      drop=0.0)]
     cases["attention_block_train_fwd"] = [f for f, _ in b5]
     cases["attention_block_train_bwd"] = [b for _, b in b5]
     # the largest parameter tensor (the tied word embeddings), a bias, and
@@ -1934,7 +1988,7 @@ def main():
         for line in cu.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {cu.stem}: {line.strip()}", flush=True)
-    report_fwd_kernel()
+    report_attention_kernels()
 
     with phase("3 kernels"):
         cases = phase_kernels(dev)

@@ -2,12 +2,13 @@
 version on the same bf16 inputs, at the kernels' width (768) and small
 batches, plus the wrappers' refusals, a short prefix-scorer run through
 its three kernels, a short flat-scorer run through its three, and the
-training attention block (forward and backward, with dropout) and the
-fused AdamW, the per-head text attention kernels (forward, backward
-and attention_v2, the one-pass forward's skipped chunks and its fit on
-the card), and the attention-block bench's probes (B4 at other
-block_b, the softmax-mode and layout probes). Every test needs a CUDA
-device and skips without one.
+training attention block (forward and backward, with dropout, the
+backward's other-seed control and bit-equal reruns) and the fused AdamW,
+the per-head text attention kernels (forward, backward and attention_v2,
+the skipped chunks of the one-pass forward and of the tiled backward,
+both designs' fit on the card), and the attention-block bench's probes
+(B4 at other block_b, the softmax-mode and layout probes). Every test
+needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -295,6 +296,34 @@ def test_attention_block_train_matches_plain(dev, L, drop):
         assert _rel_err(g, w) <= 2e-2, name
 
 
+@pytest.mark.parametrize("L", [256, 96])
+def test_attention_block_train_bwd_control_and_bits(dev, L):
+    """The training block's backward kernel under attention dropout: the
+    plain twin under another Philox seed misses the 2% bound for every
+    output (the check sees the dropout mask), and two runs on the same
+    inputs give the same bits (the attention backward sums every output
+    in a fixed order, without atomics)."""
+    gen = torch.Generator(device=dev).manual_seed(L + 3)
+    B = 8
+    attn = _wide_attention(gen, dev)
+    ws = tuple(t.contiguous() for t in tab._weights(attn))
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    dctx = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = _mixed_desc(B, L, np.random.default_rng(L + 3)).to(dev)
+    kw = dict(num_heads=12, attn_drop=0.1)
+    got = tabt.attention_block_train_bwd(x, dctx, desc, 77, *ws[:6], **kw)
+    again = tabt.attention_block_train_bwd(x, dctx, desc, 77, *ws[:6], **kw)
+    want = tabt.attention_block_train_bwd_plain(x, dctx, desc, 77, *ws[:6],
+                                                **kw)
+    other = tabt.attention_block_train_bwd_plain(x, dctx, desc, 78, *ws[:6],
+                                                 **kw)
+    for name, g, a, w, o in zip(("dx", "dq", "dk", "dv"), got, again, want,
+                                other):
+        assert torch.equal(g, a), name
+        assert _rel_err(g, w) <= 2e-2, name
+        assert _rel_err(g, o) > 2e-2, name
+
+
 def test_attention_block_train_autograd(dev):
     """The autograd Function on the card: its gradients of x and the ten
     weights against the same Function's plain path on the CPU (same bf16
@@ -438,6 +467,30 @@ def test_text_attention_fwd_edges(dev, L, kind):
                                                       _flip(desc))) > TA_REL
 
 
+@pytest.mark.parametrize("L,kind", [(32, "mixed"), (160, "mixed"),
+                                    (256, "tail")])
+def test_text_attention_bwd_edges(dev, L, kind):
+    """B6's backward where its kernels skip key chunks (the dq launch) and
+    query chunks (the dk / dv launch) and weigh fully masked rows over
+    every key: the edge descriptors at L 32 and 160 (a half chunk) and
+    the masked tails at L 256; the control on the flipped descriptors;
+    two runs give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(L + 2)
+    B = 12
+    q, k, v, do = (_heads(B, L, gen, dev, True) for _ in range(4))
+    desc = (_mixed_desc(B, L, np.random.default_rng(L + 2)).to(dev)
+            if kind == "mixed" else chip_smoke.tail_desc(B, L, gen))
+    grads = tta.text_attention_bwd(q, k, v, desc, do)
+    again = tta.text_attention_bwd(q, k, v, desc, do)
+    want = tta.text_attention_bwd_plain(q, k, v, desc, do)
+    wrong = tta.text_attention_bwd_plain(q, k, v, _flip(desc), do)
+    for name, g, a, w, o in zip(("dq", "dk", "dv"), grads, again, want,
+                                wrong):
+        assert torch.equal(g, a), name
+        assert _rel_err(g, w) <= TA_REL, name
+        assert _rel_err(g, o) > TA_REL, name
+
+
 @pytest.mark.parametrize("block_b", [1, 4, 8])
 def test_attention_v2_masked_tails(dev, block_b):
     gen = torch.Generator(device=dev).manual_seed(block_b + 20)
@@ -460,6 +513,18 @@ def test_fwd_kernel_fits_the_card(dev):
         assert info["registers"] <= 168, info
         assert info["smem_bytes"] == (2 * 256 + 64) * 128, info
         assert info["ctas_per_sm"] >= 2, info
+
+
+def test_bwd_kernels_fit_the_card(dev):
+    """The attention backward's two kernels at L 256, for B6 (hi + lo
+    operands) and B5 (dropout): no local memory (no spills), the
+    registers of __launch_bounds__(128, 3), and 3 CTAs an SM."""
+    for infos in (tta.bwd_kernel_info(256), tabt.bwd_kernel_info(256)):
+        for info in infos.values():
+            assert info["local_bytes"] == 0, infos
+            assert info["registers"] <= 168, infos
+            assert info["smem_bytes"] <= 56 * 1024, infos
+            assert info["ctas_per_sm"] >= 3, infos
 
 
 def test_segment_embedding_gradient_is_deterministic(dev):

@@ -226,6 +226,29 @@ def test_flatten_for_forward_matches_jax():
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+@pytest.mark.parametrize("kw", [{}, dict(train=True, compact_images=False),
+                                dict(train=True, compact_images=True)],
+                         ids=["default", "train", "train-compact"])
+def test_flatten_for_forward_train_matches_jax(kw):
+    """With its default arguments (train=True, as JAX's) and with
+    train=True under both compact_images settings, flatten_for_forward
+    keeps the training image targets and gives JAX's keys and arrays byte
+    for byte."""
+    batch = dict(_dis_batch(3))
+    rng = np.random.default_rng(8)
+    B, Rg = batch["image_feat"].shape[:2]
+    batch["image_target"] = rng.dirichlet(
+        np.ones(TINY.v_target_size), (B, Rg)).astype(np.float32)
+    batch["image_label"] = rng.choice([-1, 0, 1], (B, Rg)).astype(np.int32)
+    got, want = flatten_for_forward(batch, **kw), j_flatten(batch, **kw)
+    assert {"image_target", "image_label"} <= want.keys()
+    assert got.keys() == want.keys()
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        assert g.tobytes() == w.tobytes(), k
+
+
 @pytest.mark.parametrize("kind", ["dis", "gen"])
 def test_score_flat_chunk_sizes_match_jax(model, kind):
     """Chunk sizes that pad the last chunk or leave it whole give JAX's

@@ -5,8 +5,12 @@ against the port's ``mask_bias`` and the JAX package's in-kernel
 ``_mask_bias``, over every descriptor with mode in {0, 1}, ctx_end in
 [0, L] and ans_len in [0, 8]; and the skip rule (``masks.chunk_closed``):
 attention over only the key chunks it keeps equals the plain twin to fp32
-rounding, on the card check's edge and masked-tail descriptors. This is the
-skip rule's proof where there is no card."""
+rounding, on the card check's edge and masked-tail descriptors. The
+backward's transposed rule (``masks.query_chunk_closed``: no row of a query
+chunk attends a key of a 16-key tile) against ``text_attention_mask`` on
+every descriptor family, and the backward over only the chunks both rules
+keep against the plain twin. This is the skip rules' proof where there is
+no card."""
 
 import numpy as np
 import pytest
@@ -107,3 +111,102 @@ def test_chunk_closed_per_tile():
     assert not tm.chunk_closed(desc, 256, 96, 16, 1)
     assert tm.chunk_closed(desc, 256, 96, 12, 2)
     assert not tm.chunk_closed(desc, 256, 112, 16, 1)
+
+
+def _families(L):
+    """The card checks' descriptor families at length L, 8 sequences each:
+    dis (real lengths in (L - 32, L]), gen (the training descriptors, mode
+    0 or 1), edge and masked tails."""
+    out = {}
+    for name in ("dis_desc", "train_desc", "edge_desc", "tail_desc"):
+        gen = torch.Generator().manual_seed(L + len(name))
+        out[name] = getattr(chip_smoke, name)(8, L, gen)
+    return out
+
+
+def _weighs(desc, L):
+    """bool [B, L, L]: query row i weighs key j (attends it, or attends no
+    key at all and so takes every key of the sequence)."""
+    m = tm.text_attention_mask(desc[:, 0], desc[:, 1], desc[:, 2], L)
+    return m | ~m.any(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("L", [32, 96, 160, 256])
+def test_query_chunk_closed_matches_the_mask(L):
+    """query_chunk_closed(desc, L, key0, 16, c) is True exactly when no
+    row of query chunk c weighs a key of [key0, key0 + 16), for every
+    16-key tile and chunk, on every descriptor family."""
+    n_closed = n_open = 0
+    for name, desc in _families(L).items():
+        w = _weighs(desc, L)
+        for b in range(desc.shape[0]):
+            for key0 in range(0, L, tm.ROW_TILE):
+                for c in range(-(-L // tm.KEY_CHUNK)):
+                    rows = slice(c * tm.KEY_CHUNK, (c + 1) * tm.KEY_CHUNK)
+                    want = not bool(w[b, rows, key0:key0 + tm.ROW_TILE].any())
+                    got = tm.query_chunk_closed(desc[b], L, key0,
+                                                tm.ROW_TILE, c)
+                    assert got == want, (name, b, key0, c)
+                    n_closed += got
+                    n_open += not got
+    # every query chunk of L 32 holds row 0, which weighs every key < T
+    assert n_open > 0 and (n_closed > 0) == (L > tm.KEY_CHUNK)
+
+
+def _bwd_from(p_q, p_k, q, k, v, do):
+    """The plain backward's arithmetic in fp32, with the probabilities p_q
+    for the rows' D and dq (the dq launch) and p_k for dk and dv (the dk /
+    dv launch)."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    dp = do @ v.transpose(-1, -2)
+    d = (dp * p_q).sum(-1, keepdim=True)
+    dq = (p_q * (dp - d)) @ k * scale
+    dk = (p_k * (dp - d)).transpose(-1, -2) @ q * scale
+    dv = p_k.transpose(-1, -2) @ do
+    return dq, dk, dv
+
+
+def _train_desc(B, L):
+    gen = torch.Generator().manual_seed(L)
+    return chip_smoke.train_desc(B, L, gen)
+
+
+# (L, descriptors, whether query chunks close too): a query chunk closes
+# only where none of its rows attends no key, so never on masked tails
+@pytest.mark.parametrize("L,desc_fn,both", [
+    (96, _edge_desc, False), (96, _tail_desc, False),
+    (160, _edge_desc, True), (256, _edge_desc, True),
+    (256, _tail_desc, False), (256, _train_desc, True)])
+def test_backward_chunk_skip_is_exact(L, desc_fn, both):
+    """The backward over only what its kernels keep equals the plain twin:
+    the softmax statistics and dq over the key chunks ``chunk_closed``
+    keeps per 16-row tile, dk and dv with P zeroed in the query chunks
+    ``query_chunk_closed`` closes per 16-key tile (the backward's kernels
+    skip per 64-row CTA, a part of what these tiles skip). What they drop
+    is exact zeros, so only the order of the sums differs."""
+    B, H, D = 10, 2, 16
+    desc = desc_fn(B, L)
+    rng = np.random.default_rng(L + 1)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, H, L, D)).astype(
+        np.float32)) for _ in range(4))
+    keep_q = torch.ones(B, L, L, dtype=torch.bool)
+    keep_k = torch.ones(B, L, L, dtype=torch.bool)
+    n_chunks = -(-L // tm.KEY_CHUNK)
+    for b in range(B):
+        for t0 in range(0, L, tm.ROW_TILE):
+            for c in range(n_chunks):
+                chunk = slice(c * tm.KEY_CHUNK, (c + 1) * tm.KEY_CHUNK)
+                tile = slice(t0, t0 + tm.ROW_TILE)
+                if tm.chunk_closed(desc[b], L, t0, tm.ROW_TILE, c):
+                    keep_q[b, tile, chunk] = False
+                if tm.query_chunk_closed(desc[b], L, t0, tm.ROW_TILE, c):
+                    keep_k[b, chunk, tile] = False
+    assert (~keep_q).any() and bool((~keep_k).any()) == both
+    s = tta._scores(q, k, desc).masked_fill(~keep_q[:, None], float("-inf"))
+    p_q = torch.softmax(s, dim=-1)
+    p_k = p_q.masked_fill(~keep_k[:, None], 0.0)
+    got = _bwd_from(p_q, p_k, q, k, v, do)
+    want = tta.text_attention_bwd_plain(q, k, v, desc, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max()), \
+            name

@@ -13,21 +13,22 @@
 //                       ctx_h = bf16(bf16(p) v_h)          (seq_attn.cuh)
 //   3. out_ln_kernel    y = LN((fp32(ctx Wo^T) + bo) * mo + x)
 //                       (block_parts.cuh); ctx is kept for the backward
-// backward (unimm_attention_block_train_bwd), three launches:
+// backward (unimm_attention_block_train_bwd), four launches:
 //   1. gemm_nt_kernel   recompute q_s, k, v as in the forward
-//   2. seq_attn_bwd_kernel<DROP, false> (seq_attn.cuh, shared with the
-//      per-head text attention), one CTA per (head, sequence): q_s, k, v and
-//      dctx of the head (<= 256 x 64 bf16 each) and the head's dropout
-//      bits (one bit per (row, column): 8 KB at L 256, drawn once from the
-//      forward's Philox stream, philox.cuh) sit in shared memory. Three
-//      phases over 16-row warp tiles, every product on mma.sync with fp32
-//      accumulators:
-//        a. per query row: m, l of the softmax and D = sum_j dP_ij P_ij
-//           (dP = dctx v^T * mask), one online pass over the keys;
-//        b. per query row: dS = P (dP - D); dq = bf16(dS k / 8);
-//        c. per key row: the same P and dS transposed; dv = bf16(Pd^T
-//           dctx), dk = bf16(dS^T q_s) (Pd = P * mask).
-//      P, Pd and dS enter the products rounded to bf16 (the plain twin,
+//   2. seq_attn_bwd_dq_kernel<DROP, false> and
+//      seq_attn_bwd_dkdv_kernel<DROP, false> (seq_attn_bwd.cuh, shared
+//      with the per-head text attention, launched through seq_attn_bwd.cu),
+//      one CTA per (64-row tile, head, sequence) each:
+//        a. per query row: the softmax's lse and D = sum_j dP_ij P_ij (dP =
+//           dctx v^T * mask) in one online pass over the key chunks, to an
+//           fp32 scratch [B, 12, 2, L]; then dS = P (dP - D) and dq =
+//           bf16(dS k / 8) in a second pass;
+//        b. per key row, over the query chunks: the same P and dS
+//           transposed from lse and D; dv = bf16(Pd^T dctx), dk =
+//           bf16(dS^T q_s) (Pd = P * mask).
+//      Each tile draws its own rows' or columns' dropout bits from the
+//      forward's Philox stream (philox.cuh). P, Pd and dS enter the
+//      wgmma products rounded to bf16 (the plain twin,
 //      ops/attention_block_train.py, rounds them at the same points).
 //   3. gemm_nt_kernel   dx_qkv = bf16([dq | dk | dv] [Wq; Wk; Wv]), one
 //                       GEMM with K = 2304 against the transposed weights
@@ -38,8 +39,9 @@
 // What bounds it on an H100: the tensor-core rate. Forward 8 M 768^2 + 4 B
 // L^2 768 flops; backward 8 M 768^2 (recompute, dx) + 9 x 2 B L^2 768 (the
 // scores three times, dP three times, dq, dk, dv) against ~0.2 GB of x,
-// dctx, outputs and weights. q, k, v, ctx and [dq | dk | dv] pass through
-// device memory between launches; no [L, L] tensor leaves the SM.
+// dctx, outputs and weights. q, k, v, ctx, [dq | dk | dv] and the rows'
+// lse and D pass through device memory between launches; no [L, L] tensor
+// leaves the SM.
 
 #include "block_parts.cuh"
 #include "seq_attn.cuh"
@@ -76,24 +78,6 @@ cudaError_t launch_qkv(const void* x, const void* wq, const void* bq,
   return launch_gemm_nt(g, 3, e, st);
 }
 
-template <bool DROP>
-cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v,
-                            const void* dctx, const void* desc, void* dqkv,
-                            int B, int L, const DropArgs& drop,
-                            cudaStream_t st) {
-  bf16* d = static_cast<bf16*>(dqkv);
-  const SeqAttnBwdArgs a{static_cast<const bf16*>(q),
-                         static_cast<const bf16*>(k),
-                         static_cast<const bf16*>(v),
-                         static_cast<const bf16*>(dctx),
-                         static_cast<const int*>(desc),
-                         d, d + HID, d + 2 * HID,
-                         block_layout(L), block_layout(L, QKV), L,
-                         1.0f, 0.125f, 1.0f,  // dq through the q scale 1/8
-                         drop};
-  return launch_seq_attn_bwd<DROP, false>(a, B, HID / SA_D, st);
-}
-
 }  // namespace
 
 extern "C" int unimm_attention_block_train_fwd(
@@ -122,19 +106,20 @@ extern "C" int unimm_attention_block_train_bwd(
     const void* x, const void* dctx, const void* desc, const void* wq,
     const void* bq, const void* wk, const void* bk, const void* wv,
     const void* bv, const void* w_cat_t, void* q_buf, void* k_buf,
-    void* v_buf, void* dqkv, void* dx, int B, int L, unsigned seed,
-    unsigned thresh, float inv_keep, int drop, void* stream) {
+    void* v_buf, void* dqkv, void* dx, void* stats, int B, int L,
+    unsigned seed, unsigned thresh, float inv_keep, int drop, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * L;
   cudaError_t err = launch_qkv(x, wq, bq, wk, bk, wv, bv, q_buf, k_buf,
                                v_buf, M, st);
   if (err != cudaSuccess) return err;
-  const DropArgs d{seed, thresh, inv_keep};
-  err = drop ? launch_attn_bwd<true>(q_buf, k_buf, v_buf, dctx, desc, dqkv,
-                                     B, L, d, st)
-             : launch_attn_bwd<false>(q_buf, k_buf, v_buf, dctx, desc, dqkv,
-                                      B, L, d, st);
-  if (err != cudaSuccess) return err;
+  // the attention backward on the heads of the [B, L, 768] projections
+  // into [dq | dk | dv] [B, L, 2304]; dq through the q scale 1/8
+  bf16* d = static_cast<bf16*>(dqkv);
+  err = static_cast<cudaError_t>(unimm_seq_attn_bwd(
+      q_buf, k_buf, v_buf, dctx, desc, d, d + HID, d + 2 * HID, stats,
+      (long)L * HID, SA_D, HID, (long)L * QKV, SA_D, QKV, B, HID / SA_D, L,
+      1.0f, 0.125f, 1.0f, seed, thresh, inv_keep, drop, 0, st));
   // dx = [dq | dk | dv] [Wq; Wk; Wv]: C = A B^T with B = [Wq; Wk; Wv]^T
   GemmArgs g{static_cast<const bf16*>(dqkv),
              {static_cast<const bf16*>(w_cat_t), nullptr, nullptr},

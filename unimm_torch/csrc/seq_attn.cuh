@@ -1,8 +1,8 @@
-// The whole-sequence attention launches of the attention kernels, forward
-// and backward, and the descriptor text mask they share: attention_block.cu
-// (B4) and attention_block_train.cu (B5) on the [B, L, 768] projections of
-// a block, text_attention.cu (B6's backward) on [B, H, L, 64] heads; B6's
-// forward and B9 run the one-pass seq_attn_fwd.cuh, which takes its
+// The whole-sequence attention launch of the attention kernels' forward,
+// and the descriptor text mask: attention_block.cu (B4) and
+// attention_block_train.cu (B5's forward) on the [B, L, 768] projections
+// of a block; B6's forward and B9 run the one-pass seq_attn_fwd.cuh, and
+// the backward of B5 and B6 runs seq_attn_bwd.cuh, which take their
 // layout and arguments from here. A head is a [L, 64] bf16 tile read
 // through element strides (SeqLayout: sequence, head, row; the 64 columns
 // are contiguous), so one kernel reads a block's projections (L 768, 64,
@@ -35,9 +35,6 @@
 //                 sums to 0 and gives 0 / 0 = NaN, as its TPU probe does)
 //   DH 128        heads of 128 columns (the bench's zero-padded heads)
 //
-// seq_attn_bwd_kernel<DROP, SPLIT>: one CTA per (head, sequence); see its
-// comment below.
-//
 // Rows past a sequence's extent are fully masked and, as in the TPU
 // kernels, take their softmax over all L keys at s - 10000: no key tile is
 // skipped. Padding keys past L (L % 64 == 32) are zero rows at -inf.
@@ -45,6 +42,21 @@
 
 #include "common.cuh"
 #include "philox.cuh"
+
+// The attention backward (seq_attn_bwd.cuh), defined in seq_attn_bwd.cu
+// and called from text_attention.cu and attention_block_train.cu: q, k, v,
+// dout [B, H, L, 64] (the in strides) into dq, dk, dv (the out strides);
+// stats [B, H, 2, L] fp32 scratch; drop selects the Philox mask (seed,
+// thresh, inv_keep), split the hi + lo operands of P and dS.
+extern "C" int unimm_seq_attn_bwd(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* desc,
+                                  void* dq, void* dk, void* dv, void* stats,
+                                  long in_sb, long in_sh, int in_sl,
+                                  long out_sb, long out_sh, int out_sl, int B,
+                                  int H, int L, float s_scale, float dq_scale,
+                                  float dk_scale, unsigned seed,
+                                  unsigned thresh, float inv_keep, int drop,
+                                  int split, void* stream);
 
 namespace {
 
@@ -373,336 +385,6 @@ cudaError_t launch_seq_attn(const void* q, const void* k, const void* v,
                       static_cast<bf16*>(ctx),
                       lay, lay, B, HID / SA_D, L, bb, 1.0f, drop};
   return launch_seq_attn_heads<DROP, SCALE_NONE, SOFT>(a, st);
-}
-
-// ---------------------------------------------------------------------------
-// seq_attn_bwd_kernel<DROP, SPLIT>, one CTA per (head, sequence): q, k, v
-// and dout of the head (<= 256 x 64 bf16 each) and, under DROP, the head's
-// dropout bits (one bit per (row, column): 8 KB at L 256, drawn once from
-// the forward's Philox stream, philox.cuh) sit in shared memory. Three
-// phases over 16-row warp tiles, every product on mma.sync with fp32
-// accumulators, s = (q k^T) * s_scale + bias:
-//   a. per query row: m, l of the softmax and D = sum_j dP_ij P_ij
-//      (dP = dout v^T * mask), one online pass over the keys;
-//   b. per query row: dS = P (dP - D); dq = bf16(dS k * dq_scale);
-//   c. per key row: the same P and dS transposed; dv = bf16(Pd^T dout),
-//      dk = bf16(dS^T q * dk_scale) (Pd = P * mask).
-// P, Pd and dS enter the products rounded to bf16 (B5, whose plain twin
-// rounds them at the same points), or, under SPLIT, as two bf16 terms
-// hi = bf16(x), lo = bf16(x - hi) (B6, whose TPU kernel takes these
-// products with fp32 operands): hi + lo keeps 16 of fp32's 24 significand
-// bits (relative error <= 2^-17), the bf16 products are exact in the fp32
-// accumulators, and the other operand (q, k, v or dout) is bf16 already.
-// No [L, L] tensor leaves the SM; no atomics.
-// ---------------------------------------------------------------------------
-constexpr int BW_THREADS = 256, BW_WARPS = BW_THREADS / 32;
-
-struct SeqAttnBwdArgs {
-  const bf16 *q, *k, *v, *dout;
-  const int* desc;
-  bf16 *dq, *dk, *dv;
-  SeqLayout in, out;  // q, k, v, dout; dq, dk, dv
-  int L;
-  float s_scale, dq_scale, dk_scale;
-  DropArgs drop;
-};
-
-size_t bw_smem_bytes(int L) {
-  const size_t nkp = sa_keys(L);
-  return 4 * nkp * SA_LD * 2 + 3 * nkp * 4 + nkp * (nkp / 32) * 4;
-}
-
-// lo = bf16(a - hi.x), bf16(b - hi.y): the rounding residue of pack_bf16
-__device__ __forceinline__ uint32_t pack_bf16_lo(float a, float b,
-                                                 uint32_t hi) {
-  const float2 f =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
-  return pack_bf16(a - f.x, b - f.y);
-}
-
-template <bool DROP, bool SPLIT>
-__global__ void __launch_bounds__(BW_THREADS, 1)
-    seq_attn_bwd_kernel(const SeqAttnBwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int L = a.L, NKP = sa_keys(L), NW = NKP / 32;
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [NKP][SA_LD] each
-  bf16* sK = sQ + NKP * SA_LD;
-  bf16* sV = sK + NKP * SA_LD;
-  bf16* sO = sV + NKP * SA_LD;               // dout of the head
-  float* sM = reinterpret_cast<float*>(sO + NKP * SA_LD);  // row max
-  float* sL = sM + NKP;                                    // row exp-sum
-  float* sD = sL + NKP;                                    // sum dP P
-  uint32_t* sBits = reinterpret_cast<uint32_t*>(sD + NKP); // [NKP][NW]
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long base = b * a.in.sb + h * a.in.sh;
-  const int sl = a.in.sl;
-  stage_tile(sQ, SA_LD, a.q + base, sl, NKP, SA_D, L, tid, BW_THREADS);
-  stage_tile(sK, SA_LD, a.k + base, sl, NKP, SA_D, L, tid, BW_THREADS);
-  stage_tile(sV, SA_LD, a.v + base, sl, NKP, SA_D, L, tid, BW_THREADS);
-  stage_tile(sO, SA_LD, a.dout + base, sl, NKP, SA_D, L, tid, BW_THREADS);
-  cp_commit();
-  const uint32_t tag = (uint32_t)(b * gridDim.x + h);
-  if (DROP) {
-    // the forward's draws: word w of counter (c, row) is column 4 c + w
-    for (int w = tid; w < NKP * NW; w += BW_THREADS) {
-      const int row = w / NW, c4 = (w - row * NW) * 8;
-      uint32_t bits = 0;
-#pragma unroll
-      for (int g = 0; g < 8; ++g) {
-        const uint4 u = philox4x32_10((uint32_t)(c4 + g), (uint32_t)row, 0u,
-                                      0u, a.drop.seed, tag);
-        bits |= ((uint32_t)(u.x < a.drop.thresh) << (4 * g)) |
-                ((uint32_t)(u.y < a.drop.thresh) << (4 * g + 1)) |
-                ((uint32_t)(u.z < a.drop.thresh) << (4 * g + 2)) |
-                ((uint32_t)(u.w < a.drop.thresh) << (4 * g + 3));
-      }
-      sBits[w] = bits;
-    }
-  }
-  for (int i = tid; i < NKP; i += BW_THREADS) {
-    sM[i] = 0.f;
-    sL[i] = 1.f;
-    sD[i] = 0.f;
-  }
-  cp_wait<0>();
-  __syncthreads();
-
-  const int mode = a.desc[3 * b], L1 = a.desc[3 * b + 1],
-            A = a.desc[3 * b + 2];
-  const int gr = lane >> 2, gc = (lane & 3) * 2;
-  const int nb_off = ((lane & 7) + ((lane >> 4) << 3)) * SA_LD +
-                     ((lane >> 3) & 1) * 8;
-  const int tb_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * SA_LD +
-                     (lane >> 4) * 8;
-  const int nchunks = NKP / SA_KC, ntiles = L / 16;
-
-  auto mval = [&](int row, int col) -> float {
-    if (!DROP) return 1.f;
-    return ((sBits[row * NW + (col >> 5)] >> (col & 31)) & 1u)
-               ? a.drop.inv_keep
-               : 0.f;
-  };
-  // A fragments of 16 rows x 64 columns of a staged [rows][SA_LD] tile
-  auto load_a = [&](const bf16* s, int r0, uint32_t(&f)[4][4]) {
-#pragma unroll
-    for (int kd = 0; kd < 4; ++kd)
-      ldmatrix_x4(f[kd], s + (r0 + (lane & 15)) * SA_LD + kd * 16 +
-                             (lane >> 4) * 8);
-  };
-  // out = A (16 x 64) . (rows 64 c .. 64 c + 63 of s)^T
-  auto nt = [&](const uint32_t(&f_a)[4][4], const bf16* s, int c,
-                float(&out)[8][4]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) out[j][t] = 0.f;
-    const bf16* bb = s + c * SA_KC * SA_LD + nb_off;
-#pragma unroll
-    for (int kd = 0; kd < 4; ++kd)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t f[4];
-        ldmatrix_x4(f, bb + jj * 16 * SA_LD + kd * 16);
-        mma_bf16(out[2 * jj], f_a[kd], f[0], f[1]);
-        mma_bf16(out[2 * jj + 1], f_a[kd], f[2], f[3]);
-      }
-  };
-  // acc += vals (16 x 64, the chunk's rows as k) . rows 64 c .. of s, vals
-  // rounded to bf16 or, under SPLIT, as hi + lo
-  auto nn_acc = [&](const float(&vals)[8][4], const bf16* s, int c,
-                    float(&acc)[8][4]) {
-    const bf16* bb = s + c * SA_KC * SA_LD + tb_off;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      uint32_t pa[4], pl[4];
-      pa[0] = pack_bf16(vals[2 * t][0], vals[2 * t][1]);
-      pa[1] = pack_bf16(vals[2 * t][2], vals[2 * t][3]);
-      pa[2] = pack_bf16(vals[2 * t + 1][0], vals[2 * t + 1][1]);
-      pa[3] = pack_bf16(vals[2 * t + 1][2], vals[2 * t + 1][3]);
-      if (SPLIT) {
-        pl[0] = pack_bf16_lo(vals[2 * t][0], vals[2 * t][1], pa[0]);
-        pl[1] = pack_bf16_lo(vals[2 * t][2], vals[2 * t][3], pa[1]);
-        pl[2] = pack_bf16_lo(vals[2 * t + 1][0], vals[2 * t + 1][1], pa[2]);
-        pl[3] = pack_bf16_lo(vals[2 * t + 1][2], vals[2 * t + 1][3], pa[3]);
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, bb + t * 16 * SA_LD + jj * 16);
-        mma_bf16(acc[2 * jj], pa, f[0], f[1]);
-        mma_bf16(acc[2 * jj + 1], pa, f[2], f[3]);
-        if (SPLIT) {
-          mma_bf16(acc[2 * jj], pl, f[0], f[1]);
-          mma_bf16(acc[2 * jj + 1], pl, f[2], f[3]);
-        }
-      }
-    }
-  };
-  // scores of query rows ra / rb against key chunk c: scaled, + mask, -inf
-  // past L
-  auto add_bias = [&](int c, int ra, int rb, float(&sc)[8][4]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int col = c * SA_KC + j * 8 + gc + (t & 1);
-        const int row = t < 2 ? ra : rb;
-        sc[j][t] = col < L ? sc[j][t] * a.s_scale +
-                                 text_bias(row, col, mode, L1, A, L)
-                           : -INFINITY;
-      }
-  };
-  auto store = [&](const float(&o)[8][4], bf16* dst, int ra, float scale) {
-    bf16* pa = dst + b * a.out.sb + h * a.out.sh + (long)ra * a.out.sl;
-    bf16* pb = pa + 8L * a.out.sl;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(pa + j * 8 + gc) =
-          __floats2bfloat162_rn(o[j][0] * scale, o[j][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(pb + j * 8 + gc) =
-          __floats2bfloat162_rn(o[j][2] * scale, o[j][3] * scale);
-    }
-  };
-
-  // ---- a. softmax statistics and D per query row ------------------------
-  for (int qt = warp; qt < ntiles; qt += BW_WARPS) {
-    const int ra = qt * 16 + gr, rb = ra + 8;
-    uint32_t qf[4][4], of[4][4];
-    load_a(sQ, qt * 16, qf);
-    load_a(sO, qt * 16, of);
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f},
-          dacc[2] = {0.f, 0.f};
-    for (int c = 0; c < nchunks; ++c) {
-      float sc[8][4], dp[8][4];
-      nt(qf, sK, c, sc);
-      add_bias(c, ra, rb, sc);
-      nt(of, sV, c, dp);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = r ? rb : ra;
-        float cm = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          cm = fmaxf(cm, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
-        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 1));
-        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 2));
-        const float nm = fmaxf(m[r], cm);
-        float e = 0.f, de = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int col = c * SA_KC + j * 8 + gc + u;
-            const float ex = expf(sc[j][2 * r + u] - nm);
-            e += ex;
-            de += dp[j][2 * r + u] * mval(row, col) * ex;
-          }
-        e += __shfl_xor_sync(0xffffffffu, e, 1);
-        e += __shfl_xor_sync(0xffffffffu, e, 2);
-        de += __shfl_xor_sync(0xffffffffu, de, 1);
-        de += __shfl_xor_sync(0xffffffffu, de, 2);
-        const float sc_old = expf(m[r] - nm);
-        l[r] = l[r] * sc_old + e;
-        dacc[r] = dacc[r] * sc_old + de;
-        m[r] = nm;
-      }
-    }
-    if ((lane & 3) == 0) {
-      sM[ra] = m[0];
-      sL[ra] = l[0];
-      sD[ra] = dacc[0] / l[0];
-      sM[rb] = m[1];
-      sL[rb] = l[1];
-      sD[rb] = dacc[1] / l[1];
-    }
-  }
-  __syncthreads();
-
-  // ---- b. dq per query row ----------------------------------------------
-  for (int qt = warp; qt < ntiles; qt += BW_WARPS) {
-    const int ra = qt * 16 + gr, rb = ra + 8;
-    uint32_t qf[4][4], of[4][4];
-    load_a(sQ, qt * 16, qf);
-    load_a(sO, qt * 16, of);
-    const float m[2] = {sM[ra], sM[rb]}, l[2] = {sL[ra], sL[rb]},
-                D[2] = {sD[ra], sD[rb]};
-    float dq[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) dq[j][t] = 0.f;
-    for (int c = 0; c < nchunks; ++c) {
-      float sc[8][4], dp[8][4];
-      nt(qf, sK, c, sc);
-      add_bias(c, ra, rb, sc);
-      nt(of, sV, c, dp);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int r = t >> 1, row = r ? rb : ra;
-          const int col = c * SA_KC + j * 8 + gc + (t & 1);
-          const float p = expf(sc[j][t] - m[r]) / l[r];
-          sc[j][t] = p * (dp[j][t] * mval(row, col) - D[r]);   // dS
-        }
-      nn_acc(sc, sK, c, dq);
-    }
-    store(dq, a.dq, ra, a.dq_scale);
-  }
-
-  // ---- c. dk, dv per key row --------------------------------------------
-  for (int kt = warp; kt < ntiles; kt += BW_WARPS) {
-    const int ka = kt * 16 + gr, kb = ka + 8;
-    uint32_t kf[4][4], vf[4][4];
-    load_a(sK, kt * 16, kf);
-    load_a(sV, kt * 16, vf);
-    float dk[8][4], dv[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) dk[j][t] = dv[j][t] = 0.f;
-    for (int c = 0; c < nchunks; ++c) {
-      float st[8][4], dpt[8][4];   // [key row][query column]
-      nt(kf, sQ, c, st);
-      nt(vf, sO, c, dpt);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int key = t < 2 ? ka : kb;
-          const int qi = c * SA_KC + j * 8 + gc + (t & 1);
-          float pd = 0.f, ds = 0.f;
-          if (qi < L) {
-            const float p =
-                expf(st[j][t] * a.s_scale +
-                     text_bias(qi, key, mode, L1, A, L) - sM[qi]) /
-                sL[qi];
-            const float mv = mval(qi, key);
-            pd = p * mv;
-            ds = p * (dpt[j][t] * mv - sD[qi]);
-          }
-          st[j][t] = pd;
-          dpt[j][t] = ds;
-        }
-      nn_acc(st, sO, c, dv);
-      nn_acc(dpt, sQ, c, dk);
-    }
-    store(dk, a.dk, ka, a.dk_scale);
-    store(dv, a.dv, ka, 1.0f);
-  }
-}
-
-template <bool DROP, bool SPLIT>
-cudaError_t launch_seq_attn_bwd(const SeqAttnBwdArgs& a, int B, int H,
-                                cudaStream_t st) {
-  const size_t smem = bw_smem_bytes(a.L);
-  cudaFuncSetAttribute(seq_attn_bwd_kernel<DROP, SPLIT>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  seq_attn_bwd_kernel<DROP, SPLIT><<<dim3(H, B), BW_THREADS, smem, st>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace

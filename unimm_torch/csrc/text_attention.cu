@@ -15,16 +15,21 @@
 //     s = (q k^T) * scale (fp32) + bias(desc);  p = softmax_fp32(s)
 //     o = bf16(bf16(p) v)
 //   q is not pre-scaled and rounded, unlike the block kernels' q.
-// backward (unimm_text_attention_bwd): seq_attn_bwd_kernel<false, true>,
-//   one CTA per (head, sequence), the probabilities recomputed in fp32:
+// backward (unimm_text_attention_bwd): seq_attn_bwd.cuh's two launches
+//   (through seq_attn_bwd.cu), seq_attn_bwd_dq_kernel then
+//   seq_attn_bwd_dkdv_kernel<false, true>, one
+//   CTA per (64-row tile, head, sequence), the probabilities recomputed in
+//   fp32:
 //     dv = p^T do;  dp = do v^T;  ds = p (dp - rowsum(dp p))
 //     dq = ds k scale;  dk = ds^T q scale;  each rounded to bf16 once.
 //   The TPU kernel takes these products with fp32 operands. q, k, v and do
 //   are bf16, so exact as bf16 operands; p and ds enter the bf16 tensor-core
 //   products as hi + lo bf16 pairs (16 significand bits, relative error
-//   <= 2^-17), each product exact in the fp32 accumulators: two mma.sync
+//   <= 2^-17), each product exact in the fp32 accumulators: two wgmma
 //   where one would round p or ds to bf16, at the bf16 rate (989 TFLOP/s)
-//   against TF32's 495 for one pass that keeps 11 bits.
+//   against TF32's 495 for one pass that keeps 11 bits. The rows' lse and
+//   D pass between the launches through the caller's fp32 scratch
+//   [B, H, 2, L].
 //
 // What bounds it on an H100: device memory. Forward: q, k, v read and o
 // written, 4 B H L 64 x 2 bytes (403 MB at [256, 12, 256, 64], 0.12 ms at
@@ -32,9 +37,8 @@
 // peak). Backward: q, k, v, do read and dq, dk, dv written (661 MB at
 // [240, 12, 256, 64], 0.20 ms) against five L x L x 64 products per head
 // (121 GFLOP, 0.12 ms). Neither writes an [L, L] tensor or a mask to
-// device memory. The forward's design against that bound is in
-// seq_attn_fwd.cuh. The backward stages all four inputs per head and
-// recomputes the scores three times: what a later design would cut.
+// device memory. The designs against those bounds are in seq_attn_fwd.cuh
+// and seq_attn_bwd.cuh.
 
 #include "seq_attn_fwd.cuh"
 
@@ -63,18 +67,10 @@ extern "C" int unimm_text_attention_fwd_info(int L, void* out) {
 extern "C" int unimm_text_attention_bwd(const void* q, const void* k,
                                         const void* v, const void* dout,
                                         const void* desc, void* dq, void* dk,
-                                        void* dv, int B, int H, int L,
-                                        long sb, long sh, int sl,
+                                        void* dv, void* stats, int B, int H,
+                                        int L, long sb, long sh, int sl,
                                         float scale, void* stream) {
-  const SeqLayout lay{sb, sh, sl};
-  const SeqAttnBwdArgs a{static_cast<const bf16*>(q),
-                         static_cast<const bf16*>(k),
-                         static_cast<const bf16*>(v),
-                         static_cast<const bf16*>(dout),
-                         static_cast<const int*>(desc),
-                         static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                         static_cast<bf16*>(dv), lay, lay, L,
-                         scale, scale, scale, DropArgs{0u, 0u, 1.0f}};
-  return launch_seq_attn_bwd<false, true>(a, B, H,
-                                          static_cast<cudaStream_t>(stream));
+  return unimm_seq_attn_bwd(q, k, v, dout, desc, dq, dk, dv, stats, sb, sh,
+                            sl, sb, sh, sl, B, H, L, scale, scale, scale, 0u,
+                            0u, 1.0f, 0, 1, stream);
 }

@@ -21,7 +21,7 @@ _IMG_KEYS = ("image_feat", "image_loc", "image_mask", "image_target",
 _EVAL_IMG_KEYS = ("image_feat", "image_loc", "image_mask")
 
 
-def flatten_for_forward(batch: dict, train: bool = False,
+def flatten_for_forward(batch: dict, train: bool = True,
                         compact_images: bool = False) -> dict:
     """[B, R, S, ...] batch -> flat [N = B R S, ...] model inputs.
 

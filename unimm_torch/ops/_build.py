@@ -44,19 +44,23 @@ _SIGNATURES = {
     "unimm_attention_block_train_fwd": ([_VP] * 18 + [_INT] * 2
                                         + [_F32, _U32, _U32, _F32, _INT,
                                            _VP]),
-    "unimm_attention_block_train_bwd": ([_VP] * 15 + [_INT] * 2
+    # ..., dqkv, dx, stats scratch; B, L; seed, thresh, inv_keep, drop
+    "unimm_attention_block_train_bwd": ([_VP] * 16 + [_INT] * 2
                                         + [_U32, _U32, _F32, _INT, _VP]),
     "unimm_adamw": [_VP] * 4 + [_I64] + [_F32] * 9 + [_VP],
     # q, k, v, desc, out; B, H, L; strides (sequence, head, row); scale
     "unimm_text_attention_fwd": ([_VP] * 5 + [_INT] * 3 + [_I64, _I64, _INT]
                                  + [_F32, _VP]),
-    "unimm_text_attention_bwd": ([_VP] * 8 + [_INT] * 3 + [_I64, _I64, _INT]
+    # q, k, v, do, desc, dq, dk, dv, stats scratch; B, H, L; strides; scale
+    "unimm_text_attention_bwd": ([_VP] * 9 + [_INT] * 3 + [_I64, _I64, _INT]
                                  + [_F32, _VP]),
     "unimm_attention_v2": ([_VP] * 5 + [_INT] * 3 + [_I64, _I64, _INT, _INT]
                            + [_F32, _VP]),
     # L; out int32[4]
     "unimm_text_attention_fwd_info": [_INT, _VP],
     "unimm_attention_v2_info": [_INT, _VP],
+    # L; kernel (0 the dq launch, 1 the dk / dv launch), drop, split; out
+    "unimm_seq_attn_bwd_info": [_INT] * 4 + [_VP],
     # x, desc, ten weights, q, k, v, ctx, out; B, L, mode / layout; eps
     "unimm_probe_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
     "unimm_layout_probe_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
@@ -146,12 +150,14 @@ def library():
         return _lib
 
 
-def kernel_info(entry: str, L: int) -> dict:
+def kernel_info(entry: str, L: int, *which: int) -> dict:
     """What the C entry point ``entry`` (a ``*_info`` function) reports of
-    its kernel at sequence length L: registers and local memory bytes a
-    thread (stack and spills), dynamic shared memory a CTA, CTAs an SM."""
+    its kernel at sequence length L (``which``: the kernel of an entry point
+    that launches several): registers and local memory bytes a thread
+    (stack and spills), dynamic shared memory a CTA, CTAs an SM."""
     out = (ctypes.c_int * 4)()
-    check(getattr(library(), entry)(L, ctypes.addressof(out)), entry)
+    check(getattr(library(), entry)(L, *which, ctypes.addressof(out)),
+          entry)
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "ctas_per_sm"), out))
 

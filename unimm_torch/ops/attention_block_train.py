@@ -17,8 +17,9 @@ step, with attention-probability dropout made in the kernel.
   dctx, dWo, dbo, dgamma, dbeta.
 * backward kernel (``attention_block_train_bwd``): (x, dctx) -> (dx_qkv,
   dq, dk, dv). It recomputes q/k/v and the softmax with the same Philox
-  mask, backpropagates through them, and takes dx_qkv = dq Wq + dk Wk +
-  dv Wv in one GEMM.
+  mask, backpropagates through them (``csrc/seq_attn_bwd.cuh``, shared
+  with the per-head text attention: a dq launch and a dk / dv launch on
+  64-row tiles), and takes dx_qkv = dq Wq + dk Wk + dv Wv in one GEMM.
 * tail: dWq / dWk / dWv and the bias sums, plain PyTorch.
 
 On CUDA tensors the wrappers launch the kernels (bf16, width 768 in heads
@@ -177,11 +178,16 @@ def attention_block_train_bwd(x, dctx, desc, seed, wq, bq, wk, bk, wv, bv, *,
     w_cat_t = torch.cat([wq, wk, wv], 0).t().contiguous()   # [Hd, 3 Hd]
     q, k, v, dx = (torch.empty_like(x) for _ in range(4))
     dqkv = torch.empty(B, L, 3 * Hd, dtype=x.dtype, device=x.device)
+    # each row's log-sum-exp and rowsum(dP P), from the dq launch to the
+    # dk / dv launch
+    stats = torch.empty(B, num_heads, 2, L, dtype=torch.float32,
+                        device=x.device)
     code = lib.unimm_attention_block_train_bwd(
         x.data_ptr(), dctx.data_ptr(), desc.data_ptr(),
         *(t.data_ptr() for t in weights), w_cat_t.data_ptr(), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), dqkv.data_ptr(), dx.data_ptr(), B, L,
-        *_drop_args(seed, attn_drop), _build.stream(x.device))
+        k.data_ptr(), v.data_ptr(), dqkv.data_ptr(), dx.data_ptr(),
+        stats.data_ptr(), B, L, *_drop_args(seed, attn_drop),
+        _build.stream(x.device))
     _build.check(code, "attention_block_train_bwd")
     attention_block_train_bwd.launches += 1
     return dx, dqkv[..., :Hd], dqkv[..., Hd:2 * Hd], dqkv[..., 2 * Hd:]
@@ -189,6 +195,13 @@ def attention_block_train_bwd(x, dctx, desc, seed, wq, bq, wk, bk, wv, bv, *,
 
 attention_block_train_fwd.launches = 0
 attention_block_train_bwd.launches = 0
+
+
+def bwd_kernel_info(L=256):
+    """The attention backward's two kernels (dq, dk / dv) under attention
+    dropout, as ``text_attention.bwd_kernel_info`` reports them."""
+    return {name: _build.kernel_info("unimm_seq_attn_bwd_info", L, i, 1, 0)
+            for i, name in enumerate(("dq", "dkdv"))}
 
 
 def _wgrad(d, x):

@@ -76,7 +76,9 @@ def mask_bias(desc, max_len: int):
 
 
 # The one-pass per-head attention kernel (csrc/seq_attn_fwd.cuh) holds a
-# warp's ROW_TILE query rows against KEY_CHUNK-key chunks.
+# warp's ROW_TILE query rows against KEY_CHUNK-key chunks; the backward's
+# kernels (csrc/seq_attn_bwd.cuh) a CTA's 64 rows (or keys) against
+# KEY_CHUNK-key (or -row) chunks.
 ROW_TILE = 16
 KEY_CHUNK = 64
 
@@ -122,7 +124,8 @@ def chunk_closed(desc, max_len: int, row0: int, rows: int, c: int) -> bool:
     """Whether no query row in [row0, row0 + rows) of the sequence with
     descriptor ``desc`` (mode, ctx_end, ans_len) attends any key of chunk
     c, keys [c KEY_CHUNK, min((c + 1) KEY_CHUNK, max_len)): the one-pass
-    kernel's skip rule, per warp of ROW_TILE rows. A row that attends no
+    kernel's skip rule, per warp of ROW_TILE rows, and the backward's dq
+    kernel's, per CTA of 64 rows. A row that attends no
     key weighs every key, so it closes no chunk. Skipping is exact: a row
     with an open key gives each masked key exp(s - 10000 - max) = 0 in
     fp32."""
@@ -132,6 +135,26 @@ def chunk_closed(desc, max_len: int, row0: int, rows: int, c: int) -> bool:
     k1 = min(k0 + KEY_CHUNK, max_len)
     hit = ((torch.clamp(lo, min=k0) < torch.clamp(hi, max=k1))
            | ((diag >= k0) & (diag < k1)))
+    return not bool(hit.any())
+
+
+def query_chunk_closed(desc, max_len: int, key0: int, keys: int,
+                       c: int) -> bool:
+    """Whether no query row of chunk c, rows [c KEY_CHUNK, min((c + 1)
+    KEY_CHUNK, max_len)), of the sequence with descriptor ``desc`` attends
+    any key of [key0, key0 + keys): the backward's dk / dv kernel's skip
+    rule (csrc/seq_attn_bwd.cuh, per CTA of 64 keys), the transpose of
+    ``chunk_closed``. A row that attends no key weighs every key, so a
+    chunk holding one is never closed. Skipping is exact for the same
+    reason as ``chunk_closed``'s."""
+    lo, hi, diag, _ = (t[0] for t in row_intervals(
+        torch.as_tensor(desc).reshape(1, 3), max_len))
+    r0 = c * KEY_CHUNK
+    r1 = min(r0 + KEY_CHUNK, max_len)
+    lo, hi, diag = lo[r0:r1], hi[r0:r1], diag[r0:r1]
+    k1 = key0 + keys
+    hit = ((torch.clamp(lo, min=key0) < torch.clamp(hi, max=k1))
+           | ((diag >= key0) & (diag < k1)))
     return not bool(hit.any())
 
 

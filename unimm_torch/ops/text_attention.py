@@ -15,7 +15,12 @@ hand-written kernels of ``csrc/text_attention.cu``:
   chunks that ``masks.chunk_closed`` closes.
 * backward: the probabilities recomputed in fp32; dv = p^T do, dp = do v^T,
   ds = p (dp - rowsum(dp p)), dq = ds k scale, dk = ds^T q scale, every
-  product with fp32 operands, each output rounded to q.dtype once.
+  product with fp32 operands, each output rounded to q.dtype once. The
+  kernels (``csrc/seq_attn_bwd.cuh``) run on 64-row tiles in two launches,
+  dq then dk / dv, with each row's log-sum-exp and rowsum(dp p) passed
+  between them in an fp32 scratch the wrapper allocates; they skip the
+  chunks that ``masks.chunk_closed`` and ``masks.query_chunk_closed``
+  close.
 
 The Function saves (q, k, v, desc), as ``_fta_fwd`` does. On CUDA tensors
 the wrappers launch the kernels (bf16, heads of 64, 32 <= L <= 256 with
@@ -152,10 +157,12 @@ def text_attention_bwd(q, k, v, desc, do):
     q, k, v, do = same_layout(q, k, v, do)
     dq, dk, dv = (torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
                                       device=q.device) for _ in range(3))
+    B, H, L, _ = q.shape
+    stats = torch.empty(B, H, 2, L, dtype=torch.float32, device=q.device)
     code = _build.library().unimm_text_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         desc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_dims(q), _build.stream(q.device))
+        stats.data_ptr(), *_dims(q), _build.stream(q.device))
     _build.check(code, "text_attention_bwd")
     text_attention_bwd.launches += 1
     return dq, dk, dv
@@ -170,6 +177,12 @@ def fwd_kernel_info(L=MAX_LEN):
     thread, dynamic shared memory a CTA at length L and CTAs an SM, as the
     card's runtime reports them (builds the library)."""
     return _build.kernel_info("unimm_text_attention_fwd_info", L)
+
+
+def bwd_kernel_info(L=MAX_LEN):
+    """The same of the backward's two kernels: {"dq": ..., "dkdv": ...}."""
+    return {name: _build.kernel_info("unimm_seq_attn_bwd_info", L, i, 0, 1)
+            for i, name in enumerate(("dq", "dkdv"))}
 
 
 class TextAttention(torch.autograd.Function):

@@ -1,0 +1,193 @@
+"""Times of the attention backward on a CUDA card: B6's wrapper
+(``text_attention_bwd``) at [240, 12, 256, 64] and B5's
+(``attention_block_train_bwd``) at [240, 256, 768], attention dropout 0.1,
+both on the training batch's descriptors; or B 240 training steps.
+
+    python3 -m unimm_torch.tools.bench_bwd [--label NAME] [--csrc DIR
+        --build DIR] [--train-step {pallas_block,pallas} [--steps 8]]
+
+Default: one JSON line with each wrapper's device time per call (CUDA
+events, median of 5 runs of 20 calls), its host time per call (the loop
+that enqueues 20 calls, the card busy behind it), the mean device time of
+every kernel it launched (``torch.profiler``), each output's largest
+error against its plain twin relative to the twin's largest entry, and
+whether two runs give the same bits. ``--train-step``: ms per step of ``--steps`` B 240
+training steps with the fused AdamW after 2 warm-up steps, as chip_smoke.py
+phase 9 times them ("pallas" at attention dropout 0). ``--csrc`` builds
+and loads the kernels of another csrc directory into ``--build`` (a copy
+with a design change, say). To compare two commits on one card, run this
+file from each tree's root with ``PYTHONPATH`` set to that root, in turns;
+it uses only entry points both have. Ends with the card's name and power
+limit.
+"""
+
+import argparse
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+
+def train_desc(B, L, g):
+    """workload.make_train_batch's descriptors: mode 0 or 1, ctx_end
+    60-199, ans_len 2-8 under gen."""
+    dev = g.device
+    mode = torch.randint(0, 2, (B,), generator=g, device=dev)
+    ce = torch.randint(60, 200, (B,), generator=g, device=dev)
+    al = torch.randint(2, 9, (B,), generator=g, device=dev)
+    return torch.stack([mode, ce, al * mode], -1).to(torch.int32)
+
+
+def _device_ms(fn, iters=20, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e) / iters)
+    return sorted(out)[len(out) // 2]
+
+
+def _host_us(fn, n=20):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def _sub_kernels(fn, iters=5):
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0)
+        if t:
+            out[ev.key[:90]] = round(t / iters / 1e3, 4)   # ms per call
+    return out
+
+
+def _rel(got, want):
+    """each output's max |got - want| / max |want|"""
+    return [float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max()) for a, b in zip(got, want)]
+
+
+def backward_times(dev, B=240, L=256):
+    from unimm_torch.models import vilbert
+    from unimm_torch.ops import attention_block_train as abt
+    from unimm_torch.ops import text_attention as ta
+    from unimm_torch.ops.answer_block import _weights
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    # the head-split views of [B, L, 768] tensors, as the model gives them
+    q, k, v, do = (torch.randn(B, L, 768, generator=g, device=dev).bfloat16()
+                   .view(B, L, 12, 64).transpose(1, 2) for _ in range(4))
+    desc = train_desc(B, L, g)
+    with torch.device(dev):
+        attn = vilbert._attention(768)
+    with torch.no_grad():
+        for p in attn.parameters():
+            p.normal_(0.0, 0.05, generator=g)
+    ws = _weights(attn.to(torch.bfloat16))
+    x = torch.randn(B, L, 768, generator=g, device=dev).bfloat16()
+    dctx = torch.randn(B, L, 768, generator=g, device=dev).bfloat16()
+    kw = dict(num_heads=12, attn_drop=0.1)
+    runs = {
+        "text_attention_bwd": (
+            lambda: ta.text_attention_bwd(q, k, v, desc, do),
+            lambda: ta.text_attention_bwd_plain(q, k, v, desc, do)),
+        "attention_block_train_bwd": (
+            lambda: abt.attention_block_train_bwd(x, dctx, desc, 1234,
+                                                  *ws[:6], **kw),
+            lambda: abt.attention_block_train_bwd_plain(x, dctx, desc, 1234,
+                                                        *ws[:6], **kw))}
+    out = {}
+    for name, (kern, plain) in runs.items():
+        same = all(torch.equal(a, b) for a, b in zip(kern(), kern()))
+        out[name] = dict(ms=_device_ms(kern), host_us=_host_us(kern),
+                         rel_errs=_rel(kern(), plain()), same_bits=same,
+                         kernels_ms=_sub_kernels(kern))
+    return out
+
+
+def step_times(dev, impl, steps):
+    import numpy as np
+
+    from unimm_torch import workload
+    from unimm_torch.config import VilbertConfig
+    from unimm_torch.models import vilbert
+    from unimm_torch.train import optim
+    from unimm_torch.train import step as tstep
+
+    cfg = VilbertConfig(attention_impl=impl)
+    if impl == "pallas":
+        cfg = cfg.replace(attention_probs_dropout_prob=0.0)
+    lang = optim.load_language_weights(Path("config/language_weights.json"))
+    batches = [{k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for k, a in workload.make_train_batch(
+                    np.random.default_rng(50 + i), cfg, 240).items()}
+               for i in range(2)]
+    model = vilbert.train_model(cfg, seed=0, device=dev)
+    state = tstep.init_state(model, optim.make_fused_optimizer(
+        model, optim.OptimConfig(warmup_steps=10, t_total=1000), lang),
+        seed=0)
+    step = tstep.make_train_step(cfg)
+    with torch.enable_grad():
+        for i in range(2):
+            step(state, batches[i % 2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            step(state, batches[i % 2])
+        torch.cuda.synchronize()
+    return dict(impl=impl, steps=steps,
+                ms_per_step=(time.perf_counter() - t0) / steps * 1e3)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--label", default="")
+    ap.add_argument("--csrc", type=Path, default=None)
+    ap.add_argument("--build", type=Path, default=None)
+    ap.add_argument("--train-step", default=None,
+                    choices=("pallas_block", "pallas"))
+    ap.add_argument("--steps", type=int, default=8)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_bwd: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    from unimm_torch.ops import _build
+    if args.csrc is not None:
+        _build.CSRC = args.csrc.resolve()
+        _build.BUILD_DIR = (args.build or args.csrc.parent / "build").resolve()
+    _build.library()
+    dev = torch.device("cuda", 0)
+    if args.train_step:
+        res = step_times(dev, args.train_step, args.steps)
+    else:
+        res = backward_times(dev)
+    print(json.dumps({"label": args.label, **res}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,9 @@
 
 Default: for each kernel wrapper at main-path shapes, a JSON line with the
 mean device time per call of every CUDA kernel the call launched (the
-sub-kernels of one wrapper seen one by one); the attention-block bench's
+sub-kernels of one wrapper seen one by one; the training attention block's
+forward and backward at [240, 256, 768] on the training descriptors, so
+its GEMMs and attention launches show apart); the attention-block bench's
 probes at its shape [512, 256, 768], on its descriptors ("bench") and on
 descriptors under which every row attends every key ("open"), so that a
 cost that depends on fully masked rows shows. ``--main-path``: one warm
@@ -263,8 +265,41 @@ def main():
             print(json.dumps({"wrapper": name,
                               "shape": f"[{B}, 12, 256, 64]", "ms": t}),
                   flush=True)
+    _train_block(rand, attn, g, args.iters)
     _probes(rand, attn, args.iters)
     print(card)
+
+
+def _train_block(rand, attn, g, iters, B=240, L=256, drop=0.1):
+    """Sub-kernel device times of the training attention block's forward
+    and backward wrappers at the training step's shape, on the training
+    batch's descriptors (workload.make_train_batch: mode 0 or 1, ctx_end
+    60-199, ans_len 2-8) at the default attention dropout: the Q/K/V
+    GEMM, the attention launches and the output or dx GEMM one by one."""
+    from unimm_torch.ops import attention_block_train as abt
+    from unimm_torch.ops.answer_block import _weights
+    from unimm_torch.tools.bench_bwd import train_desc
+
+    dev = g.device
+    desc = train_desc(B, L, g)
+    x, dctx = rand(B, L, 768), rand(B, L, 768)
+    m_o = (torch.rand(B, L, 768, generator=g, device=dev) >= drop).float()
+    m_o /= 1.0 - drop
+    ws = _weights(attn)
+    kw = dict(num_heads=12, attn_drop=drop)
+
+    def fwd():
+        return abt.attention_block_train_fwd(x, desc, 1234, m_o, *ws, **kw)
+
+    def bwd():
+        return abt.attention_block_train_bwd(x, dctx, desc, 1234, *ws[:6],
+                                             **kw)
+
+    for name, fn in (("attention_block_train_fwd", fwd),
+                     ("attention_block_train_bwd", bwd)):
+        print(json.dumps({"wrapper": name,
+                          "shape": f"[{B}, {L}, 768] train drop {drop}",
+                          "ms": _kernel_times(fn, iters)}), flush=True)
 
 
 def _probes(rand, attn, iters, B=512, L=256):

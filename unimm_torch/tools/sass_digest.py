@@ -1,7 +1,8 @@
 """What the compiler made of the port's kernels: digests of the SASS of
-``seq_attn_kernel``'s instances, to show that a change to another kernel
-left their machine code as it was, and ptxas's register and spill report
-per kernel.
+the attention forward kernels' instances (``seq_attn_kernel`` and
+``seq_attn_fwd_kernel``), to show that a change to another kernel left
+their machine code as it was, and ptxas's register and spill report per
+kernel.
 
     python3 -m unimm_torch.tools.sass_digest [--csrc DIR] [--out FILE]
         [--compare FILE]
@@ -10,9 +11,11 @@ Without ``--csrc`` it reads the objects ``ops/_build`` keeps beside the
 library (building it first if needed); with ``--csrc DIR`` it compiles that
 tree's ``*.cu`` (another commit's sources, say) with the same nvcc flags
 into a temporary directory. Every instance of ``seq_attn_kernel`` (the
-first design of the per-head attention, kept for B4, B5, B10 and B11) is
-keyed by its source file and demangled name and hashed over its
-``cuobjdump -sass`` text. ``--out`` writes the digests and the nvcc version
+first design of the per-head attention, kept for B4, B5, B10 and B11) and
+of ``seq_attn_fwd_kernel`` (B6's forward, B9) is keyed by its source file
+and demangled name and hashed over its
+``cuobjdump -sass`` text (each instruction and its encoding, blanks
+collapsed). ``--out`` writes the digests and the nvcc version
 as JSON; ``--compare FILE`` prints, for each function of FILE, whether
 this build's SASS has the same digest.
 Needs the CUDA toolkit (nvcc, cuobjdump, cu++filt); no card.
@@ -31,7 +34,7 @@ from pathlib import Path
 
 from unimm_torch.ops import _build
 
-PATTERN = "seq_attn_kernel"
+PATTERNS = ("seq_attn_kernel", "seq_attn_fwd_kernel")
 
 
 def _tool(name: str) -> str:
@@ -78,7 +81,10 @@ def _functions(obj: Path):
             name = m.group(1)
             funcs[name] = []
         elif name is not None and line.strip():
-            funcs[name].append(line.strip())
+            # runs of blanks collapsed: cuobjdump pads its columns to the
+            # widest line of the whole object, which another function in
+            # the same object can change
+            funcs[name].append(" ".join(line.split()))
     return {k: "\n".join(v) for k, v in funcs.items()}
 
 
@@ -90,12 +96,13 @@ def _demangle(names):
 
 def digests(objects) -> dict:
     """{"<source>.cu: <demangled name>": sha256 of its SASS} for the
-    functions of ``objects`` whose demangled name contains PATTERN."""
+    functions of ``objects`` whose demangled name contains one of
+    PATTERNS."""
     found = {}
     for obj in objects:
         funcs = _functions(Path(obj))
         for mangled, plain in zip(funcs, _demangle(list(funcs))):
-            if PATTERN in plain:
+            if any(p in plain for p in PATTERNS):
                 key = f"{Path(obj).stem}.cu: {plain}"
                 found[key] = hashlib.sha256(
                     funcs[mangled].encode()).hexdigest()
