@@ -121,6 +121,26 @@ def test_attention_block_matches_plain(dev, L):
     _close(got, want, 5e-2, 2e-2)
 
 
+def test_attention_block_masked_tails(dev):
+    """B4 on the masked tails (ctx_end <= 64 at L 256: the one-pass kernel
+    skips the closed chunks of the first rows, and the rows past ctx_end
+    weigh every key) within its bound of the plain twin; the twin on the
+    flipped descriptors misses it."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, L = 16, 256
+    attn = _wide_attention(gen, dev)
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = chip_smoke.tail_desc(B, L, gen)
+    n0 = tatb.attention_block.launches
+    got = tatb.attention_block(x, desc, attn, num_heads=12)
+    assert tatb.attention_block.launches == n0 + 1
+    _close(got, tatb.attention_block_plain(x, desc, attn, num_heads=12),
+           5e-2, 2e-2)
+    with pytest.raises(AssertionError):
+        _close(got, tatb.attention_block_plain(x, _flip(desc), attn,
+                                               num_heads=12), 5e-2, 2e-2)
+
+
 def test_co_text_block_matches_plain(dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     B, L, R = 6, 224, 37
@@ -294,6 +314,33 @@ def test_attention_block_train_matches_plain(dev, L, drop):
                                                 **kw)
     for name, g, w in zip(("dx", "dq", "dk", "dv"), got, want):
         assert _rel_err(g, w) <= 2e-2, name
+
+
+@pytest.mark.parametrize("drop", [0.1, 0.0])
+def test_attention_block_train_fwd_masked_tails(dev, drop):
+    """B5's forward on the masked tails at L 256: y within the eval
+    block's bound, ctx within 2% of its largest entry; under another
+    Philox seed ctx misses."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, L = 16, 256
+    attn = _wide_attention(gen, dev)
+    ws = tuple(t.contiguous() for t in tab._weights(attn))
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = chip_smoke.tail_desc(B, L, gen)
+    m_o = ((torch.rand(B, L, 768, generator=gen, device=dev) > 0.1).float()
+           / 0.9)
+    kw = dict(num_heads=12, attn_drop=drop)
+    n0 = tabt.attention_block_train_fwd.launches
+    y, ctx = tabt.attention_block_train_fwd(x, desc, 77, m_o, *ws, **kw)
+    assert tabt.attention_block_train_fwd.launches == n0 + 1
+    y_p, ctx_p = tabt.attention_block_train_fwd_plain(x, desc, 77, m_o, *ws,
+                                                      **kw)
+    _close(y, y_p, 5e-2, 2e-2)
+    assert _rel_err(ctx, ctx_p) <= 2e-2
+    if drop:
+        _, ctx_o = tabt.attention_block_train_fwd_plain(x, desc, 78, m_o,
+                                                        *ws, **kw)
+        assert _rel_err(ctx, ctx_o) > 2e-2
 
 
 @pytest.mark.parametrize("L", [256, 96])
@@ -505,10 +552,14 @@ def test_attention_v2_masked_tails(dev, block_b):
 
 
 def test_fwd_kernel_fits_the_card(dev):
-    """The one-pass kernel at L 256: no local memory (no spills), the
-    registers of __launch_bounds__(128, 3), 72 KB of shared memory (K, V
-    and 64 query rows), and at least 2 CTAs an SM."""
-    for info in (tta.fwd_kernel_info(256), tav2.kernel_info(256)):
+    """The one-pass kernel at L 256, in each of its instances (B6's
+    forward, B9, B4, B5's forward with and without dropout): no local
+    memory (no spills), the registers of __launch_bounds__(128, 3), 72 KB
+    of shared memory (K, V and 64 query rows), and at least 2 CTAs an
+    SM."""
+    for info in (tta.fwd_kernel_info(256), tav2.kernel_info(256),
+                 tatb.kernel_info(256),
+                 *tabt.fwd_kernel_info(256).values()):
         assert info["local_bytes"] == 0, info
         assert info["registers"] <= 168, info
         assert info["smem_bytes"] == (2 * 256 + 64) * 128, info

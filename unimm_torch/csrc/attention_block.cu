@@ -9,29 +9,35 @@
 //
 //   q, k, v = bf16(x W^T + b);  q = bf16(fp32(q) / 8)
 //   s = q_h k_h^T (fp32) + bias(desc, i, j)        (0 or -10000)
-//   p = bf16(softmax_fp32(s));  ctx_h = bf16(p v_h)
+//   p = softmax_fp32(s);  ctx_h = bf16(bf16(p) v_h)
 //   y = LN(fp32(ctx Wo^T) + bo + x) * gamma + beta            (eps 1e-12)
 //
-// with the TPU kernel's rounding points. Three launches; the first and the
-// last are the answer block's (block_parts.cuh):
-//   1. gemm_nt_kernel     Q/K/V projection, 128x128 tiles (common.cuh)
-//   2. seq_attn_kernel    one CTA per (64-row query tile, head, block_b
-//                         sequences walked in turn) (seq_attn.cuh, shared
-//                         with the training block)
-//   3. out_ln_kernel      Wo + bo + residual + LayerNorm on 32-row tiles
+// with the TPU kernel's rounding points, but for p's: the attention rounds
+// each unnormalised probability and divides by the row sum once
+// (seq_attn_fwd.cuh), one bf16 rounding of each term either way. Three
+// launches; the first and the last are the answer block's
+// (block_parts.cuh):
+//   1. gemm_nt_kernel       Q/K/V projection, 128x128 tiles (common.cuh)
+//   2. seq_attn_fwd_kernel  one-pass online softmax, one CTA per (64-row
+//                           query tile, head, block_b sequences walked in
+//                           turn) (seq_attn_fwd.cuh, shared with the
+//                           training block and the per-head attention)
+//   3. out_ln_kernel        Wo + bo + residual + LayerNorm on 32-row tiles
 // What bounds it on an H100: 8 M 768^2 + 4 B L^2 768 flops (0.36 TFLOP at
 // [256, 256, 768]) against ~0.2 GB of x, output and weights: the
 // tensor-core rate. Unlike the TPU kernel, q/k/v and ctx ([B, L, 768] bf16
 // each) pass through device memory between the launches; the [L, L] scores
 // and probabilities never leave registers, and no [B, L, L] mask exists.
-// Rows past a sequence's extent are fully masked and, as in the TPU kernel,
-// take their softmax over all L keys at s - 10000: no key tile is skipped.
-// block_b (the TPU kernel's sequences per grid step) only trades CTAs for
-// per-CTA work: each CTA restages K and V for every sequence it walks, so
-// the result does not depend on it.
+// A 64-key chunk that all 16 rows of a warp leave closed is skipped (no
+// score, exp or P.V: exact, its probabilities are 0 in fp32). Rows past a
+// sequence's extent are fully masked and, as in the TPU kernel, take their
+// softmax over all L keys (without the constant -10000, which the softmax
+// cancels). block_b (the TPU kernel's sequences per grid step) only trades
+// CTAs for per-CTA work: each CTA computes every sequence it walks on its
+// own, so the result does not depend on it.
 
 #include "block_parts.cuh"
-#include "seq_attn.cuh"
+#include "seq_attn_fwd.cuh"
 
 extern "C" int unimm_attention_block(
     const void* x, const void* desc, const void* wq, const void* bq,
@@ -54,10 +60,16 @@ extern "C" int unimm_attention_block(
   cudaError_t err = launch_gemm_nt(g, 3, e, st);
   if (err != cudaSuccess) return err;
 
-  err = launch_seq_attn<false>(q_buf, k_buf, v_buf, desc, ctx_buf, B, L,
-                               DropArgs{0u, 0u, 1.0f}, st, block_b);
+  err = launch_block_attn_fwd<false>(q_buf, k_buf, v_buf, desc, ctx_buf, B,
+                                     L, DropArgs{0u, 0u, 1.0f}, st, block_b);
   if (err != cudaSuccess) return err;
 
   return launch_out_ln(ctx_buf, x, wo, bo, gamma, beta, eps, out, M, HID,
                        st);
+}
+
+// the attention launch's registers, local bytes, shared memory and CTAs
+// an SM at length L (seq_attn_fwd_info); out: int32[4]
+extern "C" int unimm_attention_block_info(int L, void* out) {
+  return seq_attn_fwd_info<SCALE_NONE, false>(L, static_cast<int*>(out));
 }

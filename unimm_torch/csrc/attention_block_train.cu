@@ -9,8 +9,13 @@
 //
 // forward  (unimm_attention_block_train_fwd), three launches:
 //   1. gemm_nt_kernel   q, k, v = bf16(x W^T + b); q = bf16(fp32(q) / 8)
-//   2. seq_attn_kernel  p = softmax_fp32(s + bias(desc)) * Philox mask;
-//                       ctx_h = bf16(bf16(p) v_h)          (seq_attn.cuh)
+//   2. seq_attn_fwd_kernel<SCALE_NONE, DROP>, B4's one-pass attention
+//                       (seq_attn_fwd.cuh) with the dropout in its loop:
+//                       p = softmax_fp32(s + bias(desc)) * Philox mask;
+//                       ctx_h = bf16(bf16(p) v_h), each unnormalised
+//                       probability rounded, the row sum of the undropped
+//                       ones divided out once; closed key chunks skipped
+//                       (they draw nothing)
 //   3. out_ln_kernel    y = LN((fp32(ctx Wo^T) + bo) * mo + x)
 //                       (block_parts.cuh); ctx is kept for the backward
 // backward (unimm_attention_block_train_bwd), four launches:
@@ -44,7 +49,7 @@
 // leaves the SM.
 
 #include "block_parts.cuh"
-#include "seq_attn.cuh"
+#include "seq_attn_fwd.cuh"
 
 namespace {
 
@@ -93,13 +98,22 @@ extern "C" int unimm_attention_block_train_fwd(
                                v_buf, M, st);
   if (err != cudaSuccess) return err;
   const DropArgs d{seed, thresh, inv_keep};
-  err = drop ? launch_seq_attn<true>(q_buf, k_buf, v_buf, desc, ctx_buf, B,
-                                     L, d, st)
-             : launch_seq_attn<false>(q_buf, k_buf, v_buf, desc, ctx_buf, B,
-                                      L, d, st);
+  err = drop ? launch_block_attn_fwd<true>(q_buf, k_buf, v_buf, desc,
+                                           ctx_buf, B, L, d, st)
+             : launch_block_attn_fwd<false>(q_buf, k_buf, v_buf, desc,
+                                            ctx_buf, B, L, d, st);
   if (err != cudaSuccess) return err;
   return launch_out_ln(ctx_buf, x, wo, bo, gamma, beta, eps, out, M, HID,
                        st, static_cast<const float*>(mo));
+}
+
+// the forward's attention launch (drop: the instance with dropout):
+// registers, local bytes, shared memory and CTAs an SM at length L
+extern "C" int unimm_attention_block_train_fwd_info(int L, int drop,
+                                                    void* out) {
+  int* o = static_cast<int*>(out);
+  return drop ? seq_attn_fwd_info<SCALE_NONE, true>(L, o)
+              : seq_attn_fwd_info<SCALE_NONE, false>(L, o);
 }
 
 extern "C" int unimm_attention_block_train_bwd(

@@ -10,7 +10,7 @@
 //   s = q_s k^T (fp32) + bias(desc);  p = softmax_fp32(s)
 //   o = bf16(bf16(p) v)
 //
-// seq_attn_fwd_kernel<SCALE_Q> (seq_attn_fwd.cuh: one score pass in
+// seq_attn_fwd_kernel<SCALE_Q, false> (seq_attn_fwd.cuh: one score pass in
 // registers, closed key chunks skipped), one CTA per (64-row query tile,
 // head, block_b sequences). On the TPU, block_b sequences per grid step
 // widen the DMA windows; here each CTA walks its block_b sequences in
@@ -40,9 +40,10 @@ extern "C" int unimm_attention_v2(const void* q, const void* k,
                       static_cast<bf16*>(out),
                       lay, lay, B, H, L, block_b, scale,
                       DropArgs{0u, 0u, 1.0f}};
-  return launch_seq_attn_fwd<SCALE_Q>(a, static_cast<cudaStream_t>(stream));
+  return launch_seq_attn_fwd<SCALE_Q, false>(
+      a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int unimm_attention_v2_info(int L, void* out) {
-  return seq_attn_fwd_info<SCALE_Q>(L, static_cast<int*>(out));
+  return seq_attn_fwd_info<SCALE_Q, false>(L, static_cast<int*>(out));
 }

@@ -1,19 +1,24 @@
-// The attention-block bench's probes: B4 (attention_block.cu) with one
-// part of its attention taken out (unimm_probe_block) or laid out another
-// way (unimm_layout_probe_block). They are attribution tools: each times
-// one piece of B4's cost on this card.
+// The attention-block bench's probes: B4's function (attention_block.cu)
+// on the first design of its attention, the two-pass seq_attn_kernel
+// (seq_attn.cuh), with one part of that attention taken out
+// (unimm_probe_block) or laid out another way (unimm_layout_probe_block).
+// They are attribution tools: each times one piece of the first design's
+// cost on this card; B4 itself now runs the one-pass seq_attn_fwd.cuh, so
+// PROBE_FULL against B4 is the two designs side by side.
 //
 // Replaces the TPU kernels scripts/bench_attn_block.py:_mk_probe (body
 // _probe_kernel) and :_mk_layout_probe (bodies _probe_transposed_kernel,
 // _probe_wo_acc_kernel, _probe_pad128_kernel). For x [B, L, 768] (L % 32
-// == 0, 32 <= L <= 256) and desc [B, 3] int32, with B4's rounding points:
+// == 0, 32 <= L <= 256) and desc [B, 3] int32, with the first design's
+// rounding points (the twins'):
 //
 //   q, k, v = bf16(x W^T + b);  q = bf16(fp32(q) / 8)
 //   s = q_h k_h^T (fp32) + bias(desc, i, j)        (0 or -10000)
 //   y = LN(out + bo + x) * gamma + beta                          (eps 1e-12)
 //
 // unimm_probe_block, by mode (three launches, as B4; skip two):
-//   PROBE_FULL     p = bf16(softmax_fp32(s)), ctx_h = bf16(p v_h): B4
+//   PROBE_FULL     p = bf16(softmax_fp32(s)), ctx_h = bf16(p v_h): B4's
+//                  function on the first design
 //   PROBE_NONE     p = bf16(s * 1e-4): one score pass, no exp, no row
 //                  statistic
 //   PROBE_NOSHIFT  p = bf16(exp(s - 20) / sum exp(s - 20)): no row max; a
@@ -21,8 +26,8 @@
 //   PROBE_SKIP     ctx = v: no attention launch (q and k are still
 //                  projected), so it times B4 without its attention
 //   out = fp32(ctx Wo^T)
-// The attention launch is seq_attn_kernel<false, SCALE_NONE, SOFT>
-// (seq_attn.cuh), so a mode differs from B4 only in its softmax.
+// The attention launch is seq_attn_kernel<SOFT> (seq_attn.cuh), so a mode
+// differs from the first design only in its softmax.
 //
 // unimm_layout_probe_block, by layout (B4's function, full softmax):
 //   LAYOUT_WO_ACC      out = sum_h fp32(ctx_h Wo_h^T), head by head in
@@ -171,7 +176,7 @@ __global__ void __launch_bounds__(WA_THREADS, 1)
                               ((lane >> 4) << 3)) * SA_LD +
                               kd * 16 + ((lane >> 3) & 1) * 8);
     }, sc);
-    mask_chunk<SCALE_NONE>(sc, c, rm, 1.f, -INFINITY);
+    mask_chunk(sc, c, rm, -INFINITY);
   };
 
   for (int h = 0; h < HID / SA_D; ++h) {
@@ -371,19 +376,18 @@ extern "C" int unimm_probe_block(
                  HID};
   cudaError_t err = launch_gemm_nt(g, 3, e, st);
   if (err != cudaSuccess) return err;
-  const DropArgs nodrop{0u, 0u, 1.0f};
   switch (mode) {
     case PROBE_FULL:
-      err = launch_seq_attn<false, SOFT_EXACT>(q_buf, k_buf, v_buf, desc,
-                                               ctx_buf, B, L, nodrop, st);
+      err = launch_seq_attn<SOFT_EXACT>(q_buf, k_buf, v_buf, desc, ctx_buf,
+                                        B, L, st);
       break;
     case PROBE_NONE:
-      err = launch_seq_attn<false, SOFT_SCALE>(q_buf, k_buf, v_buf, desc,
-                                               ctx_buf, B, L, nodrop, st);
+      err = launch_seq_attn<SOFT_SCALE>(q_buf, k_buf, v_buf, desc, ctx_buf,
+                                        B, L, st);
       break;
     case PROBE_NOSHIFT:
-      err = launch_seq_attn<false, SOFT_NOSHIFT>(q_buf, k_buf, v_buf, desc,
-                                                 ctx_buf, B, L, nodrop, st);
+      err = launch_seq_attn<SOFT_NOSHIFT>(q_buf, k_buf, v_buf, desc,
+                                          ctx_buf, B, L, st);
       break;
     case PROBE_SKIP:
       ctx_buf = v_buf;
@@ -433,8 +437,7 @@ extern "C" int unimm_layout_probe_block(
                         static_cast<bf16*>(ctx_buf),
                         lay, lay, B, HID / SA_D, L, 1, 1.0f,
                         DropArgs{0u, 0u, 1.0f}};
-    err = launch_seq_attn_heads<false, SCALE_NONE, SOFT_EXACT, 2 * SA_D>(a,
-                                                                        st);
+    err = launch_seq_attn_heads<SOFT_EXACT, 2 * SA_D>(a, st);
     if (err != cudaSuccess) return err;
     return launch_out_ln(ctx_buf, x, wo, bo, gamma, beta, eps, out, M, W,
                          st);

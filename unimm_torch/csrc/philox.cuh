@@ -41,16 +41,4 @@ __device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
   return make_uint4(c0, c1, c2, c3);
 }
 
-// the draws of (row, col) and (row, col + 1) for an even col
-__device__ __forceinline__ uint2 drop_pair(const DropArgs& d, uint32_t tag,
-                                           int row, int col) {
-  const uint4 w = philox4x32_10((uint32_t)col >> 2, (uint32_t)row, 0u, 0u,
-                                d.seed, tag);
-  return (col & 2) ? make_uint2(w.z, w.w) : make_uint2(w.x, w.y);
-}
-
-__device__ __forceinline__ float drop_scale(const DropArgs& d, uint32_t u) {
-  return u < d.thresh ? d.inv_keep : 0.0f;
-}
-
 }  // namespace

@@ -1,33 +1,29 @@
-// The whole-sequence attention launch of the attention kernels' forward,
-// and the descriptor text mask: attention_block.cu (B4) and
-// attention_block_train.cu (B5's forward) on the [B, L, 768] projections
-// of a block; B6's forward and B9 run the one-pass seq_attn_fwd.cuh, and
-// the backward of B5 and B6 runs seq_attn_bwd.cuh, which take their
-// layout and arguments from here. A head is a [L, 64] bf16 tile read
+// The attention kernels' common ground (the head layout, the launch
+// arguments, the descriptor text mask, the mma.sync chunk steps) and the
+// first design of the whole-sequence attention, seq_attn_kernel, which
+// only the attention-block bench's probes B10 / B11 (block_probe.cu) still
+// launch: they attribute its time. The forward of B4, B5, B6 and B9 runs
+// the one-pass seq_attn_fwd.cuh, the backward of B5 and B6
+// seq_attn_bwd.cuh; both take their layout and arguments from here. A
+// head is a [L, 64] bf16 tile read
 // through element strides (SeqLayout: sequence, head, row; the 64 columns
 // are contiguous), so one kernel reads a block's projections (L 768, 64,
 // 768), a contiguous [B, H, L, 64] tensor (H L 64, L 64, 64) and the
 // head-split view of a [B, L, H 64] tensor (L H 64, 64, H 64) without a
 // copy.
 //
-// seq_attn_kernel<DROP, SCALE, SOFT, DH>: one CTA per (64-row query tile,
-// head, bb sequences walked in turn). The sequence's K and V for the head
-// (at most 256 x DH each) are staged in shared memory; a max/exp-sum pass
-// over 64-key chunks, then an exact softmax pass that multiplies by V,
-// scores in registers:
+// seq_attn_kernel<SOFT, DH>: one CTA per (64-row query tile, head, bb
+// sequences walked in turn). The sequence's K and V for the head (at most
+// 256 x DH each) are staged in shared memory; a max/exp-sum pass over
+// 64-key chunks, then an exact softmax pass that multiplies by V, scores
+// in registers (B4's function, as the probes run it):
 //
 //   s = q_h k_h^T (fp32) + bias(desc, i, j)        (0 or -10000)
-//       SCALE_NONE    q arrives scaled by 1 / sqrt(64) (B4, B5)
-//       SCALE_SCORES  s = (q_h k_h^T) * scale in fp32 (B6's first design)
-//       SCALE_Q       q_h = bf16(q_h * scale) as it is staged (B9's first
-//                     design; neither has a caller now, and the instances
-//                     left keep their SASS while these branches stay)
-//   p = softmax_fp32(s);  DROP: p *= Philox mask (0 or 1 / keep)
-//   ctx_h = bf16(bf16(p) v_h)
+//       q arrives scaled by 1 / sqrt(64) and rounded
+//   p = softmax_fp32(s);  ctx_h = bf16(bf16(p) v_h)
 //
-// SOFT and DH serve the attention-block bench's probes (block_probe.cu);
-// every other caller takes the defaults, SOFT_EXACT at heads of 64, whose
-// code they leave as it was:
+// SOFT and DH are the probes' variants; SOFT_EXACT at heads of 64 is B4's
+// function:
 //   SOFT_SCALE    p = s * 1e-4: no row statistic, one score pass; padding
 //                 keys weigh 0 (their -inf would make -inf * 0 = NaN)
 //   SOFT_NOSHIFT  p = exp(s - 20) / sum_j exp(s - 20): the exp-sum pass
@@ -37,7 +33,9 @@
 //
 // Rows past a sequence's extent are fully masked and, as in the TPU
 // kernels, take their softmax over all L keys at s - 10000: no key tile is
-// skipped. Padding keys past L (L % 64 == 32) are zero rows at -inf.
+// skipped, so every masked score pays its exp (the cost the one-pass
+// kernel removes). Padding keys past L (L % 64 == 32) are zero rows at
+// -inf.
 #pragma once
 
 #include "common.cuh"
@@ -62,6 +60,8 @@ namespace {
 
 constexpr int SA_QT = 64, SA_THREADS = 128, SA_KC = 64, SA_D = 64;
 constexpr int SA_LD = SA_D + 8;
+// q arrives scaled (the block kernels), or the one-pass kernel scales the
+// scores (B6) or q (B9)
 enum : int { SCALE_NONE = 0, SCALE_SCORES = 1, SCALE_Q = 2 };
 enum : int { SOFT_EXACT = 0, SOFT_SCALE = 1, SOFT_NOSHIFT = 2 };
 
@@ -83,7 +83,7 @@ struct SeqAttnArgs {
   SeqLayout in, out;  // q, k, v; ctx
   int B, H, L, bb;    // bb: sequences per CTA
   float scale;        // SCALE_SCORES / SCALE_Q
-  DropArgs drop;
+  DropArgs drop;      // the one-pass kernel's DROP
 };
 
 // key rows staged: L rounded up to the 64-key chunk, the tail zero-filled
@@ -144,20 +144,17 @@ struct RowMask {
   int ra, rb, gc, mode, L1, A, L;
 };
 
-// sc (of key chunk c) += the text-mask bias; keys past L take pad; under
-// SCALE_SCORES the scores are scaled first
-template <int SCALE>
+// sc (of key chunk c) += the text-mask bias; keys past L take pad
 __device__ __forceinline__ void mask_chunk(float (&sc)[8][4], int c,
-                                           const RowMask& r, float scale,
-                                           float pad) {
+                                           const RowMask& r, float pad) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = c * SA_KC + j * 8 + r.gc;
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
       const int cc = col + (t & 1), row = t < 2 ? r.ra : r.rb;
-      const float s = SCALE == SCALE_SCORES ? sc[j][t] * scale : sc[j][t];
-      sc[j][t] = cc < r.L ? s + text_bias(row, cc, r.mode, r.L1, r.A, r.L)
+      sc[j][t] = cc < r.L ? sc[j][t] + text_bias(row, cc, r.mode, r.L1,
+                                                 r.A, r.L)
                           : pad;
     }
   }
@@ -242,7 +239,7 @@ __device__ __forceinline__ void pv_chunk(const float (&p)[8][4],
   }
 }
 
-template <bool DROP, int SCALE, int SOFT = SOFT_EXACT, int DH = SA_D>
+template <int SOFT, int DH>
 __global__ void __launch_bounds__(SA_THREADS)
     seq_attn_kernel(const SeqAttnArgs a) {
   constexpr int LD = DH + 8, KD = DH / 16;
@@ -274,20 +271,12 @@ __global__ void __launch_bounds__(SA_THREADS)
     cp_commit();
     cp_wait<0>();
     __syncthreads();
-    if (SCALE == SCALE_Q) {  // q_s = bf16(q * scale), once per tile
-      for (int i = tid; i < SA_QT * DH; i += SA_THREADS) {
-        bf16* e = sQ + (i / DH) * LD + i % DH;
-        *e = __float2bfloat16(__bfloat162float(*e) * a.scale);
-      }
-      __syncthreads();
-    }
     // L % 32 == 0: a warp's 16 rows are all inside the sequence or all past
     // it; a warp past the end waits for the next sequence
     if (row0 + warp * 16 >= L) continue;
 
     const int mode = a.desc[3 * b], L1 = a.desc[3 * b + 1],
               A = a.desc[3 * b + 2];
-    const uint32_t tag = (uint32_t)(b * a.H + h);
     uint32_t qf[KD][4];
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd)
@@ -302,8 +291,7 @@ __global__ void __launch_bounds__(SA_THREADS)
       qk_chunk(qf, [&](int kd, int jj, uint32_t (&kf)[4]) {
         ldmatrix_x4(kf, kbuf + jj * 16 * LD + kd * 16);
       }, sc);
-      mask_chunk<SCALE>(sc, c, rm, a.scale,
-                        SOFT == SOFT_SCALE ? 0.f : -INFINITY);
+      mask_chunk(sc, c, rm, SOFT == SOFT_SCALE ? 0.f : -INFINITY);
     };
 
     // pass 1: running max and exp-sum of rows ra (index 0) and rb (1); the
@@ -317,8 +305,7 @@ __global__ void __launch_bounds__(SA_THREADS)
       }
     }
 
-    // pass 2: p = exp(s - max) / sum (times the dropout scale), rounded to
-    // bf16; ctx += p V
+    // pass 2: p = exp(s - max) / sum, rounded to bf16; ctx += p V
     float o[2 * KD][4];
 #pragma unroll
     for (int j = 0; j < 2 * KD; ++j)
@@ -328,18 +315,6 @@ __global__ void __launch_bounds__(SA_THREADS)
       float sc[8][4];
       scores(c, sc);
       chunk_probs<SOFT>(sc, m, l);
-      if (DROP) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = c * SA_KC + j * 8 + gc;
-          const uint2 ua = drop_pair(a.drop, tag, ra, col);
-          const uint2 ub = drop_pair(a.drop, tag, rb, col);
-          sc[j][0] *= drop_scale(a.drop, ua.x);
-          sc[j][1] *= drop_scale(a.drop, ua.y);
-          sc[j][2] *= drop_scale(a.drop, ub.x);
-          sc[j][3] *= drop_scale(a.drop, ub.y);
-        }
-      }
       const bf16* vbuf = sV + c * SA_KC * LD + vb_off;
       pv_chunk<KD>(sc, [&](int t, int jj, uint32_t (&vf)[4]) {
         ldmatrix_x4_trans(vf, vbuf + t * 16 * LD + jj * 16);
@@ -359,32 +334,32 @@ __global__ void __launch_bounds__(SA_THREADS)
   }
 }
 
-template <bool DROP, int SCALE, int SOFT = SOFT_EXACT, int DH = SA_D>
+template <int SOFT, int DH = SA_D>
 cudaError_t launch_seq_attn_heads(const SeqAttnArgs& a, cudaStream_t st) {
   const size_t smem = sa_smem_bytes(a.L, DH);
-  cudaFuncSetAttribute(seq_attn_kernel<DROP, SCALE, SOFT, DH>,
+  cudaFuncSetAttribute(seq_attn_kernel<SOFT, DH>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   dim3 grid((a.L + SA_QT - 1) / SA_QT, a.H, (a.B + a.bb - 1) / a.bb);
-  seq_attn_kernel<DROP, SCALE, SOFT, DH><<<grid, SA_THREADS, smem, st>>>(a);
+  seq_attn_kernel<SOFT, DH><<<grid, SA_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-// The block kernels' launch: [B, L, 768] q (pre-scaled), k, v and ctx;
-// each CTA walks bb sequences in turn.
-template <bool DROP, int SOFT = SOFT_EXACT>
+// The probes' launch on a block's [B, L, 768] q (pre-scaled), k, v and
+// ctx; each CTA walks bb sequences in turn.
+template <int SOFT>
 cudaError_t launch_seq_attn(const void* q, const void* k, const void* v,
                             const void* desc, void* ctx, int B, int L,
-                            const DropArgs& drop, cudaStream_t st,
-                            int bb = 1) {
+                            cudaStream_t st, int bb = 1) {
   const SeqLayout lay = block_layout(L);
   const SeqAttnArgs a{static_cast<const bf16*>(q),
                       static_cast<const bf16*>(k),
                       static_cast<const bf16*>(v),
                       static_cast<const int*>(desc),
                       static_cast<bf16*>(ctx),
-                      lay, lay, B, HID / SA_D, L, bb, 1.0f, drop};
-  return launch_seq_attn_heads<DROP, SCALE_NONE, SOFT>(a, st);
+                      lay, lay, B, HID / SA_D, L, bb, 1.0f,
+                      DropArgs{0u, 0u, 1.0f}};
+  return launch_seq_attn_heads<SOFT>(a, st);
 }
 
 }  // namespace

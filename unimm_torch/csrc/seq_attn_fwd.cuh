@@ -1,30 +1,42 @@
-// seq_attn_fwd_kernel<SCALE>: the one-pass forward of the per-head text
-// attention, launched by text_attention.cu (B6's forward, SCALE_SCORES)
-// and attention_v2.cu (B9, SCALE_Q). It replaces the TPU kernels
+// seq_attn_fwd_kernel<SCALE, DROP>: the one-pass forward of the attention
+// kernels, launched by text_attention.cu (B6's forward, SCALE_SCORES),
+// attention_v2.cu (B9, SCALE_Q), attention_block.cu (B4, SCALE_NONE) and
+// attention_block_train.cu (B5's forward, SCALE_NONE, DROP under attention
+// dropout). It replaces the attention of the TPU kernels
 // unimm_tpu/ops/pallas_attention.py:_fwd_kernel (fused_text_attention's
-// forward) and unimm_tpu/ops/pallas_attention_v2.py:_v2_kernel
-// (attention_v2), whose function it computes: for q, k, v [B, H, L, 64]
-// bf16 heads read through seq_attn.cuh's SeqLayout strides (32 <= L <=
-// 256, L % 32 == 0) and desc [B, 3] int32,
+// forward), unimm_tpu/ops/pallas_attention_v2.py:_v2_kernel
+// (attention_v2), _block_kernel (fused_attention_block) and
+// _train_fwd_kernel (fused_attention_block_train's forward), whose function
+// it computes: for q, k, v [B, H, L, 64] bf16 heads read through
+// seq_attn.cuh's SeqLayout strides (32 <= L <= 256, L % 32 == 0; the block
+// kernels pass the heads of their [B, L, 768] projections, block_layout)
+// and desc [B, 3] int32,
 //
-//   s = q k^T (fp32) * scale (SCALE_SCORES), or bf16(q scale) k^T (SCALE_Q)
-//   o = bf16(softmax_fp32(s + bias(desc)) v), each p rounded to bf16
+//   s = q k^T (fp32) * scale (SCALE_SCORES), bf16(q scale) k^T (SCALE_Q),
+//       or q k^T with q already bf16(q / 8) (SCALE_NONE, the block kernels)
+//   p = softmax_fp32(s + bias(desc));  DROP: p *= Philox mask (0 or 1 / keep)
+//   o = bf16(bf16(p) v)
 //
 // The rounding point of p: an online softmax with deferred normalisation.
-// Key chunk c of a row gives p~ = bf16(exp2((s - m_c) log2(e))), m_c the
-// row's running max through chunk c; o sums p~ v in fp32, rescaled by
-// exp2((m_old - m_new) log2(e)) as the max grows, and is divided once by
-// l, the fp32 sum of the unrounded p~ (rescaled alike), before it rounds
-// to bf16. The twins and the TPU kernels round the normalised p instead.
-// Either way each term carries one bf16 rounding of its probability
-// (2^-9 relative), so the card checks' bound on the twins (TA_REL,
-// chip_smoke.py) holds as it did. A row that attends no key (rows past a
+// Key chunk c of a row gives p~ = exp2((s - m_c) log2(e)), m_c the row's
+// running max through chunk c; o sums bf16(p~) v (DROP: bf16(p~ keep
+// scale) v) in fp32, rescaled by exp2((m_old - m_new) log2(e)) as the max
+// grows, and is divided once by l, the fp32 sum of the unrounded and
+// undropped p~ (rescaled alike), before it rounds to bf16. A dropped
+// probability stays in l: the plain twin drops after the softmax, so
+// dropout does not renormalise the row. The twins and the TPU kernels
+// round the normalised p instead. Either way each term carries one bf16
+// rounding of its probability (2^-9 relative), so the card checks' bounds
+// on the twins (TA_REL, B5_CTX_REL and the block kernels' y bound,
+// chip_smoke.py) hold as they did. A row that attends no key (rows past a
 // sequence's extent, dis rows at or past ctx_end) takes its softmax over
 // all L keys at s - 10000, which is softmax(s) over them: the kernel drops
 // the constant (the twins' fp32 sums at 10000 carry s to 2^-10; the
-// kernel does not). Padding keys past L (L % 64 == 32) weigh 0.
-// seq_attn_kernel (seq_attn.cuh), the first design, stays for B4, B5's
-// forward and the bench probes B10 / B11.
+// kernel does not). Padding keys past L (L % 64 == 32) weigh 0. The
+// dropout draws are the backward's (philox.cuh: key (seed, b H + h),
+// counter (column / 4, row)); a skipped chunk draws nothing, exactly, as
+// its probabilities are 0. seq_attn_kernel (seq_attn.cuh), the first
+// design, stays for the bench probes B10 / B11, which attribute it.
 //
 // What bounds it on an H100: device memory. q, k, v read and o written,
 // 4 B H L 64 x 2 bytes (805 MB for B9 at [512, 12, 256, 64], 0.240 ms at
@@ -66,6 +78,15 @@
 //    fragment layout of seq_attn.cuh. Both rows are bound by bytes, and
 //    mma.sync lets each warp skip chunks for its own 16 rows, where
 //    wgmma's 64-row tiles would skip per warpgroup.
+// 6. Dropout (DROP) in the loop: a live chunk's draws are made before its
+//    scores, while their 32 registers are free, and kept as one word of
+//    keep bits (a thread's 32 scores of the chunk), which the P.V operand
+//    reads; l has summed the undropped p~ by then. The lane pair gc,
+//    gc ^ 2 (lanes l, l ^ 1) shares one Philox block per row (counter
+//    (col / 4, row) covers both lanes' columns): one lane computes row
+//    ra's block, the other row rb's, and each hands its partner the half
+//    it needs by one shuffle, so a thread runs one Philox4x32-10 for
+//    every 4 of its scores, half of what drawing its own would cost.
 #pragma once
 
 #include "seq_attn.cuh"
@@ -176,6 +197,27 @@ __device__ __forceinline__ RowSpan row_span(int i, int mode, int L1, int A,
   return RowSpan{lo, hi, diag};
 }
 
+// The keep bits of this thread's rows ra and rb at columns col and col + 1
+// (col even), in the order of an mma accumulator's four entries: bit 0
+// (ra, col), 1 (ra, col + 1), 2 (rb, col), 3 (rb, col + 1). The lanes gc
+// and gc ^ 2 (lane ^ 1) need the two halves of the same two Philox blocks
+// (rows ra, rb; counter col / 4): the lane with col & 2 == 0 computes
+// ra's, its partner rb's, and each passes the other the half it needs.
+__device__ __forceinline__ uint32_t drop_rows(const DropArgs& d,
+                                              uint32_t tag, int ra, int rb,
+                                              int col) {
+  const bool hi = col & 2;
+  const uint4 w = philox4x32_10((uint32_t)col >> 2, (uint32_t)(hi ? rb : ra),
+                                0u, 0u, d.seed, tag);
+  const uint32_t own0 = hi ? w.z : w.x, own1 = hi ? w.w : w.y;
+  const uint32_t got0 = __shfl_xor_sync(0xffffffffu, hi ? w.x : w.z, 1);
+  const uint32_t got1 = __shfl_xor_sync(0xffffffffu, hi ? w.y : w.w, 1);
+  return (uint32_t)((hi ? got0 : own0) < d.thresh) |
+         (uint32_t)((hi ? got1 : own1) < d.thresh) << 1 |
+         (uint32_t)((hi ? own0 : got0) < d.thresh) << 2 |
+         (uint32_t)((hi ? own1 : got1) < d.thresh) << 3;
+}
+
 // whether the row attends a key of [k0, k1)
 __device__ __forceinline__ bool span_hits(const RowSpan& s, int k0, int k1) {
   return max(s.lo, k0) < min(s.hi, k1) || (s.diag >= k0 && s.diag < k1);
@@ -185,11 +227,12 @@ __device__ __forceinline__ bool span_open(const RowSpan& s, int j) {
   return (unsigned)(j - s.lo) < (unsigned)(s.hi - s.lo) || j == s.diag;
 }
 
-template <int SCALE>
+template <int SCALE, bool DROP>
 __global__ void __launch_bounds__(SF_THREADS, 3)
     seq_attn_fwd_kernel(const SeqAttnArgs a) {
-  static_assert(SCALE == SCALE_SCORES || SCALE == SCALE_Q,
-                "the per-head kernels scale the scores or q");
+  static_assert(SCALE == SCALE_NONE || SCALE == SCALE_SCORES ||
+                    SCALE == SCALE_Q,
+                "q arrives scaled, or the kernel scales the scores or q");
   extern __shared__ __align__(128) unsigned char smem[];
   const int L = a.L, NKP = sa_keys(L), nch = NKP / SF_KC, sl = a.in.sl;
   const uint32_t sK = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -245,6 +288,7 @@ __global__ void __launch_bounds__(SF_THREADS, 3)
     if (active) {
       const int mode = a.desc[3 * b], L1 = a.desc[3 * b + 1],
                 A = a.desc[3 * b + 2];
+      const uint32_t tag = (uint32_t)(b * a.H + h);  // Philox key word 1
       // live: a row of the warp attends a key of the chunk; full: every
       // row attends every key of it (no mask). Lane l votes for the warp's
       // row l % 16.
@@ -274,6 +318,15 @@ __global__ void __launch_bounds__(SF_THREADS, 3)
 #pragma unroll
       for (int c = 0; c < SF_MAXC; ++c) {
         if (!(live >> c & 1)) continue;
+        // DROP: the chunk's keep bits, bit 4 j + t for sc[j][t], drawn
+        // before its scores take their 32 registers
+        uint32_t keep = 0;
+        if (DROP) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            keep |= drop_rows(a.drop, tag, ra, rb, c * SF_KC + j * 8 + gc)
+                    << (4 * j);
+        }
         float sc[8][4];
 #pragma unroll
         for (int kd = 0; kd < SA_D / 16; ++kd)
@@ -324,9 +377,17 @@ __global__ void __launch_bounds__(SF_THREADS, 3)
             sc[j][t] = ex2(fmaf(sc[j][t], c2, -ms[t >> 1]));
             l[t >> 1] += sc[j][t];
           }
-        // o += bf16(p) V over the chunk's keys
+        // o += bf16(p~, times the dropout scale under DROP) V over the
+        // chunk's keys
 #pragma unroll
         for (int t = 0; t < 4; ++t) {  // keys 16 t .. 16 t + 15
+          if (DROP) {
+#pragma unroll
+            for (int j = 2 * t; j < 2 * t + 2; ++j)
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                sc[j][u] *= (keep >> (4 * j + u) & 1) ? a.drop.inv_keep : 0.f;
+          }
           uint32_t pa[4];
           pa[0] = pack_bf16(sc[2 * t][0], sc[2 * t][1]);
           pa[1] = pack_bf16(sc[2 * t][2], sc[2 * t][3]);
@@ -369,36 +430,55 @@ __global__ void __launch_bounds__(SF_THREADS, 3)
   }
 }
 
-template <int SCALE>
+template <int SCALE, bool DROP>
 void sf_configure(int smem) {
-  cudaFuncSetAttribute(seq_attn_fwd_kernel<SCALE>,
+  cudaFuncSetAttribute(seq_attn_fwd_kernel<SCALE, DROP>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncSetAttribute(seq_attn_fwd_kernel<SCALE>,
+  cudaFuncSetAttribute(seq_attn_fwd_kernel<SCALE, DROP>,
                        cudaFuncAttributePreferredSharedMemoryCarveout,
                        cudaSharedmemCarveoutMaxShared);
 }
 
-template <int SCALE>
+template <int SCALE, bool DROP>
 cudaError_t launch_seq_attn_fwd(const SeqAttnArgs& a, cudaStream_t st) {
   const int smem = sf_smem_bytes(a.L);
-  sf_configure<SCALE>(smem);
+  sf_configure<SCALE, DROP>(smem);
   dim3 grid((a.L + SF_ROWS - 1) / SF_ROWS, a.H, (a.B + a.bb - 1) / a.bb);
-  seq_attn_fwd_kernel<SCALE><<<grid, SF_THREADS, smem, st>>>(a);
+  seq_attn_fwd_kernel<SCALE, DROP><<<grid, SF_THREADS, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// The block kernels' launch (B4, B5's forward): the 12 heads of [B, L, 768]
+// q (already bf16(q / 8)), k, v and ctx; each CTA walks bb sequences in
+// turn.
+template <bool DROP>
+cudaError_t launch_block_attn_fwd(const void* q, const void* k,
+                                  const void* v, const void* desc, void* ctx,
+                                  int B, int L, const DropArgs& drop,
+                                  cudaStream_t st, int bb = 1) {
+  const SeqLayout lay = block_layout(L);
+  const SeqAttnArgs a{static_cast<const bf16*>(q),
+                      static_cast<const bf16*>(k),
+                      static_cast<const bf16*>(v),
+                      static_cast<const int*>(desc),
+                      static_cast<bf16*>(ctx),
+                      lay, lay, B, HID / SA_D, L, bb, 1.0f, drop};
+  return launch_seq_attn_fwd<SCALE_NONE, DROP>(a, st);
 }
 
 // out: registers a thread, local memory bytes a thread (stack and
 // spills), dynamic shared memory bytes a CTA at length L, CTAs an SM
-template <int SCALE>
+template <int SCALE, bool DROP>
 cudaError_t seq_attn_fwd_info(int L, int* out) {
   cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, seq_attn_fwd_kernel<SCALE>);
+  cudaError_t e =
+      cudaFuncGetAttributes(&fa, seq_attn_fwd_kernel<SCALE, DROP>);
   if (e != cudaSuccess) return e;
   const int smem = sf_smem_bytes(L);
-  sf_configure<SCALE>(smem);
+  sf_configure<SCALE, DROP>(smem);
   int ctas = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &ctas, seq_attn_fwd_kernel<SCALE>, SF_THREADS, smem);
+      &ctas, seq_attn_fwd_kernel<SCALE, DROP>, SF_THREADS, smem);
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
   out[2] = smem;

@@ -9,7 +9,7 @@
 // which the wrapper passes without a copy), desc [B, 3] int32 and
 // scale = 1 / sqrt(64):
 //
-// forward (unimm_text_attention_fwd): seq_attn_fwd_kernel<SCALE_SCORES>
+// forward (unimm_text_attention_fwd): seq_attn_fwd_kernel<SCALE_SCORES, false>
 //   (seq_attn_fwd.cuh: one score pass in registers, closed key chunks
 //   skipped), one CTA per (64-row query tile, head, sequence):
 //     s = (q k^T) * scale (fp32) + bias(desc);  p = softmax_fp32(s)
@@ -54,14 +54,14 @@ extern "C" int unimm_text_attention_fwd(const void* q, const void* k,
                       static_cast<const int*>(desc),
                       static_cast<bf16*>(out),
                       lay, lay, B, H, L, 1, scale, DropArgs{0u, 0u, 1.0f}};
-  return launch_seq_attn_fwd<SCALE_SCORES>(a,
-                                           static_cast<cudaStream_t>(stream));
+  return launch_seq_attn_fwd<SCALE_SCORES, false>(
+      a, static_cast<cudaStream_t>(stream));
 }
 
 // the forward kernel's registers, local bytes, shared memory and CTAs an
 // SM at length L (seq_attn_fwd_info); out: int32[4]
 extern "C" int unimm_text_attention_fwd_info(int L, void* out) {
-  return seq_attn_fwd_info<SCALE_SCORES>(L, static_cast<int*>(out));
+  return seq_attn_fwd_info<SCALE_SCORES, false>(L, static_cast<int*>(out));
 }
 
 extern "C" int unimm_text_attention_bwd(const void* q, const void* k,

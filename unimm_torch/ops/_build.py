@@ -59,6 +59,9 @@ _SIGNATURES = {
     # L; out int32[4]
     "unimm_text_attention_fwd_info": [_INT, _VP],
     "unimm_attention_v2_info": [_INT, _VP],
+    "unimm_attention_block_info": [_INT, _VP],
+    # L, drop; out
+    "unimm_attention_block_train_fwd_info": [_INT, _INT, _VP],
     # L; kernel (0 the dq launch, 1 the dk / dv launch), drop, split; out
     "unimm_seq_attn_bwd_info": [_INT] * 4 + [_VP],
     # x, desc, ten weights, q, k, v, ctx, out; B, L, mode / layout; eps

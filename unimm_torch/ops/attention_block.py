@@ -7,12 +7,18 @@ in-kernel mask, ``unimm_tpu/ops/pallas_attention.py:_mask_bias``): QKV
 projection, the dis/gen text mask from the ``(mode, ctx_end, ans_len)``
 descriptor, fp32 softmax, PV, head merge, output projection, residual,
 LayerNorm. On a CUDA tensor it launches the hand-written kernel in
-``csrc/attention_block.cu`` (three launches: Q/K/V projection, attention
-per (query tile, head, sequence) with the mask computed in the kernel,
+``csrc/attention_block.cu`` (three launches: Q/K/V projection; the
+one-pass attention of ``csrc/seq_attn_fwd.cuh`` per (query tile, head,
+sequence), with the mask computed in the kernel from each row's open-key
+interval and the 64-key chunks a warp's rows all leave closed skipped;
 output projection + LayerNorm); on a CPU tensor it runs
 ``attention_block_plain``, which repeats the kernel's arithmetic and
 rounding points in plain PyTorch over the ``[B, L, L]`` bias of
-``masks.mask_bias``.
+``masks.mask_bias``, but for one: it rounds the normalised probabilities
+where the kernel rounds each unnormalised one and divides by the row sum
+once (one bf16 rounding of each term either way; the card check's bound
+covers it, and tests/test_torch_block_onepass.py emulates the kernel's
+order in fp32).
 """
 
 from __future__ import annotations
@@ -137,3 +143,10 @@ def attention_block(x, desc, p_attn, *, num_heads, eps=1e-12, block_b=1):
 
 
 attention_block.launches = 0
+
+
+def kernel_info(L=MAX_LEN):
+    """The attention launch's registers, local bytes, shared memory and
+    CTAs an SM at length L (``text_attention.fwd_kernel_info``'s
+    fields)."""
+    return _build.kernel_info("unimm_attention_block_info", L)

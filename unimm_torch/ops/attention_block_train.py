@@ -10,8 +10,11 @@ step, with attention-probability dropout made in the kernel.
 * forward (``attention_block_train_fwd``): x -> (y, ctx). QKV projection,
   the descriptor text mask, fp32 softmax, the Philox probability mask
   (ops/philox.py), PV, then (ctx Wo^T + bo) * m_o + x and the LayerNorm.
-  The merged context ctx is saved, so the backward's LN / Wo side needs
-  no attention recompute.
+  The attention is B4's one-pass kernel (``csrc/seq_attn_fwd.cuh``) with
+  the dropout drawn inside its loop: the row sum it divides by is that of
+  the undropped probabilities, as in the twin, which drops after the
+  softmax. The merged context ctx is saved, so the backward's LN / Wo side
+  needs no attention recompute.
 * backward, LN / Wo side: plain PyTorch, as ``_fabt_bwd`` does it in plain
   XLA: recompute the LayerNorm input from ctx, take the LN backward, then
   dctx, dWo, dbo, dgamma, dbeta.
@@ -27,7 +30,9 @@ of 64, 32 <= L <= 256 with L % 32 == 0) or raise; on CPU tensors they run
 the plain twins below, which round at the kernels' points: projections
 round to x.dtype after the bias, q after its 1/8 scale, the (dropped)
 probabilities, P, Pd and dS where they enter a product, each head's
-context, dq / dk / dv and dx_qkv; every product accumulates in fp32.
+context, dq / dk / dv and dx_qkv; every product accumulates in fp32. The
+forward kernel rounds each dropped probability before the softmax's
+division, the twin after it: one rounding of each term either way.
 """
 
 from __future__ import annotations
@@ -195,6 +200,15 @@ def attention_block_train_bwd(x, dctx, desc, seed, wq, bq, wk, bk, wv, bv, *,
 
 attention_block_train_fwd.launches = 0
 attention_block_train_bwd.launches = 0
+
+
+def fwd_kernel_info(L=256):
+    """The forward's attention launch at attention dropout 0 and above
+    (the instances without and with the Philox draws): {"drop 0": ...,
+    "drop": ...}, ``text_attention.fwd_kernel_info``'s fields each."""
+    return {name: _build.kernel_info("unimm_attention_block_train_fwd_info",
+                                     L, drop)
+            for drop, name in ((0, "drop 0"), (1, "drop"))}
 
 
 def bwd_kernel_info(L=256):

@@ -1,19 +1,26 @@
-"""Times of the attention backward on a CUDA card: B6's wrapper
-(``text_attention_bwd``) at [240, 12, 256, 64] and B5's
-(``attention_block_train_bwd``) at [240, 256, 768], attention dropout 0.1,
-both on the training batch's descriptors; or B 240 training steps.
+"""Times of the attention kernels' wrappers on a CUDA card, for A/Bs of
+two trees: the attention backward, B6's wrapper (``text_attention_bwd``)
+at [240, 12, 256, 64] and B5's (``attention_block_train_bwd``) at [240,
+256, 768], attention dropout 0.1, both on the training batch's
+descriptors; or the block kernels' forward (``--forward``): B4
+(``attention_block``) at [256, 192 / 256, 768] on the flat path's dis
+descriptors and B5's forward (``attention_block_train_fwd``) at [240, 256,
+768] on the training descriptors, attention dropout 0.1 and 0; or B 240
+training steps.
 
     python3 -m unimm_torch.tools.bench_bwd [--label NAME] [--csrc DIR
-        --build DIR] [--train-step {pallas_block,pallas} [--steps 8]]
+        --build DIR] [--forward | --train-step {pallas_block,pallas}
+        [--remat] [--steps 8]]
 
-Default: one JSON line with each wrapper's device time per call (CUDA
-events, median of 5 runs of 20 calls), its host time per call (the loop
-that enqueues 20 calls, the card busy behind it), the mean device time of
-every kernel it launched (``torch.profiler``), each output's largest
-error against its plain twin relative to the twin's largest entry, and
-whether two runs give the same bits. ``--train-step``: ms per step of ``--steps`` B 240
-training steps with the fused AdamW after 2 warm-up steps, as chip_smoke.py
-phase 9 times them ("pallas" at attention dropout 0). ``--csrc`` builds
+Default and ``--forward``: one JSON line with each wrapper's device time
+per call (CUDA events, median of 5 runs of 20 calls), its host time per
+call (the loop that enqueues 20 calls, the card busy behind it), the mean
+device time of every kernel it launched (``torch.profiler``), each
+output's largest error against its plain twin relative to the twin's
+largest entry, and whether two runs give the same bits. ``--train-step``:
+ms per step of ``--steps`` B 240 training steps with the fused AdamW after
+2 warm-up steps, as chip_smoke.py phase 9 times them ("pallas" at
+attention dropout 0; ``--remat`` with encoder remat). ``--csrc`` builds
 and loads the kernels of another csrc directory into ``--build`` (a copy
 with a design change, say). To compare two commits on one card, run this
 file from each tree's root with ``PYTHONPATH`` set to that root, in turns;
@@ -82,41 +89,36 @@ def _sub_kernels(fn, iters=5):
     return out
 
 
+def dis_desc(B, L, g):
+    """The flat path's dis descriptors of bucket L: real lengths in
+    (L - 32, L]."""
+    n = torch.randint(max(1, L - 31), L + 1, (B,), generator=g,
+                      device=g.device)
+    z = torch.zeros_like(n)
+    return torch.stack([z, n, z], -1).to(torch.int32)
+
+
 def _rel(got, want):
     """each output's max |got - want| / max |want|"""
     return [float((a.float() - b.float()).abs().max()
                   / b.float().abs().max()) for a, b in zip(got, want)]
 
 
-def backward_times(dev, B=240, L=256):
+def _wide_attention(dev, g):
+    """A bf16 attention module with every weight at std 0.05 (the card
+    checks' WIDE_STD): O(1) scores."""
     from unimm_torch.models import vilbert
-    from unimm_torch.ops import attention_block_train as abt
-    from unimm_torch.ops import text_attention as ta
-    from unimm_torch.ops.answer_block import _weights
-
-    g = torch.Generator(device=dev).manual_seed(0)
-    # the head-split views of [B, L, 768] tensors, as the model gives them
-    q, k, v, do = (torch.randn(B, L, 768, generator=g, device=dev).bfloat16()
-                   .view(B, L, 12, 64).transpose(1, 2) for _ in range(4))
-    desc = train_desc(B, L, g)
     with torch.device(dev):
         attn = vilbert._attention(768)
     with torch.no_grad():
         for p in attn.parameters():
             p.normal_(0.0, 0.05, generator=g)
-    ws = _weights(attn.to(torch.bfloat16))
-    x = torch.randn(B, L, 768, generator=g, device=dev).bfloat16()
-    dctx = torch.randn(B, L, 768, generator=g, device=dev).bfloat16()
-    kw = dict(num_heads=12, attn_drop=0.1)
-    runs = {
-        "text_attention_bwd": (
-            lambda: ta.text_attention_bwd(q, k, v, desc, do),
-            lambda: ta.text_attention_bwd_plain(q, k, v, desc, do)),
-        "attention_block_train_bwd": (
-            lambda: abt.attention_block_train_bwd(x, dctx, desc, 1234,
-                                                  *ws[:6], **kw),
-            lambda: abt.attention_block_train_bwd_plain(x, dctx, desc, 1234,
-                                                        *ws[:6], **kw))}
+    return attn.to(torch.bfloat16)
+
+
+def _time_runs(runs):
+    """{name: (kernel call, plain call)} -> each kernel's times, errors
+    against the plain twin and whether two runs give the same bits."""
     out = {}
     for name, (kern, plain) in runs.items():
         same = all(torch.equal(a, b) for a, b in zip(kern(), kern()))
@@ -126,7 +128,64 @@ def backward_times(dev, B=240, L=256):
     return out
 
 
-def step_times(dev, impl, steps):
+def backward_times(dev, B=240, L=256):
+    from unimm_torch.ops import attention_block_train as abt
+    from unimm_torch.ops import text_attention as ta
+    from unimm_torch.ops.answer_block import _weights
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    # the head-split views of [B, L, 768] tensors, as the model gives them
+    q, k, v, do = (torch.randn(B, L, 768, generator=g, device=dev).bfloat16()
+                   .view(B, L, 12, 64).transpose(1, 2) for _ in range(4))
+    desc = train_desc(B, L, g)
+    ws = _weights(_wide_attention(dev, g))
+    x = torch.randn(B, L, 768, generator=g, device=dev).bfloat16()
+    dctx = torch.randn(B, L, 768, generator=g, device=dev).bfloat16()
+    kw = dict(num_heads=12, attn_drop=0.1)
+    return _time_runs({
+        "text_attention_bwd": (
+            lambda: ta.text_attention_bwd(q, k, v, desc, do),
+            lambda: ta.text_attention_bwd_plain(q, k, v, desc, do)),
+        "attention_block_train_bwd": (
+            lambda: abt.attention_block_train_bwd(x, dctx, desc, 1234,
+                                                  *ws[:6], **kw),
+            lambda: abt.attention_block_train_bwd_plain(x, dctx, desc, 1234,
+                                                        *ws[:6], **kw))})
+
+
+def forward_times(dev):
+    from unimm_torch.ops import attention_block as ab
+    from unimm_torch.ops import attention_block_train as abt
+    from unimm_torch.ops.answer_block import _weights
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    attn = _wide_attention(dev, g)
+    ws = _weights(attn)
+    runs = {}
+    for L in (192, 256):
+        x = torch.randn(256, L, 768, generator=g, device=dev).bfloat16()
+        desc = dis_desc(256, L, g)
+        runs[f"attention_block [256, {L}, 768] dis"] = (
+            lambda x=x, d=desc: (ab.attention_block(x, d, attn,
+                                                    num_heads=12),),
+            lambda x=x, d=desc: (ab.attention_block_plain(x, d, attn,
+                                                          num_heads=12),))
+    B, L = 240, 256
+    x = torch.randn(B, L, 768, generator=g, device=dev).bfloat16()
+    desc = train_desc(B, L, g)
+    m_o = (torch.rand(B, L, 768, generator=g, device=dev) >= 0.1).float()
+    m_o /= 0.9
+    for drop in (0.1, 0.0):
+        kw = dict(num_heads=12, attn_drop=drop)
+        runs[f"attention_block_train_fwd [{B}, {L}, 768] drop {drop}"] = (
+            lambda kw=kw: abt.attention_block_train_fwd(x, desc, 1234, m_o,
+                                                        *ws, **kw),
+            lambda kw=kw: abt.attention_block_train_fwd_plain(
+                x, desc, 1234, m_o, *ws, **kw))
+    return _time_runs(runs)
+
+
+def step_times(dev, impl, steps, remat=False):
     import numpy as np
 
     from unimm_torch import workload
@@ -135,7 +194,7 @@ def step_times(dev, impl, steps):
     from unimm_torch.train import optim
     from unimm_torch.train import step as tstep
 
-    cfg = VilbertConfig(attention_impl=impl)
+    cfg = VilbertConfig(attention_impl=impl, remat=remat)
     if impl == "pallas":
         cfg = cfg.replace(attention_probs_dropout_prob=0.0)
     lang = optim.load_language_weights(Path("config/language_weights.json"))
@@ -156,7 +215,7 @@ def step_times(dev, impl, steps):
         for i in range(steps):
             step(state, batches[i % 2])
         torch.cuda.synchronize()
-    return dict(impl=impl, steps=steps,
+    return dict(impl=impl, remat=remat, steps=steps,
                 ms_per_step=(time.perf_counter() - t0) / steps * 1e3)
 
 
@@ -167,6 +226,8 @@ def main(argv=None):
     ap.add_argument("--build", type=Path, default=None)
     ap.add_argument("--train-step", default=None,
                     choices=("pallas_block", "pallas"))
+    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--forward", action="store_true")
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -180,7 +241,9 @@ def main(argv=None):
     _build.library()
     dev = torch.device("cuda", 0)
     if args.train_step:
-        res = step_times(dev, args.train_step, args.steps)
+        res = step_times(dev, args.train_step, args.steps, args.remat)
+    elif args.forward:
+        res = forward_times(dev)
     else:
         res = backward_times(dev)
     print(json.dumps({"label": args.label, **res}), flush=True)

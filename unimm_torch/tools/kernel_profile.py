@@ -2,7 +2,7 @@
 
     python3 -m unimm_torch.tools.kernel_profile [--iters 5]
     python3 -m unimm_torch.tools.kernel_profile --main-path
-    python3 -m unimm_torch.tools.kernel_profile --dis-path
+    python3 -m unimm_torch.tools.kernel_profile --dis-path [--steady]
     python3 -m unimm_torch.tools.kernel_profile --train-step
         [--attention-impl {pallas_block,pallas,xla}] [--remat]
 
@@ -20,14 +20,17 @@ discriminative ``evaluate_split(mode="nsp")`` over 2 coalesced pinned
 ``make_dis_batch`` batches (one group of 16 chunks); ``--train-step``: one
 warm training step (``train/step.make_train_step``, fused AdamW) at the
 default config on a 240-sequence ``make_train_batch``.
+``--steady`` adds to ``--dis-path`` the steady dialogs/s of 4 pinned
+batches by chip_smoke.py's protocol (``steady_throughput``, 5 passes).
 ``--attention-impl`` sets the text stream's attention path of
 ``--dis-path`` and ``--train-step`` (default "pallas_block"; "pallas" trains
 at attention dropout 0, where its kernel runs); ``--remat`` turns on
 encoder remat for ``--train-step``. Each reports its wall
 time, the summed device time of all kernels, the device idle share (1 -
 device / wall; one stream, so kernels do not overlap), the kernels that
-took the most device time, and the PyTorch operators whose kernels took
-the most (inclusive). All end with the card's name and power limit.
+took the most device time, every attention kernel (``*_attn_*``: which
+attention design ran), and the PyTorch operators whose kernels took the
+most (inclusive). All end with the card's name and power limit.
 """
 
 import argparse
@@ -55,7 +58,38 @@ def _kernel_times(fn, iters):
     return out
 
 
-def main_path(dev, dis=False, impl="pallas_block"):
+def steady_throughput(dev, model, cfg, batches, need_lm, repeats=3):
+    """dialogs/s by the bench protocol (bench.py, scripts/bench_dis.py):
+    one persistent evaluator, the batches coalesced in pairs, each pair
+    staged and launched before the previous one is fetched; the median of
+    ``repeats`` passes after a warm-up pass. Unlike one evaluate_split
+    call, it leaves out the per-call set-up (the compute-dtype copy of the
+    model)."""
+    import time
+
+    from unimm_torch.eval.evaluator import RankingEvaluator, _merge_batches
+    ev = RankingEvaluator(cfg, need_lm=need_lm, need_nsp=not need_lm,
+                          dtype=torch.bfloat16, device=dev)
+    pairs = [_merge_batches(batches[i:i + 2])
+             for i in range(0, len(batches), 2)]
+    for p in pairs:
+        ev.score_slates(model, p)
+    dialogs = sum(b["tokens"].shape[0] for b in batches)
+    rates = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = ev.score_slates_async(model, pairs[0])
+        for p in pairs[1:]:
+            nxt = ev.score_slates_async(model, p)
+            pending()
+            pending = nxt
+        pending()
+        rates.append(dialogs / (time.perf_counter() - t0))
+    return sorted(rates)[len(rates) // 2], rates
+
+
+def main_path(dev, dis=False, impl="pallas_block", steady=False):
     import numpy as np
 
     from unimm_torch import workload
@@ -68,19 +102,25 @@ def main_path(dev, dis=False, impl="pallas_block"):
     rng = np.random.default_rng(0)
     if dis:
         batches = [workload.make_dis_batch(rng, cfg, 2, 10, 100)
-                   for _ in range(2)]
+                   for _ in range(4 if steady else 2)]
     else:
         batches = [workload.with_ranking_targets(
             workload.make_val_batch(rng, cfg, 2, 10, 100), rng)
             for _ in range(2)]
 
     def run():
-        evaluate_split(model, cfg, batches, mode="nsp" if dis else "ll_sum",
-                       progress_every=0, device=dev)
+        evaluate_split(model, cfg, batches[:2],
+                       mode="nsp" if dis else "ll_sum", progress_every=0,
+                       device=dev)
         torch.cuda.synchronize()
 
     run()
     _profile(run, f"dis {impl}" if dis else "gen")
+    if steady:
+        rate, rates = steady_throughput(dev, model, cfg, batches,
+                                        need_lm=False, repeats=5)
+        print(json.dumps({"path": f"dis {impl}", "steady_dialogs_per_s":
+                          rate, "passes": rates}), flush=True)
 
 
 def train_step(dev, impl="pallas_block", remat=False):
@@ -150,6 +190,9 @@ def _profile(run, label):
                       "device_idle_share": 1 - busy / (wall * 1e3),
                       "top_kernels": [{"ms": r[0], "launches": r[1],
                                        "name": r[2]} for r in rows[:25]],
+                      "attention_kernels": [
+                          {"ms": r[0], "launches": r[1], "name": r[2]}
+                          for r in rows if "_attn_" in r[2]],
                       "top_torch_ops": [{"ms": r[0], "calls": r[1],
                                          "op": r[2]} for r in ops[:25]]}),
           flush=True)
@@ -164,6 +207,7 @@ def main():
     ap.add_argument("--attention-impl", default="pallas_block",
                     choices=("pallas_block", "pallas", "xla"))
     ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--steady", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_profile: needs a CUDA device")
@@ -175,7 +219,7 @@ def main():
     if args.main_path or args.dis_path:
         main_path(torch.device("cuda", 0), dis=args.dis_path,
                   impl=args.attention_impl if args.dis_path
-                  else "pallas_block")
+                  else "pallas_block", steady=args.steady and args.dis_path)
         print(card)
         return
     if args.train_step:

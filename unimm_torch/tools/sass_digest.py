@@ -11,13 +11,16 @@ Without ``--csrc`` it reads the objects ``ops/_build`` keeps beside the
 library (building it first if needed); with ``--csrc DIR`` it compiles that
 tree's ``*.cu`` (another commit's sources, say) with the same nvcc flags
 into a temporary directory. Every instance of ``seq_attn_kernel`` (the
-first design of the per-head attention, kept for B4, B5, B10 and B11) and
-of ``seq_attn_fwd_kernel`` (B6's forward, B9) is keyed by its source file
-and demangled name and hashed over its
+first design of the attention forward, kept for the probes B10 and B11)
+and of ``seq_attn_fwd_kernel`` (the one-pass forward of B4, B5, B6 and B9)
+is keyed by its source file and demangled name and hashed over its
 ``cuobjdump -sass`` text (each instruction and its encoding, blanks
 collapsed). ``--out`` writes the digests and the nvcc version
 as JSON; ``--compare FILE`` prints, for each function of FILE, whether
-this build's SASS has the same digest.
+this build's SASS has the same digest. A record may carry ``renamed``,
+{recorded key: key in a later build}, for an instance whose template
+arguments changed while its code should not: it is compared under its new
+name.
 Needs the CUDA toolkit (nvcc, cuobjdump, cu++filt); no card.
 """
 
@@ -109,13 +112,20 @@ def digests(objects) -> dict:
     return dict(sorted(found.items()))
 
 
-def compare(recorded: dict, current: dict) -> dict:
+def compare(recorded: dict, current: dict, renamed=None) -> dict:
     """Each recorded function: "same", "differs" or "absent" in
-    ``current``; the functions only ``current`` has: "new"."""
-    out = {k: ("absent" if k not in current else
-               "same" if current[k] == v else "differs")
-           for k, v in recorded.items()}
-    out.update({k: "new" for k in current if k not in recorded})
+    ``current``, under its key in ``renamed`` if it has one (reported as
+    "<recorded key> -> <current key>"); the functions only ``current`` has:
+    "new"."""
+    renamed = renamed or {}
+    out = {}
+    for k, v in recorded.items():
+        k2 = renamed.get(k, k)
+        out[k if k2 == k else f"{k} -> {k2}"] = (
+            "absent" if k2 not in current else
+            "same" if current[k2] == v else "differs")
+    seen = {renamed.get(k, k) for k in recorded}
+    out.update({k: "new" for k in current if k not in seen})
     return out
 
 
@@ -168,7 +178,8 @@ def main(argv=None):
         recorded = json.loads(args.compare.read_text())
         print(json.dumps({"nvcc_recorded": recorded["nvcc"],
                           "nvcc": record["nvcc"],
-                          "sass": compare(recorded["digests"], current)}))
+                          "sass": compare(recorded["digests"], current,
+                                          recorded.get("renamed"))}))
     return 0
 
 
