@@ -17,15 +17,18 @@ prints its seconds):
      ptxas's registers and spills of every kernel, the one-pass forward's
      five instances (B6's forward, B9, B4, B5's forward with and without
      dropout) and the attention backward's two kernels (B6's and B5's
-     backward) with their shared memory and CTAs an SM (fails on a spill
-     of either), and whether each seq_attn_kernel and seq_attn_fwd_kernel
-     instance kept the SASS of the recorded build (tools/sass_digest;
-     instances whose template arguments changed are compared under the
-     names the record maps them to).
+     backward) with their shared memory and CTAs an SM, and the Hopper
+     GEMM core's four instances (K2, B8; fails on a spill of any), and
+     whether each recorded attention-kernel, gemm_nt_kernel and
+     out_ln_kernel instance kept the SASS of the parent commit's build
+     (tools/sass_digest; fails on one that differs under the same nvcc).
   3. kernels: each kernel against its plain version on the same bf16
      inputs at full width, with the stated tolerance; kernel, plain and
      one-PyTorch-call (``library_ms``) times by CUDA events; the roofline
-     bound from this run's shapes.
+     bound from this run's shapes. K2 also at 1-300 rows and B8 at 1, 37
+     and 64 regions, at WIDE_STD, each bit-equal when rerun and with
+     controls that must miss (the twin with one 64-wide k tile of W1, W2
+     or Wd2 zeroed, or with the last row dropped).
   4. generative path: ``evaluate_split(mode="ll_sum")`` (prefix-cache
      scorer) at the default config (12 text / 6 vision / 6 connection
      layers, hidden 768 / 1024, vocab 30522) from a seeded init over 4
@@ -166,12 +169,13 @@ def seeded_module(make, gen, dev, std=0.02):
 # phase 2: what the compiler made of the kernels
 # ---------------------------------------------------------------------------
 
-# the SASS digests of the forward kernels' instances in the parent commit
-# of the move of B4 and B5's forward onto seq_attn_fwd_kernel (19e894e:
-# seq_attn_kernel for B4, B5's forward, B10, B11; seq_attn_fwd_kernel for
-# B6's forward, B9), taken with tools/sass_digest, and the names the
-# instances kept since then carry now ("renamed")
-SASS_RECORD = "unimm_torch/tools/seq_attn_kernel_sass.json"
+# the SASS digests, taken with tools/sass_digest, of the instances of the
+# attention kernels (seq_attn_kernel, seq_attn_fwd_kernel, the backward's
+# seq_attn_bwd_*), of the mma.sync GEMM core gemm_nt_kernel and of
+# out_ln_kernel in the parent commit of the move of K2's and B8's products
+# onto gemm_wg.cuh (734f732): the instances that stayed (K1, B4, B5, B6,
+# B9, B10, B11) must keep that machine code
+SASS_RECORD = "unimm_torch/tools/kernel_sass.json"
 
 
 def report_spills(pattern, n):
@@ -188,13 +192,15 @@ def report_spills(pattern, n):
                          f"got {rows}")
 
 
-def report_attention_kernels():
+def report_kernels():
     """The one-pass forward's and the attention backward's two kernels'
     registers and spills (ptxas: 5 forward instances, B6, B9, B4 and B5's
     forward at dropout 0 and above; dq and dk / dv for B6, B5 and B5 at
     dropout 0), their shared memory and CTAs an SM at L 256 (the
-    runtime), failing on a spill; then whether each seq_attn_kernel and
-    seq_attn_fwd_kernel instance kept the SASS of SASS_RECORD's build."""
+    runtime), and the Hopper GEMM core's (gemm_wg.cuh: gemm_nt_wg_kernel,
+    2 instances each for K2 and B8), failing on a spill;
+    then whether each recorded instance kept the SASS of SASS_RECORD's
+    build, failing on one that differs under the same nvcc."""
     from pathlib import Path
 
     from unimm_torch.ops import attention_block as ab
@@ -206,6 +212,7 @@ def report_attention_kernels():
     report_spills("seq_attn_fwd_kernel", 5)
     report_spills("seq_attn_bwd_dq_kernel", 3)
     report_spills("seq_attn_bwd_dkdv_kernel", 3)
+    report_spills("gemm_nt_wg_kernel", 4)
     print(json.dumps({"seq_attn_fwd_kernel": {
         "text_attention_fwd": ta.fwd_kernel_info(256),
         "attention_v2": av2.kernel_info(256),
@@ -219,12 +226,14 @@ def report_attention_kernels():
     recorded = json.loads((Path(__file__).resolve().parent
                            / SASS_RECORD).read_text())
     current = sass_digest.digests(sass_digest.built_objects())
-    print(json.dumps({"seq_attn_kernel_sass": {
-        "recorded_nvcc": recorded["nvcc"],
-        "nvcc": sass_digest.nvcc_version(),
-        "vs_recorded": sass_digest.compare(recorded["digests"], current,
-                                           recorded.get("renamed"))}}),
-        flush=True)
+    nvcc = sass_digest.nvcc_version()
+    cmp = sass_digest.compare(recorded["digests"], current)
+    print(json.dumps({"kernel_sass": {
+        "recorded_nvcc": recorded["nvcc"], "nvcc": nvcc,
+        "vs_recorded": cmp}}), flush=True)
+    differ = [k for k, v in cmp.items() if v == "differs"]
+    if differ and nvcc == recorded["nvcc"]:
+        raise SystemExit(f"SASS differs from {SASS_RECORD}: {differ}")
 
 
 # ---------------------------------------------------------------------------
@@ -377,13 +386,44 @@ def check_answer_block(dev, gen, Lcb, RB, G=40, P=1280):
                 library_ms=time_ms(library, 10))
 
 
-def check_ffn_block(dev, gen, N=200, R=256):
+def zero_k_tile(lin, k0):
+    """Linear ``lin`` with the 64 input columns k0 .. k0 + 63 of its weight
+    zeroed: one k tile of the kernels' products lost."""
+    w = lin.weight.clone()
+    w[:, k0:k0 + 64] = 0
+    return SimpleNamespace(weight=w, bias=lin.bias)
+
+
+def drop_last_row(y):
+    """y with its last row (a row of the last, partial tile) zeroed: a row
+    the kernel did not store."""
+    y = y.clone()
+    y.view(-1, y.shape[-1])[-1] = 0
+    return y
+
+
+def gemm_controls(name, got, wrongs):
+    """Each control output must miss TOL[name]; their max |d|."""
+    errs = {}
+    for label, wrong in wrongs.items():
+        e, _, passes = within(got, wrong, *TOL[name])
+        if passes:
+            raise SystemExit(f"{name}: the check passes the control "
+                             f"{label} ({e})")
+        errs[label] = e
+    return errs
+
+
+def check_ffn_block(dev, gen, N=200, R=256, std=0.02, controls=False):
+    """K2 against its plain twin, the rerun bit-equal; under ``controls``
+    (weights at WIDE_STD) the twin with one k tile of W1 or of W2 zeroed,
+    or with the last row dropped, must miss the bound."""
     import torch.nn.functional as F
     from unimm_torch.models import vilbert
     from unimm_torch.ops.ffn_block import ffn_block, ffn_block_plain
 
     Hd, I = 768, 3072
-    layer = seeded_module(lambda: vilbert._layer(Hd, I), gen, dev)
+    layer = seeded_module(lambda: vilbert._layer(Hd, I), gen, dev, std=std)
     pi, po = layer.intermediate, layer.output
     x = torch.randn(N, R, Hd, generator=gen, device=dev).to(torch.bfloat16)
 
@@ -401,15 +441,27 @@ def check_ffn_block(dev, gen, N=200, R=256):
                             po.LayerNorm.bias, 1e-12)
 
     got, want = kern(), plain()
+    same = torch.equal(got, kern())
     torch.cuda.synchronize()
     err, rel, ok = within(got, want, *TOL["ffn_block"])
+    extra = {}
+    if controls:
+        extra["control_max_abs_errs"] = gemm_controls("ffn_block", got, {
+            "w1_k_tile": ffn_block_plain(
+                x, SimpleNamespace(dense=zero_k_tile(pi.dense, 64)), po),
+            "w2_k_tile": ffn_block_plain(
+                x, pi, SimpleNamespace(dense=zero_k_tile(po.dense, 1536),
+                                       LayerNorm=po.LayerNorm)),
+            "tail_row": drop_last_row(want)})
     M = N * R
     flops = 4 * M * Hd * I
     nbytes = 2 * M * Hd * 2 + 2 * Hd * I * 2 + (I + 3 * Hd) * 2
     b_ms, b_by = bound(flops, nbytes)
-    return dict(shape=f"[{N}, {R}, {Hd}] inter {I}", max_abs_err=err,
-                max_rel_err=rel, ok=ok, ms=time_ms(kern, 10),
-                plain_ms=time_ms(plain, 3, 1), bound_ms=b_ms, bound_by=b_by,
+    return dict(shape=f"[{N}, {R}, {Hd}] inter {I}"
+                + (f" std {std}" if std != 0.02 else ""), max_abs_err=err,
+                max_rel_err=rel, ok=ok and same, bit_equal=same, **extra,
+                ms=time_ms(kern, 10), plain_ms=time_ms(plain, 3, 1),
+                bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(library, 10))
 
 
@@ -547,7 +599,12 @@ def check_attention_block(dev, gen, L, desc_fn, B=256):
                 library_ms=time_ms(library, 10))
 
 
-def check_co_text_block(dev, gen, B=256, L=224, R=37):
+def check_co_text_block(dev, gen, B=256, L=224, R=37, std=0.02,
+                        controls=False):
+    """B8 against its plain twin, every region of one sequence masked, the
+    rerun bit-equal; under ``controls`` (weights at WIDE_STD) the twin with
+    one k tile of Wd2 zeroed, or with the last row dropped, must miss the
+    bound."""
     import torch.nn.functional as F
     from unimm_torch.config import VilbertConfig
     from unimm_torch.models import vilbert
@@ -557,11 +614,11 @@ def check_co_text_block(dev, gen, B=256, L=224, R=37):
 
     H, D, Ht, Bi = 8, 128, 768, 1024
     conn = seeded_module(lambda: vilbert._connection(VilbertConfig()), gen,
-                         dev)
+                         dev, std=std)
     t_x = torch.randn(B, L, Ht, generator=gen, device=dev).to(torch.bfloat16)
     v_x = torch.randn(B, R, Bi, generator=gen, device=dev).to(torch.bfloat16)
     im = (torch.rand(B, R, generator=gen, device=dev) > 0.2).float()
-    im[3] = 0.0                        # one sequence with every region masked
+    im[min(3, B - 1)] = 0.0            # one sequence with every region masked
     mask = torch.where(im > 0, 0.0, NEG_INF)[:, None, None].to(t_x.dtype)
 
     def kern():
@@ -586,16 +643,30 @@ def check_co_text_block(dev, gen, B=256, L=224, R=37):
                             po.LayerNorm2.bias, 1e-12)
 
     got, want = kern(), plain()
+    same = torch.equal(got, kern())
     torch.cuda.synchronize()
     err, rel, ok = within(got, want, *TOL["co_text_block"])
+    extra = {}
+    if controls:
+        po = conn.biOutput
+        wrong_conn = SimpleNamespace(
+            biattention=conn.biattention,
+            biOutput=SimpleNamespace(dense2=zero_k_tile(po.dense2, 512),
+                                     LayerNorm2=po.LayerNorm2))
+        extra["control_max_abs_errs"] = gemm_controls("co_text_block", got, {
+            "wd2_k_tile": co_text_block_plain(t_x, v_x, im, wrong_conn,
+                                              num_heads=H),
+            "tail_row": drop_last_row(want)})
     M = B * L
     flops = (2 * M * Ht * Bi + 4 * B * R * Bi * Bi + 4 * M * R * Bi
              + 2 * M * Bi * Ht)
     nbytes = (2 * M * Ht * 2 + B * R * Bi * 2 + B * R * 4
               + (Bi * Ht + 2 * Bi * Bi + Ht * Bi + 3 * Bi + 3 * Ht) * 2)
     b_ms, b_by = bound(flops, nbytes)
-    return dict(shape=f"[{B}, {L}, {Ht}] x [{B}, {R}, {Bi}]",
-                max_abs_err=err, max_rel_err=rel, ok=ok,
+    return dict(shape=f"[{B}, {L}, {Ht}] x [{B}, {R}, {Bi}]"
+                + (f" std {std}" if std != 0.02 else ""),
+                max_abs_err=err, max_rel_err=rel, ok=ok and same,
+                bit_equal=same, **extra,
                 ms=time_ms(kern, 10), plain_ms=time_ms(plain, 3, 1),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(library, 10))
@@ -1181,8 +1252,12 @@ def phase_kernels(dev):
                          check_answer_block(dev, gen, 256, 256),
                          check_answer_block(dev, gen, 224, 256, G=4),
                          check_answer_block(dev, gen, 96, 64, G=4, P=512)],
+        # then row tails of the 128-row and 64-row tiles (M = 1 .. 300)
+        # at WIDE_STD with the lost-tile and lost-row controls
         "ffn_block": [check_ffn_block(dev, gen),
-                      check_ffn_block(dev, gen, N=3, R=100)],
+                      check_ffn_block(dev, gen, N=3, R=100)]
+        + [check_ffn_block(dev, gen, N=1, R=m, std=WIDE_STD, controls=True)
+           for m in (1, 63, 64, 65, 129, 300)],
         "xent_head": [check_xent_head(dev, gen),
                       check_xent_head(dev, gen, M=1000)],
         # the flat path's main bucket, the longest one, the shortest one
@@ -1196,8 +1271,13 @@ def phase_kernels(dev):
                                                   B=20),
                             check_attention_block(dev, gen, 256,
                                                   tail_desc)],
+        # then 1, 37 and 64 regions (kv rows 3 .. 192), text rows with a
+        # partial last tile, at WIDE_STD with the controls
         "co_text_block": [check_co_text_block(dev, gen),
-                          check_co_text_block(dev, gen, B=5, L=32)],
+                          check_co_text_block(dev, gen, B=5, L=32)]
+        + [check_co_text_block(dev, gen, B=3, L=L, R=R, std=WIDE_STD,
+                               controls=True)
+           for L, R in ((48, 1), (112, 37), (80, 64))],
     }
     # the training step's shape first, then the edge descriptors at a
     # length with a half key chunk, with and without attention dropout
@@ -2075,7 +2155,7 @@ def main():
         for line in cu.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {cu.stem}: {line.strip()}", flush=True)
-    report_attention_kernels()
+    report_kernels()
 
     with phase("3 kernels"):
         cases = phase_kernels(dev)
@@ -2269,7 +2349,9 @@ def main():
                                          "dk_rel_err", "dv_rel_err",
                                          "control_rel_err",
                                          "control_rel_errs",
-                                         "control_max_abs_err", "nan_rows",
+                                         "control_max_abs_err",
+                                         "control_max_abs_errs", "bit_equal",
+                                         "nan_rows",
                                          "ctx_control_rel_err",
                                          "as_run_bound_ms")
                        if k in c} for c in cs]})

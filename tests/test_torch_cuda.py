@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same bf16 inputs, at the kernels' width (768) and small
-batches, plus the wrappers' refusals, a short prefix-scorer run through
+batches (K2 and B8, on the Hopper GEMM cores, also at row tails and 1-64
+regions with bit-equal reruns and lost-tile / lost-row controls), plus
+the wrappers' refusals, a short prefix-scorer run through
 its three kernels, a short flat-scorer run through its three, and the
 training attention block (forward and backward, with dropout, the
 backward's other-seed control and bit-equal reruns) and the fused AdamW,
@@ -154,6 +156,70 @@ def test_co_text_block_matches_plain(dev):
     assert tco.co_text_block.launches == n0 + 1
     want = tco.co_text_block_plain(t_x, v_x, im, conn, num_heads=8)
     _close(got, want, 5e-2, 2e-2)
+
+
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 129, 300])
+def test_ffn_block_row_tails_and_controls(dev, M):
+    """K2 on the Hopper GEMM cores at row counts around their 128-row and
+    64-row tiles, weights at WIDE_STD: within the bound of the twin, bit-
+    equal when rerun; the twin with one 64-wide k tile of W1 or of W2
+    zeroed, or with the last row dropped, misses the bound."""
+    gen = torch.Generator(device=dev).manual_seed(M)
+    layer = chip_smoke.seeded_module(lambda: vilbert._layer(768, 3072), gen,
+                                     dev, std=chip_smoke.WIDE_STD)
+    pi, po = layer.intermediate, layer.output
+    x = torch.randn(1, M, 768, generator=gen, device=dev).bfloat16()
+    n0 = tfb.ffn_block.launches
+    got = tfb.ffn_block(x, pi, po)
+    assert tfb.ffn_block.launches == n0 + 1
+    assert torch.equal(got, tfb.ffn_block(x, pi, po))
+    tol = chip_smoke.TOL["ffn_block"]
+    want = tfb.ffn_block_plain(x, pi, po)
+    _close(got, want, *tol)
+    for wrong in (
+            tfb.ffn_block_plain(x, SimpleNamespace(
+                dense=chip_smoke.zero_k_tile(pi.dense, 64)), po),
+            tfb.ffn_block_plain(x, pi, SimpleNamespace(
+                dense=chip_smoke.zero_k_tile(po.dense, 1536),
+                LayerNorm=po.LayerNorm)),
+            chip_smoke.drop_last_row(want)):
+        with pytest.raises(AssertionError):
+            _close(got, wrong, *tol)
+
+
+@pytest.mark.parametrize("L,R", [(48, 1), (112, 37), (80, 64)])
+def test_co_text_block_regions_and_controls(dev, L, R):
+    """B8 at 1, 37 and 64 regions with every region of one sequence masked,
+    text rows with a partial last tile, weights at WIDE_STD: within the
+    bound of the twin, bit-equal when rerun; the twin with one 64-wide k
+    tile of Wd2 zeroed, or with the last row dropped, misses the bound."""
+    gen = torch.Generator(device=dev).manual_seed(L + R)
+    B = 3
+    conn = chip_smoke.seeded_module(
+        lambda: vilbert._connection(VilbertConfig()), gen, dev,
+        std=chip_smoke.WIDE_STD)
+    t_x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    v_x = torch.randn(B, R, 1024, generator=gen, device=dev).bfloat16()
+    im = (torch.rand(B, R, generator=gen, device=dev) > 0.2).float()
+    im[1] = 0.0
+    n0 = tco.co_text_block.launches
+    got = tco.co_text_block(t_x, v_x, im, conn, num_heads=8)
+    assert tco.co_text_block.launches == n0 + 1
+    assert torch.equal(got, tco.co_text_block(t_x, v_x, im, conn,
+                                              num_heads=8))
+    tol = chip_smoke.TOL["co_text_block"]
+    want = tco.co_text_block_plain(t_x, v_x, im, conn, num_heads=8)
+    _close(got, want, *tol)
+    po = conn.biOutput
+    wrong_conn = SimpleNamespace(
+        biattention=conn.biattention,
+        biOutput=SimpleNamespace(dense2=chip_smoke.zero_k_tile(po.dense2, 512),
+                                 LayerNorm2=po.LayerNorm2))
+    for wrong in (tco.co_text_block_plain(t_x, v_x, im, wrong_conn,
+                                          num_heads=8),
+                  chip_smoke.drop_last_row(want)):
+        with pytest.raises(AssertionError):
+            _close(got, wrong, *tol)
 
 
 @pytest.mark.parametrize("act", ["gelu", "relu", "swish"])

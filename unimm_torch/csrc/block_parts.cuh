@@ -1,41 +1,11 @@
-// Launches shared by the attention-style sub-block kernels
-// (answer_block.cu, attention_block.cu, co_text_block.cu): the projection
-// epilogue and the output projection + residual + LayerNorm launch.
+// The output projection + residual + LayerNorm launch shared by the
+// attention-style sub-block kernels (answer_block.cu, attention_block.cu,
+// attention_block_train.cu, block_probe.cu).
 #pragma once
 
 #include "common.cuh"
 
 namespace {
-
-// ---- projection epilogue for gemm_nt_kernel (grid z picks the matrix) -----
-// y[z] = bf16(acc + b[z]); where scale[z] != 1 additionally
-// y[z] = bf16(fp32(y[z]) * scale[z]) (the 1 / sqrt(head_dim) query scale).
-// Rows of y[z] are ld elements apart.
-struct QkvEpi {
-  const bf16* b[3];
-  bf16* y[3];
-  float scale[3];
-  int ld;
-  // the values of columns col, col + 1
-  __device__ __forceinline__ __nv_bfloat162 value(int z, int col, float v0,
-                                                  float v1) const {
-    bf16 o0 = __float2bfloat16(v0 + __bfloat162float(b[z][col]));
-    bf16 o1 = __float2bfloat16(v1 + __bfloat162float(b[z][col + 1]));
-    if (scale[z] != 1.0f) {
-      o0 = __float2bfloat16(__bfloat162float(o0) * scale[z]);
-      o1 = __float2bfloat16(__bfloat162float(o1) * scale[z]);
-    }
-    __nv_bfloat162 o;
-    o.x = o0;
-    o.y = o1;
-    return o;
-  }
-  __device__ __forceinline__ void operator()(int z, long row, int col,
-                                             float v0, float v1) const {
-    *reinterpret_cast<__nv_bfloat162*>(y[z] + row * ld + col) =
-        value(z, col, v0, v1);
-  }
-};
 
 // ---- output projection + residual + LayerNorm -----------------------------
 // out = LN(fp32(ctx Wo^T) + bo + x) * gamma + beta for ctx [M, K] and

@@ -12,9 +12,9 @@
 //   p = bf16(softmax_fp32(s) over the R regions);  ctx_h = bf16(p v1_h)
 //   y = LN2(fp32(ctx Wd2^T) + bd2 + t) * gamma + beta         (eps 1e-12)
 //
-// with the TPU kernel's rounding points. Four launches:
-//   1. gemm_nt_kernel   q2 projection, 768 -> 1024 (common.cuh)
-//   2. gemm_nt_kernel   k1 and v1 projections of the B R region rows
+// with the TPU kernel's rounding points. Five launches:
+//   1. gemm_nt_wg_kernel  q2 projection, 768 -> 1024 (gemm_wg.cuh)
+//   2. gemm_nt_wg_kernel  k1 and v1 projections of the B R region rows
 //   3. co_attn_kernel   one CTA per (64-row query tile, head, sequence):
 //                       the sequence's R keys and values for the head are
 //                       staged in shared memory padded to 64 rows; all 64
@@ -23,15 +23,17 @@
 //                       out of the softmax by their count (-inf), never by
 //                       a -10000 bias: a sequence whose regions are all
 //                       masked takes its softmax over exactly R keys.
-//   4. out_ln_kernel    Wd2 (K = 1024) + bd2 + residual + LayerNorm2
-//                       (block_parts.cuh)
+//   4. gemm_nt_wg_kernel  Wd2 (K = 1024) + bd2 + residual into fp32, then
+//      ln_rows_kernel     LayerNorm2, one warp a row (gemm_wg.cuh's
+//                         launch_gemm_residual_ln)
 // What bounds it on an H100: 2 M 768 1024 (q2) + 4 B R 1024^2 (k1, v1) +
 // 4 M R 1024 (scores, P V) + 2 M 1024 768 (dense2) flops, ~0.23 TFLOP at
 // [256, 224, 768] x [256, 37, 1024], against ~0.2 GB of inputs, output and
 // weights: the tensor-core rate. Unlike the TPU kernel, q2 / k1 / v1 / ctx
-// pass through device memory between the launches.
+// and the fp32 pre-LayerNorm sum pass through device memory between the
+// launches.
 
-#include "block_parts.cuh"
+#include "gemm_wg.cuh"
 
 namespace {
 
@@ -162,8 +164,8 @@ extern "C" int unimm_co_text_block(
     const void* wq2, const void* bq2, const void* wk1, const void* bk1,
     const void* wv1, const void* bv1, const void* wd2, const void* bd2,
     const void* gamma, const void* beta, void* q_buf, void* k_buf,
-    void* v_buf, void* ctx_buf, void* out, int B, int L, int R, float eps,
-    void* stream) {
+    void* v_buf, void* ctx_buf, void* pre_buf, void* out, int B, int L, int R,
+    float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * L;
   const float q_scale = 0.08838834764831845f;  // 1 / sqrt(head_dim 128)
@@ -174,7 +176,7 @@ extern "C" int unimm_co_text_block(
             {static_cast<bf16*>(q_buf), nullptr, nullptr},
             {q_scale, 1.0f, 1.0f},
             CO_HID};
-  cudaError_t err = launch_gemm_nt(gq, 1, eq, st);
+  cudaError_t err = launch_gemm_nt_wg(gq, 1, eq, st);
   if (err != cudaSuccess) return err;
 
   GemmArgs gkv{static_cast<const bf16*>(v_x),
@@ -186,7 +188,7 @@ extern "C" int unimm_co_text_block(
              {static_cast<bf16*>(k_buf), static_cast<bf16*>(v_buf), nullptr},
              {1.0f, 1.0f, 1.0f},
              CO_HID};
-  err = launch_gemm_nt(gkv, 2, ekv, st);
+  err = launch_gemm_nt_wg(gkv, 2, ekv, st);
   if (err != cudaSuccess) return err;
 
   cudaFuncSetAttribute(co_attn_kernel,
@@ -201,6 +203,6 @@ extern "C" int unimm_co_text_block(
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  return launch_out_ln(ctx_buf, t_x, wd2, bd2, gamma, beta, eps, out, M,
-                       CO_HID, st);
+  return launch_gemm_residual_ln(ctx_buf, wd2, bd2, t_x, gamma, beta, eps,
+                                 pre_buf, out, M, CO_HID, st);
 }

@@ -1,5 +1,4 @@
-// Shared device helpers for the port's hand-written Hopper kernels
-// (answer_block.cu, ffn_block.cu, xent_head.cu).
+// Shared device helpers for the port's hand-written Hopper kernels.
 //
 // Matrix products use mma.sync m16n8k16 (bf16 in, fp32 accumulators) with
 // fragments loaded by ldmatrix from shared memory that cp.async fills.
@@ -254,5 +253,70 @@ cudaError_t launch_gemm_nt(const GemmArgs& g, int nz, const Epi& epi,
   gemm_nt_kernel<Epi><<<grid, GM_THREADS, GM_SMEM, st>>>(g, epi);
   return cudaGetLastError();
 }
+
+// one matrix's part of QkvEpi (gemm_wg.cuh's per-tile epilogue): QkvEpi's
+// arithmetic, the bias read as one pair (QkvEpi itself stays as the
+// mma.sync core's callers compiled it)
+struct QkvOne {
+  static constexpr bool VEC = true;
+  const bf16* b;
+  bf16* y;
+  float scale;
+  int ld;
+  __device__ __forceinline__ __nv_bfloat162 value(int col, float v0,
+                                                  float v1) const {
+    const float2 bb = __bfloat1622float2(
+        __ldg(reinterpret_cast<const __nv_bfloat162*>(b + col)));
+    bf16 o0 = __float2bfloat16(v0 + bb.x);
+    bf16 o1 = __float2bfloat16(v1 + bb.y);
+    if (scale != 1.0f) {
+      o0 = __float2bfloat16(__bfloat162float(o0) * scale);
+      o1 = __float2bfloat16(__bfloat162float(o1) * scale);
+    }
+    __nv_bfloat162 o;
+    o.x = o0;
+    o.y = o1;
+    return o;
+  }
+  __device__ __forceinline__ bf16* row_ptr(long row) const {
+    return y + row * ld;
+  }
+};
+
+// ---- projection epilogue (grid z picks the matrix) -------------------------
+// y[z] = bf16(acc + b[z]); where scale[z] != 1 additionally
+// y[z] = bf16(fp32(y[z]) * scale[z]) (the 1 / sqrt(head_dim) query scale).
+// Rows of y[z] are ld elements apart.
+struct QkvEpi {
+  const bf16* b[3];
+  bf16* y[3];
+  float scale[3];
+  int ld;
+  // the values of columns col, col + 1
+  __device__ __forceinline__ __nv_bfloat162 value(int z, int col, float v0,
+                                                  float v1) const {
+    bf16 o0 = __float2bfloat16(v0 + __bfloat162float(b[z][col]));
+    bf16 o1 = __float2bfloat16(v1 + __bfloat162float(b[z][col + 1]));
+    if (scale[z] != 1.0f) {
+      o0 = __float2bfloat16(__bfloat162float(o0) * scale[z]);
+      o1 = __float2bfloat16(__bfloat162float(o1) * scale[z]);
+    }
+    __nv_bfloat162 o;
+    o.x = o0;
+    o.y = o1;
+    return o;
+  }
+  __device__ __forceinline__ void operator()(int z, long row, int col,
+                                             float v0, float v1) const {
+    *reinterpret_cast<__nv_bfloat162*>(y[z] + row * ld + col) =
+        value(z, col, v0, v1);
+  }
+  // matrix z's part, its fields selected without indexing (no local copy)
+  __device__ __forceinline__ QkvOne at(int z) const {
+    return z == 0   ? QkvOne{b[0], y[0], scale[0], ld}
+           : z == 1 ? QkvOne{b[1], y[1], scale[1], ld}
+                    : QkvOne{b[2], y[2], scale[2], ld};
+  }
+};
 
 }  // namespace

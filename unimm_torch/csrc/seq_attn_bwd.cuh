@@ -89,6 +89,7 @@
 #pragma once
 
 #include "seq_attn_fwd.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -198,72 +199,9 @@ __device__ __forceinline__ void sb_store(const float (&o)[8][4], bf16* dst,
 }
 
 // ---------------------------------------------------------------------------
-// wgmma building blocks: one warpgroup (the CTA's 4 warps); A from shared
-// memory by descriptor, or from registers in mma.sync's A fragment layout
-// (warp w: rows 16 w ..); B by descriptor; fp32 accumulators in mma.sync's
-// C layout per 8 columns (d[j][t]: row t < 2 ? gr : gr + 8, column 8 j +
-// gc + (t & 1) of the warp's 16 rows)
+// wgmma with A from registers in mma.sync's A fragment layout (warp w:
+// rows 16 w ..); the other building blocks are wgmma.cuh's
 // ---------------------------------------------------------------------------
-// the descriptor of a 128-byte-swizzled tile of 128-byte rows at shared
-// address t (on a 1024-byte boundary): 1024 bytes from one 8-row group to
-// the next (stride byte offset), the leading byte offset unused (one
-// 128-byte row spans the 64 columns); + 2 per 16 columns (32 bytes) of k
-__device__ __forceinline__ uint64_t wg_desc(uint32_t t) {
-  return (uint64_t)((t & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d (64 x 8 NJ) (+)= A . B^T over 16 columns of k, A and B tiles of
-// k-contiguous rows in shared memory; scale_d 0: d = A B^T
-template <int NJ>
-__device__ __forceinline__ void wg_ss(float (&d)[NJ][4], uint64_t da,
-                                      uint64_t db, int scale_d);
-
-template <>
-__device__ __forceinline__ void wg_ss<4>(float (&d)[4][4], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wg_ss<8>(float (&d)[8][4], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 // c (64 x 64) += A (registers, 16 columns of k) . B, B the 16 rows of k
 // of a tile whose rows hold the 64 columns of n (transposed B); the
 // predicate reads 1: accumulate

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "unimm_xent_head": [_VP] * 5 + [_INT] * 2 + [_VP],
     # ...; B, L, block_b; eps
     "unimm_attention_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
-    "unimm_co_text_block": [_VP] * 18 + [_INT] * 3 + [_F32, _VP],
+    "unimm_co_text_block": [_VP] * 19 + [_INT] * 3 + [_F32, _VP],
     "unimm_attention_block_train_fwd": ([_VP] * 18 + [_INT] * 2
                                         + [_F32, _U32, _U32, _F32, _INT,
                                            _VP]),

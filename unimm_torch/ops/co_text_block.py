@@ -4,8 +4,10 @@ image regions, then dense2 + residual + LayerNorm2.
 ``co_text_block`` replaces the TPU kernel
 ``unimm_tpu/ops/pallas_attention_v2.py:fused_co_text_block``. On a CUDA
 tensor it launches the hand-written kernel in ``csrc/co_text_block.cu``
-(four launches: the q2 projection, the k1/v1 projections of the regions,
-attention per (query tile, head, sequence), dense2 + LayerNorm2); on a CPU
+(five launches: the q2 projection and the k1/v1 projections of the
+regions on the wgmma + TMA core of ``csrc/gemm_wg.cuh``, attention per
+(query tile, head, sequence), dense2 + bias + residual on the same core
+into fp32, LayerNorm2 one warp a row); on a CPU
 tensor it runs ``co_text_block_plain``, which repeats the kernel's
 arithmetic and rounding points in plain PyTorch. The image side of the
 connection layer stays plain PyTorch, as the JAX package leaves it to XLA.
@@ -33,15 +35,11 @@ def _weights(p_conn):
             po.dense2.bias, po.LayerNorm2.weight, po.LayerNorm2.bias)
 
 
-def co_text_block_plain(t_x, v_x, image_mask, p_conn, *, num_heads,
-                        eps=1e-12):
-    """Plain PyTorch version of the kernel, with its rounding points: the
-    projections accumulate in fp32 and round to t_x.dtype after the bias;
-    q2 is scaled in fp32 and rounded; scores, the image padding bias and
-    the softmax over the regions are fp32; the probabilities and each
-    head's context round to t_x.dtype; dense2, bias, residual and
-    LayerNorm2 run in fp32."""
-    wq, bq, wk, bk, wv, bv, wd, bd, gamma, beta = _weights(p_conn)
+def co_context_plain(t_x, v_x, image_mask, p_conn, *, num_heads):
+    """The attention part of ``co_text_block_plain``: each head's context,
+    rounded to t_x.dtype, merged to [B, L, bi_hidden_size] (the input of
+    dense2)."""
+    wq, bq, wk, bk, wv, bv = _weights(p_conn)[:6]
     dt = t_x.dtype
     B, L, _ = t_x.shape
     R = v_x.shape[1]
@@ -59,12 +57,24 @@ def co_text_block_plain(t_x, v_x, image_mask, p_conn, *, num_heads,
     bias = torch.where(image_mask > 0, 0.0, NEG_INF).float()
     s = heads(q, L) @ heads(k, R).transpose(-1, -2) + bias[:, None, None, :]
     p = torch.softmax(s, dim=-1).to(dt).float()
-    ctx = (p @ heads(v, R)).to(dt).permute(0, 2, 1, 3).reshape(B, L, BIw)
+    return (p @ heads(v, R)).to(dt).permute(0, 2, 1, 3).reshape(B, L, BIw)
+
+
+def co_text_block_plain(t_x, v_x, image_mask, p_conn, *, num_heads,
+                        eps=1e-12):
+    """Plain PyTorch version of the kernel, with its rounding points: the
+    projections accumulate in fp32 and round to t_x.dtype after the bias;
+    q2 is scaled in fp32 and rounded; scores, the image padding bias and
+    the softmax over the regions are fp32; the probabilities and each
+    head's context round to t_x.dtype; dense2, bias, residual and
+    LayerNorm2 run in fp32."""
+    wd, bd, gamma, beta = _weights(p_conn)[6:]
+    ctx = co_context_plain(t_x, v_x, image_mask, p_conn, num_heads=num_heads)
     h32 = (ctx.float() @ wd.float().t() + bd.float()) + t_x.float()
     mean = h32.mean(-1, keepdim=True)
     var = (h32 - mean).square().mean(-1, keepdim=True)
     y = (h32 - mean) * torch.rsqrt(var + eps)
-    return (y * gamma.float() + beta.float()).to(dt)
+    return (y * gamma.float() + beta.float()).to(t_x.dtype)
 
 
 def _require(cond, msg):
@@ -117,12 +127,13 @@ def co_text_block(t_x, v_x, image_mask, p_conn, *, num_heads, eps=1e-12):
     q = torch.empty(B, L, BI, dtype=dt, device=dev)
     k, v = (torch.empty(B, R, BI, dtype=dt, device=dev) for _ in range(2))
     ctx = torch.empty_like(q)
+    pre = torch.empty(B, L, HID, dtype=torch.float32, device=dev)
     out = torch.empty_like(t_x)
     code = lib.unimm_co_text_block(
         t_x.data_ptr(), v_x.data_ptr(), image_mask.data_ptr(),
         *(t.data_ptr() for t in weights), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), ctx.data_ptr(), out.data_ptr(), B, L, R, eps,
-        _build.stream(dev))
+        v.data_ptr(), ctx.data_ptr(), pre.data_ptr(), out.data_ptr(), B, L,
+        R, eps, _build.stream(dev))
     _build.check(code, "co_text_block")
     co_text_block.launches += 1
     return out

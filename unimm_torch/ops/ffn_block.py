@@ -3,9 +3,9 @@
 ``ffn_block`` replaces the TPU kernel
 ``unimm_tpu/ops/pallas_attention_v2.py:fused_ffn_block``. On a CUDA tensor
 it launches the hand-written kernels in ``csrc/ffn_block.cu`` (the two
-products with fused bias/activation and bias/residual epilogues, then a
-row LayerNorm);
-on a CPU tensor it runs ``ffn_block_plain``, which repeats the kernel's
+products on the wgmma + TMA core of ``csrc/gemm_wg.cuh``, with fused
+bias/activation and bias/residual epilogues, then a row LayerNorm); on a
+CPU tensor it runs ``ffn_block_plain``, which repeats the kernel's
 rounding points in plain PyTorch: h rounds to x.dtype after the fp32
 product and bias, the activation is evaluated in x.dtype (tanh gelu in
 bf16, exact erf gelu in fp32), the second product, bias and residual run
@@ -20,6 +20,7 @@ from unimm_torch.models.vilbert import ACT
 from unimm_torch.ops import _build
 
 HID = 768            # the width the CUDA kernel is built for
+TILE_N = 256         # the first product's CTA tile width (gemm_wg.cuh WG_BN)
 _ACT_CODE = {"gelu": 0, "relu": 1, "swish": 2}
 
 
@@ -56,7 +57,7 @@ def ffn_block(x, p_inter, p_out, *, act="gelu", eps=1e-12):
     weights = _weights(p_inter, p_out)
     inter = weights[0].shape[0]
     _require(x.shape[-1] == HID, f"kernel is built for width {HID}")
-    _require(inter % 128 == 0, f"intermediate {inter} % 128 != 0")
+    _require(inter % TILE_N == 0, f"intermediate {inter} % {TILE_N} != 0")
     shapes = [(inter, HID), (inter,), (HID, inter), (HID,), (HID,), (HID,)]
     for t, shp in zip(weights, shapes):
         _require(tuple(t.shape) == shp, f"weight shape {tuple(t.shape)}")

@@ -1,23 +1,29 @@
-"""Times of the attention kernels' wrappers on a CUDA card, for A/Bs of
+"""Times of kernel wrappers on a CUDA card, for A/Bs of
 two trees: the attention backward, B6's wrapper (``text_attention_bwd``)
 at [240, 12, 256, 64] and B5's (``attention_block_train_bwd``) at [240,
 256, 768], attention dropout 0.1, both on the training batch's
 descriptors; or the block kernels' forward (``--forward``): B4
 (``attention_block``) at [256, 192 / 256, 768] on the flat path's dis
 descriptors and B5's forward (``attention_block_train_fwd``) at [240, 256,
-768] on the training descriptors, attention dropout 0.1 and 0; or B 240
-training steps.
+768] on the training descriptors, attention dropout 0.1 and 0; or the
+GEMM-core blocks (``--gemm``): K2 (``ffn_block``) at [200, 256, 768],
+intermediate 3072, and B8 (``co_text_block``) at [256, 224, 768] x [256,
+37, 1024], weights at std 0.02; or B 240 training steps.
 
     python3 -m unimm_torch.tools.bench_bwd [--label NAME] [--csrc DIR
-        --build DIR] [--forward | --train-step {pallas_block,pallas}
-        [--remat] [--steps 8]]
+        --build DIR] [--forward | --gemm | --train-step
+        {pallas_block,pallas} [--remat] [--steps 8]]
 
-Default and ``--forward``: one JSON line with each wrapper's device time
-per call (CUDA events, median of 5 runs of 20 calls), its host time per
-call (the loop that enqueues 20 calls, the card busy behind it), the mean
-device time of every kernel it launched (``torch.profiler``), each
-output's largest error against its plain twin relative to the twin's
-largest entry, and whether two runs give the same bits. ``--train-step``:
+Default, ``--forward`` and ``--gemm``: one JSON line with each wrapper's
+device time per call (CUDA events, median of 5 runs of 20 calls), its
+host time per call (the loop that enqueues 20 calls, the card busy behind
+it), the mean device time of every kernel it launched (``torch.profiler``),
+each output's largest error against its plain twin relative to the twin's
+largest entry, and whether two runs give the same bits. ``--gemm`` adds
+each launch of one call in launch order with its mean device time and,
+for a product, its TFLOP/s (the product's 2 M N K over that time; B8's
+attention launch counts its two score and value products), and the
+largest absolute error against the twin. ``--train-step``:
 ms per step of ``--steps`` B 240 training steps with the fused AdamW after
 2 warm-up steps, as chip_smoke.py phase 9 times them ("pallas" at
 attention dropout 0; ``--remat`` with encoder remat). ``--csrc`` builds
@@ -185,6 +191,85 @@ def forward_times(dev):
     return _time_runs(runs)
 
 
+def _launch_split(fn, iters=5):
+    """[(kernel name, mean device ms)] of each launch of one ``fn()`` call,
+    in launch order, over ``iters`` profiled calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    n = len(evs) // iters
+    if n * iters != len(evs):
+        raise SystemExit(f"bench_bwd: {len(evs)} launches in {iters} calls")
+    return [(evs[i].name[:90],
+             sum(evs[i + c * n].time_range.elapsed_us()
+                 for c in range(iters)) / iters / 1e3) for i in range(n)]
+
+
+def gemm_times(dev):
+    """K2 and B8 at the main path's shapes: times, launches with TFLOP/s,
+    errors against the twins, bits across two runs."""
+    from unimm_torch.config import VilbertConfig
+    from unimm_torch.models import vilbert
+    from unimm_torch.ops import co_text_block as co
+    from unimm_torch.ops import ffn_block as fb
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def module(make):
+        with torch.device(dev):
+            m = make()
+        with torch.no_grad():
+            for p in m.parameters():
+                p.normal_(0.0, 0.02, generator=g)
+        return m.to(torch.bfloat16)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    Hd, I, N, R = 768, 3072, 200, 256
+    layer = module(lambda: vilbert._layer(Hd, I))
+    x = rand(N, R, Hd)
+    M = N * R
+    conn = module(lambda: vilbert._connection(VilbertConfig()))
+    B, L, Rg, Bi = 256, 224, 37, 1024
+    t_x, v_x = rand(B, L, Hd), rand(B, Rg, Bi)
+    im = (torch.rand(B, Rg, generator=g, device=dev) > 0.2).float()
+    im[3] = 0.0
+    Mc = B * L
+    runs = {
+        f"ffn_block [{N}, {R}, {Hd}] inter {I}": (
+            lambda: fb.ffn_block(x, layer.intermediate, layer.output),
+            lambda: fb.ffn_block_plain(x, layer.intermediate, layer.output),
+            [2 * M * Hd * I, 2 * M * I * Hd]),
+        f"co_text_block [{B}, {L}, {Hd}] x [{B}, {Rg}, {Bi}]": (
+            lambda: co.co_text_block(t_x, v_x, im, conn, num_heads=8),
+            lambda: co.co_text_block_plain(t_x, v_x, im, conn, num_heads=8),
+            [2 * Mc * Hd * Bi, 2 * 2 * B * Rg * Bi * Bi, 4 * Mc * Rg * Bi,
+             2 * Mc * Bi * Hd])}
+    out = {}
+    for name, (kern, plain, flops) in runs.items():
+        got, want = kern(), plain()
+        launches = []
+        for i, (kname, ms) in enumerate(_launch_split(kern)):
+            row = dict(kernel=kname, ms=ms)
+            if i < len(flops):
+                row["tflops"] = flops[i] / ms / 1e9
+            launches.append(row)
+        out[name] = dict(
+            ms=_device_ms(kern), host_us=_host_us(kern),
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            rel_errs=_rel([got], [want]), same_bits=torch.equal(got, kern()),
+            launches=launches)
+    return out
+
+
 def step_times(dev, impl, steps, remat=False):
     import numpy as np
 
@@ -228,6 +313,7 @@ def main(argv=None):
                     choices=("pallas_block", "pallas"))
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--forward", action="store_true")
+    ap.add_argument("--gemm", action="store_true")
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -244,6 +330,8 @@ def main(argv=None):
         res = step_times(dev, args.train_step, args.steps, args.remat)
     elif args.forward:
         res = forward_times(dev)
+    elif args.gemm:
+        res = gemm_times(dev)
     else:
         res = backward_times(dev)
     print(json.dumps({"label": args.label, **res}), flush=True)

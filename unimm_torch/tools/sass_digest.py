@@ -1,7 +1,9 @@
 """What the compiler made of the port's kernels: digests of the SASS of
-the attention forward kernels' instances (``seq_attn_kernel`` and
-``seq_attn_fwd_kernel``), to show that a change to another kernel left
-their machine code as it was, and ptxas's register and spill report per
+the attention kernels' instances (``seq_attn_kernel``,
+``seq_attn_fwd_kernel``, the backward's ``seq_attn_bwd_*``) and of the
+mma.sync GEMM core and output-projection kernel (``gemm_nt_kernel``,
+``out_ln_kernel``), to show that a change to another kernel left their
+machine code as it was, and ptxas's register and spill report per
 kernel.
 
     python3 -m unimm_torch.tools.sass_digest [--csrc DIR] [--out FILE]
@@ -11,16 +13,15 @@ Without ``--csrc`` it reads the objects ``ops/_build`` keeps beside the
 library (building it first if needed); with ``--csrc DIR`` it compiles that
 tree's ``*.cu`` (another commit's sources, say) with the same nvcc flags
 into a temporary directory. Every instance of ``seq_attn_kernel`` (the
-first design of the attention forward, kept for the probes B10 and B11)
-and of ``seq_attn_fwd_kernel`` (the one-pass forward of B4, B5, B6 and B9)
-is keyed by its source file and demangled name and hashed over its
+first design of the attention forward, kept for the probes B10 and B11),
+of ``seq_attn_fwd_kernel`` (the one-pass forward of B4, B5, B6 and B9), of
+the backward's two kernels (B5, B6), of ``gemm_nt_kernel`` and of
+``out_ln_kernel`` (K1, B4, B5, B10, B11) is keyed by its source file and
+demangled name and hashed over its
 ``cuobjdump -sass`` text (each instruction and its encoding, blanks
 collapsed). ``--out`` writes the digests and the nvcc version
 as JSON; ``--compare FILE`` prints, for each function of FILE, whether
-this build's SASS has the same digest. A record may carry ``renamed``,
-{recorded key: key in a later build}, for an instance whose template
-arguments changed while its code should not: it is compared under its new
-name.
+this build's SASS has the same digest.
 Needs the CUDA toolkit (nvcc, cuobjdump, cu++filt); no card.
 """
 
@@ -37,7 +38,8 @@ from pathlib import Path
 
 from unimm_torch.ops import _build
 
-PATTERNS = ("seq_attn_kernel", "seq_attn_fwd_kernel")
+PATTERNS = ("seq_attn_kernel", "seq_attn_fwd_kernel", "seq_attn_bwd_",
+            "gemm_nt_kernel", "out_ln_kernel")
 
 
 def _tool(name: str) -> str:
@@ -112,20 +114,13 @@ def digests(objects) -> dict:
     return dict(sorted(found.items()))
 
 
-def compare(recorded: dict, current: dict, renamed=None) -> dict:
+def compare(recorded: dict, current: dict) -> dict:
     """Each recorded function: "same", "differs" or "absent" in
-    ``current``, under its key in ``renamed`` if it has one (reported as
-    "<recorded key> -> <current key>"); the functions only ``current`` has:
-    "new"."""
-    renamed = renamed or {}
-    out = {}
-    for k, v in recorded.items():
-        k2 = renamed.get(k, k)
-        out[k if k2 == k else f"{k} -> {k2}"] = (
-            "absent" if k2 not in current else
-            "same" if current[k2] == v else "differs")
-    seen = {renamed.get(k, k) for k in recorded}
-    out.update({k: "new" for k in current if k not in seen})
+    ``current``; the functions only ``current`` has: "new"."""
+    out = {k: "absent" if k not in current else
+           "same" if current[k] == v else "differs"
+           for k, v in recorded.items()}
+    out.update({k: "new" for k in current if k not in recorded})
     return out
 
 
@@ -178,8 +173,7 @@ def main(argv=None):
         recorded = json.loads(args.compare.read_text())
         print(json.dumps({"nvcc_recorded": recorded["nvcc"],
                           "nvcc": record["nvcc"],
-                          "sass": compare(recorded["digests"], current,
-                                          recorded.get("renamed"))}))
+                          "sass": compare(recorded["digests"], current)}))
     return 0
 
 
