@@ -17,18 +17,25 @@ prints its seconds):
      ptxas's registers and spills of every kernel, the one-pass forward's
      five instances (B6's forward, B9, B4, B5's forward with and without
      dropout) and the attention backward's two kernels (B6's and B5's
-     backward) with their shared memory and CTAs an SM, and the Hopper
-     GEMM core's four instances (K2, B8; fails on a spill of any), and
-     whether each recorded attention-kernel, gemm_nt_kernel and
-     out_ln_kernel instance kept the SASS of the parent commit's build
-     (tools/sass_digest; fails on one that differs under the same nvcc).
+     backward) with their shared memory and CTAs an SM, the Hopper GEMM
+     core's instances (K1, K2, B8), K1's attention kernel (with its shared
+     memory and CTAs an SM) and K3's logits kernel (fails on a spill of
+     any), and whether each recorded attention-kernel, gemm_nt_kernel,
+     out_ln_kernel and gemm_nt_wg_kernel instance kept the SASS of the
+     parent commit's build (tools/sass_digest; fails on one that differs
+     under the same nvcc).
   3. kernels: each kernel against its plain version on the same bf16
      inputs at full width, with the stated tolerance; kernel, plain and
      one-PyTorch-call (``library_ms``) times by CUDA events; the roofline
      bound from this run's shapes. K2 also at 1-300 rows and B8 at 1, 37
      and 64 regions, at WIDE_STD, each bit-equal when rerun and with
      controls that must miss (the twin with one 64-wide k tile of W1, W2
-     or Wd2 zeroed, or with the last row dropped).
+     or Wd2 zeroed, or with the last row dropped). K1 at WIDE_STD at four
+     shapes and on the scorer's own biases at two, its per-head context
+     too, bit-equal when rerun, the twin at lc - 1 and on options shifted
+     by a row missing the context bound; K3 at M 25600 and 1000,
+     bit-equal when rerun, the twin on labels one column on and without
+     the last vocab tile missing its bound.
   4. generative path: ``evaluate_split(mode="ll_sum")`` (prefix-cache
      scorer) at the default config (12 text / 6 vision / 6 connection
      layers, hidden 768 / 1024, vocab 30522) from a seeded init over 4
@@ -171,10 +178,11 @@ def seeded_module(make, gen, dev, std=0.02):
 
 # the SASS digests, taken with tools/sass_digest, of the instances of the
 # attention kernels (seq_attn_kernel, seq_attn_fwd_kernel, the backward's
-# seq_attn_bwd_*), of the mma.sync GEMM core gemm_nt_kernel and of
-# out_ln_kernel in the parent commit of the move of K2's and B8's products
-# onto gemm_wg.cuh (734f732): the instances that stayed (K1, B4, B5, B6,
-# B9, B10, B11) must keep that machine code
+# seq_attn_bwd_*), of the mma.sync GEMM core gemm_nt_kernel, of
+# out_ln_kernel and of the wgmma + TMA core gemm_nt_wg_kernel in the parent
+# commit of K1's and K3's redesign (43b20da): the instances that stayed
+# (B4, B5, B6, B9, B10, B11, and K2's and B8's on gemm_wg.cuh) must keep
+# that machine code; K1's mma.sync ones are gone
 SASS_RECORD = "unimm_torch/tools/kernel_sass.json"
 
 
@@ -197,12 +205,15 @@ def report_kernels():
     registers and spills (ptxas: 5 forward instances, B6, B9, B4 and B5's
     forward at dropout 0 and above; dq and dk / dv for B6, B5 and B5 at
     dropout 0), their shared memory and CTAs an SM at L 256 (the
-    runtime), and the Hopper GEMM core's (gemm_wg.cuh: gemm_nt_wg_kernel,
-    2 instances each for K2 and B8), failing on a spill;
-    then whether each recorded instance kept the SASS of SASS_RECORD's
-    build, failing on one that differs under the same nvcc."""
+    runtime), the Hopper GEMM core's (gemm_wg.cuh: gemm_nt_wg_kernel,
+    2 instances each for K1, K2 and B8), K1's attention kernel's (with its
+    shared memory and CTAs an SM) and K3's logits kernel's, failing on a
+    spill; then whether each recorded instance kept the SASS of
+    SASS_RECORD's build, failing on one that differs under the same
+    nvcc."""
     from pathlib import Path
 
+    from unimm_torch.ops import answer_block as k1
     from unimm_torch.ops import attention_block as ab
     from unimm_torch.ops import attention_block_train as abt
     from unimm_torch.ops import attention_v2 as av2
@@ -212,7 +223,13 @@ def report_kernels():
     report_spills("seq_attn_fwd_kernel", 5)
     report_spills("seq_attn_bwd_dq_kernel", 3)
     report_spills("seq_attn_bwd_dkdv_kernel", 3)
-    report_spills("gemm_nt_wg_kernel", 4)
+    # 7: K1's, K2's and B8's two each, and the residual instance that
+    # xent_head.cu compiles with gemm_wg.cuh's launch_gemm_residual_ln and
+    # never launches
+    report_spills("gemm_nt_wg_kernel", 7)
+    report_spills("answer_attn_kernel", 1)
+    report_spills("xent_wg_kernel", 1)
+    print(json.dumps({"answer_attn_kernel": k1.kernel_info()}), flush=True)
     print(json.dumps({"seq_attn_fwd_kernel": {
         "text_attention_fwd": ta.fwd_kernel_info(256),
         "attention_v2": av2.kernel_info(256),
@@ -245,8 +262,16 @@ def report_kernels():
 # move an intermediate bf16 rounding (q/k/v, probabilities, context, the
 # activation) by one step of 2^-8 relative. That reaches the LayerNorm
 # output as about one bf16 step of the output's magnitude, so K1 and K2
-# hold |d| <= 0.05 + 0.02 |y|. K3 sums 30522 exponentials and takes a log
-# in fp32 on both sides: |d| <= 2e-3 + 1e-4 |nll|.
+# hold |d| <= 0.05 + 0.02 |y|. K1's weights have std 0.05 (WIDE_STD), so
+# that y reacts to its attention, and its per-head context is held as
+# B5's below (B5_CTX_REL of the largest entry): its one-pass attention
+# (csrc/answer_block.cu) rounds the unnormalised p~ as B4's does; the
+# twin on the context bias at lc - 1, or on the row->row bias shifted by
+# one row and key (every option moved by one row), must miss that bound.
+# K3 sums 30522 exponentials and takes a log in fp32 on both sides
+# (the kernel by 256-column tiles and a combine): |d| <= 2e-3 +
+# 1e-4 |nll|; the twin on labels one column on, or without the last vocab
+# tile, must miss it.
 # B4 (attention_block) and B8 (co_text_block) round at the same points as
 # K1 (projections, q scale, probabilities, per-head context, LayerNorm
 # output; B4 its probabilities before their normalisation, see the
@@ -316,37 +341,104 @@ B5_CTX_REL = 2e-2
 WIDE_STD = 0.05
 
 
-def check_answer_block(dev, gen, Lcb, RB, G=40, P=1280):
-    import torch.nn.functional as F
+def real_rows(G, Lcb, RB, gen, O=100):
+    """The scorer's packed rows for G slates of O options (ans_len 2-8, so
+    2 ans_len rows each, packed by ``prefix.pack_option_rows``): (lc [G],
+    opt, rin, A_row [G, P]) on gen's device, the layout
+    ``PrefixScorer._answer_impl_packed`` builds its biases from."""
+    from unimm_torch.eval import prefix
+
+    dev = gen.device
+    rng = np.random.default_rng(int(torch.randint(
+        0, 2**31 - 1, (1,), generator=gen, device=dev)))
+    lc = rng.integers(2, Lcb + 1, G)
+    A = rng.integers(2, 9, (G, O))
+    n = 2 * A
+    starts, P = prefix.pack_option_rows(n, RB)
+    opt = np.full((G, P), O, np.int64)
+    rin = np.zeros((G, P), np.int64)
+    for g in range(G):
+        for o in range(O):
+            opt[g, starts[g, o]:starts[g, o] + n[g, o]] = o
+            rin[g, starts[g, o]:starts[g, o] + n[g, o]] = np.arange(n[g, o])
+    A_row = np.take_along_axis(np.concatenate([A, np.zeros((G, 1), A.dtype)],
+                                              1), opt, 1)
+    return tuple(torch.from_numpy(a).to(dev) for a in (lc, opt, rin, A_row))
+
+
+def answer_inputs(dev, gen, Lcb, RB, G, P, real):
+    """K1's case: x, kc, vc, the biases (b_ctx, b_rr), the layer at
+    WIDE_STD, and the controls' biases: b_ctx at lc - 1 (the last context
+    key closed) and b_rr shifted one row and key down its diagonal (each
+    option's rows moved by one). ``real``: the scorer's biases
+    (``prefix.answer_biases``) on packed rows of 2-8 token answers, P as
+    the packing gives it; else context keys [1, lc) and random options of
+    about 8 rows, causal inside."""
+    from unimm_torch.eval import prefix
     from unimm_torch.models import vilbert
-    from unimm_torch.ops.answer_block import answer_block, answer_block_plain
     from unimm_torch.ops.masks import NEG_INF
 
-    H, D, Hd = 12, 64, 768
-    attn = seeded_module(lambda: vilbert._attention(Hd), gen, dev)
+    Hd = 768
+    attn = seeded_module(lambda: vilbert._attention(Hd), gen, dev,
+                         std=WIDE_STD)
+    if real:
+        lc, opt, rin, A_row = real_rows(G, Lcb, RB, gen)
+        P = opt.shape[1]
+
+        def biases(lc_):
+            return prefix.answer_biases(lc_, opt, rin, A_row, 100, Lcb, RB)
+        b_ctx, b_rr = biases(lc)
+    else:
+        lc = torch.randint(2, Lcb + 1, (G,), generator=gen, device=dev)
+        PB = P // RB
+        opt = torch.cumsum(torch.rand(G, PB, RB, generator=gen, device=dev)
+                           < 0.12, -1)
+        r = torch.arange(RB, device=dev)
+        open_ = (((opt[..., :, None] == opt[..., None, :])
+                  & (r[None, :] <= r[:, None]))
+                 | torch.eye(RB, dtype=torch.bool, device=dev))
+        b_rr = torch.where(open_, 0.0, NEG_INF).float().contiguous()
+
+        def biases(lc_):
+            j = torch.arange(Lcb, device=dev)
+            return (torch.where((j >= 1) & (j < lc_[:, None]), 0.0,
+                                NEG_INF).float()[:, None, :].contiguous(),
+                    b_rr)
+        b_ctx, _ = biases(lc)
     x = torch.randn(G, P, Hd, generator=gen, device=dev).to(torch.bfloat16)
     tc = torch.randn(G, Lcb, Hd, generator=gen, device=dev).to(torch.bfloat16)
     kc = vilbert.linear(attn.self.key, tc)
     vc = vilbert.linear(attn.self.value, tc)
-    lc = torch.randint(2, Lcb + 1, (G,), generator=gen, device=dev)
-    j = torch.arange(Lcb, device=dev)
-    b_ctx = torch.where((j >= 1) & (j < lc[:, None]), 0.0,
-                        NEG_INF).float()[:, None, :].contiguous()
-    # block-diagonal option structure: options of 2..16 rows, causal inside
+    controls = {"lc_minus_1": (biases(lc - 1)[0], b_rr),
+                "rr_shift": (b_ctx, torch.roll(b_rr, (1, 1), (-2, -1)))}
+    return attn, x, kc, vc, b_ctx, b_rr, controls
+
+
+def check_answer_block(dev, gen, Lcb, RB, G=40, P=1280, real=False):
+    """K1 against its plain twin at WIDE_STD: y within TOL, the per-head
+    context (``return_ctx``) within B5_CTX_REL of its largest entry, both
+    bit-equal when rerun; the twin on each control's biases must miss the
+    context bound."""
+    import torch.nn.functional as F
+    from unimm_torch.ops.answer_block import (answer_block,
+                                              answer_block_plain,
+                                              answer_chunk_table)
+    from unimm_torch.ops.masks import NEG_INF
+
+    H, D, Hd = 12, 64, 768
+    attn, x, kc, vc, b_ctx, b_rr, controls = answer_inputs(
+        dev, gen, Lcb, RB, G, P, real)
+    P = x.shape[1]
     PB = P // RB
-    opt = torch.cumsum(torch.rand(G, PB, RB, generator=gen, device=dev)
-                       < 0.12, -1)
-    r = torch.arange(RB, device=dev)
-    open_ = ((opt[..., :, None] == opt[..., None, :])
-             & (r[None, :] <= r[:, None])) | torch.eye(RB, dtype=torch.bool,
-                                                       device=dev)
-    b_rr = torch.where(open_, 0.0, NEG_INF).float().contiguous()
+    table = answer_chunk_table(b_ctx, b_rr)   # once, as the scorer does
 
-    def kern():
-        return answer_block(x, kc, vc, b_ctx, b_rr, attn, num_heads=H)
+    def kern(ret=False):
+        return answer_block(x, kc, vc, b_ctx, b_rr, attn, num_heads=H,
+                            table=table, return_ctx=ret)
 
-    def plain():
-        return answer_block_plain(x, kc, vc, b_ctx, b_rr, attn, num_heads=H)
+    def plain(bc=b_ctx, br=b_rr, ret=False):
+        return answer_block_plain(x, kc, vc, bc, br, attn, num_heads=H,
+                                  return_ctx=ret)
 
     def library():
         ps, po = attn.self, attn.output
@@ -372,17 +464,37 @@ def check_answer_block(dev, gen, Lcb, RB, G=40, P=1280):
         return F.layer_norm(h, (Hd,), po.LayerNorm.weight,
                             po.LayerNorm.bias, 1e-12)
 
-    got, want = kern(), plain()
+    got, got_ctx = kern(True)
+    again, again_ctx = kern(True)
+    want, want_ctx = plain(ret=True)
     torch.cuda.synchronize()
+    same = torch.equal(got, again) and torch.equal(got_ctx, again_ctx)
     err, rel, ok = within(got, want, *TOL["answer_block"])
-    M, NK = G * P, Lcb + RB
-    flops = 8 * M * Hd * Hd + 4 * M * NK * Hd
+    ctx_rel = rel_err(got_ctx, want_ctx)
+    ctrl = {k: rel_err(got_ctx, plain(bc, br, True)[1])
+            for k, (bc, br) in controls.items()}
+    missed = all(v > B5_CTX_REL for v in ctrl.values())
+    if not missed:
+        raise SystemExit(f"answer_block: the context check passes a "
+                         f"control ({ctrl})")
+    # the attention's work is the open (row, key) pairs of this run's
+    # biases (a row that attends no key weighs every key)
+    M, K = G * P, Lcb + RB
+    open_ctx = (b_ctx > NEG_INF).sum(-1).expand(G, P)
+    open_rr = (b_rr > NEG_INF).sum(-1).reshape(G, P)
+    pairs = open_ctx + open_rr
+    pairs = int(torch.where(pairs > 0, pairs, K).sum())
+    flops = 8 * M * Hd * Hd + 4 * pairs * Hd
     nbytes = (2 * M * Hd * 2 + 2 * G * Lcb * Hd * 2 + G * Lcb * 4
               + G * PB * RB * RB * 4 + 4 * (Hd * Hd + Hd) * 2 + 2 * Hd * 2)
     b_ms, b_by = bound(flops, nbytes)
-    return dict(shape=f"G={G} P={P} Lcb={Lcb} RB={RB}", max_abs_err=err,
-                max_rel_err=rel, ok=ok, ms=time_ms(kern, 10),
-                plain_ms=time_ms(plain, 3, 1), bound_ms=b_ms, bound_by=b_by,
+    return dict(shape=f"G={G} P={P} Lcb={Lcb} RB={RB}"
+                + (" scorer biases" if real else ""), max_abs_err=err,
+                max_rel_err=rel, ctx_rel_err=ctx_rel,
+                control_rel_errs=ctrl, bit_equal=same,
+                ok=ok and same and ctx_rel <= B5_CTX_REL,
+                ms=time_ms(kern, 10), plain_ms=time_ms(plain, 3, 1),
+                bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(library, 10))
 
 
@@ -466,6 +578,10 @@ def check_ffn_block(dev, gen, N=200, R=256, std=0.02, controls=False):
 
 
 def check_xent_head(dev, gen, M=25600, V=30522):
+    """K3 against its plain twin, bit-equal when rerun; the twin with the
+    labels one column on, or with the last vocab tile (columns past
+    256 (ceil(V / 256) - 1), which hold lab[0]) dropped from the softmax,
+    must miss the bound."""
     import torch.nn.functional as F
     from unimm_torch.ops.xent_head import xent_head, xent_head_plain
 
@@ -489,14 +605,22 @@ def check_xent_head(dev, gen, M=25600, V=30522):
                                ignore_index=-1)
 
     got, want = kern(), plain()
+    same = torch.equal(got, kern())
     torch.cuda.synchronize()
     err, rel, ok = within(got, want, *TOL["xent_head"])
-    ok = ok and bool((got[lab == -1] == 0).all())
+    ok = ok and same and bool((got[lab == -1] == 0).all())
+    b_drop = b.clone()
+    b_drop[(V - 1) // 256 * 256:] = -1e4
+    ctrl = gemm_controls("xent_head", got, {
+        "labels_shifted": xent_head_plain(
+            h, w, b, torch.where(lab == -1, lab, (lab + 1) % V)),
+        "last_tile_dropped": xent_head_plain(h, w, b_drop, lab)})
     flops = 2 * M * Hd * V
     nbytes = M * Hd * 2 + V * Hd * 2 + V * 4 + M * 8 + M * 4
     b_ms, b_by = bound(flops, nbytes)
     return dict(shape=f"M={M} V={V}", max_abs_err=err, max_rel_err=rel,
-                ok=ok, ms=time_ms(kern, 5), plain_ms=time_ms(plain, 2, 1),
+                ok=ok, bit_equal=same, control_max_abs_errs=ctrl,
+                ms=time_ms(kern, 5), plain_ms=time_ms(plain, 2, 1),
                 bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 5))
 
 
@@ -1251,7 +1375,10 @@ def phase_kernels(dev):
         "answer_block": [check_answer_block(dev, gen, 192, 64),
                          check_answer_block(dev, gen, 256, 256),
                          check_answer_block(dev, gen, 224, 256, G=4),
-                         check_answer_block(dev, gen, 96, 64, G=4, P=512)],
+                         check_answer_block(dev, gen, 96, 64, G=4, P=512),
+                         check_answer_block(dev, gen, 192, 64, real=True),
+                         check_answer_block(dev, gen, 256, 256,
+                                            real=True)],
         # then row tails of the 128-row and 64-row tiles (M = 1 .. 300)
         # at WIDE_STD with the lost-tile and lost-row controls
         "ffn_block": [check_ffn_block(dev, gen),

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same bf16 inputs, at the kernels' width (768) and small
 batches (K2 and B8, on the Hopper GEMM cores, also at row tails and 1-64
-regions with bit-equal reruns and lost-tile / lost-row controls), plus
+regions with bit-equal reruns and lost-tile / lost-row controls; K1 with
+its per-head context, on the scorer's biases too, and K3, each with
+controls that must miss and bit-equal reruns), plus
 the wrappers' refusals, a short prefix-scorer run through
 its three kernels, a short flat-scorer run through its three, and the
 training attention block (forward and backward, with dropout, the
@@ -84,6 +86,34 @@ def test_answer_block_matches_plain(dev, Lcb, RB, P):
     want = tab.answer_block_plain(x, kc, vc, b_ctx, b_rr, attn,
                                   num_heads=12)
     _close(got, want, 5e-2, 2e-2)
+
+
+@pytest.mark.parametrize("Lcb,RB,P,real", [(96, 64, 512, False),
+                                           (224, 256, 512, False),
+                                           (192, 64, 0, True),
+                                           (256, 256, 0, True)])
+def test_answer_block_context_controls_and_bits(dev, Lcb, RB, P, real):
+    """K1 as chip_smoke.py phase 3 holds it, at G 4: y and the per-head
+    context against the twin at WIDE_STD, the reruns bit-equal, and the
+    twin on the lc - 1 and shifted-options biases missing the context
+    bound (``check_answer_block`` raises if a control passes)."""
+    gen = torch.Generator(device=dev).manual_seed(Lcb + RB + real)
+    res = chip_smoke.check_answer_block(dev, gen, Lcb, RB, G=4, P=P,
+                                        real=real)
+    assert res["ok"], res
+
+
+def test_answer_block_takes_the_scorers_table(dev):
+    """A table built once (as the scorer builds it) gives the bits of the
+    call that builds its own."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    attn, x, kc, vc, b_ctx, b_rr, _ = chip_smoke.answer_inputs(
+        dev, gen, 160, 256, 3, 0, True)
+    table = tab.answer_chunk_table(b_ctx, b_rr)
+    assert torch.equal(
+        tab.answer_block(x, kc, vc, b_ctx, b_rr, attn, num_heads=12,
+                         table=table),
+        tab.answer_block(x, kc, vc, b_ctx, b_rr, attn, num_heads=12))
 
 
 def _mixed_desc(B, L, gen):
@@ -245,6 +275,16 @@ def test_xent_head_matches_plain(dev):
     want = txh.xent_head_plain(h, w, b, lab)
     _close(got, want, 2e-3, 1e-4)
     assert (got[lab == -1] == 0).all()
+
+
+@pytest.mark.parametrize("M,V", [(1000, 30522), (129, 5000)])
+def test_xent_head_controls_and_bits(dev, M, V):
+    """K3 as chip_smoke.py phase 3 holds it: the twin's bound, the rerun
+    bit-equal, and the shifted-label and dropped-tile controls missing
+    (``check_xent_head`` raises if one passes)."""
+    gen = torch.Generator(device=dev).manual_seed(M)
+    res = chip_smoke.check_xent_head(dev, gen, M=M, V=V)
+    assert res["ok"], res
 
 
 def test_wrappers_refuse_wrong_dtype(dev):

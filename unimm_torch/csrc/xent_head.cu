@@ -1,193 +1,234 @@
-// Online-softmax label head: nll[m] = logsumexp(h_m Wdec^T + b) - logit at
-// label[m], 0 where label[m] == -1.
+// Online-softmax label head (K3): nll[m] = logsumexp(h_m Wdec^T + b) -
+// logit at label[m], 0 where label[m] == -1.
 //
 // Replaces the TPU kernel unimm_tpu/ops/pallas_head.py:
 // online_softmax_xent_tpu (body _xent_kernel). On the TPU the vocab axis is
 // a sequential grid dimension carrying (max, exp-sum, true logit) in
-// scratch; here one CTA per 128-row block walks every 128-wide vocab tile
-// itself, so no state crosses CTAs. The hidden block stays in shared memory
-// for the whole sweep; decoder slices stream through a 3-stage cp.async
-// ring; the products are mma.sync m16n8k16 with fp32 accumulators, and each
-// [128, 128] logits tile is reduced in registers: 8 warps as 4 (32 rows) x
-// 2 (64 vocab columns) keep running (max, exp-sum, true logit) per row and
-// per column half, merged once at the end. The running max starts at -1e30
-// and the vocab tail reads as logit -1e30 (the TPU kernel's bias padding).
-// Only [M] NLL is written.
-// What bounds it on an H100: 2 * 768 * 30522 FLOP per row against 1.5 KB of
-// row input, so the tensor-core rate; each CTA also streams the whole
-// 47 MB decoder from L2.
-
-#include "common.cuh"
+// scratch. Here blocks run in no order, so the sweep is split in two
+// launches:
+//   1. xent_wg_kernel: the logits h Wdec^T on the wgmma + TMA mainloop of
+//      gemm_wg.cuh (2-D TMA loads with the 128-byte swizzle into a 4-stage
+//      mbarrier ring, a producer warpgroup, two consumer warpgroups on
+//      m64n256k16, setmaxnreg, one persistent CTA an SM over 128 x 256
+//      tiles), copied here with its own tile order and epilogue so that
+//      K2's and B8's gemm_nt_wg_kernel instances keep their machine code.
+//      Each consumer reduces its 64 x 256 fp32 fragment in registers to
+//      each row's (max, sum of exp(logit - max)) over the tile's vocab
+//      columns, bias added; columns past V read as -1e30 (the TPU kernel's
+//      bias padding, pallas_head.py:100-102; V = 30522 is not a multiple of
+//      256, and the TMA zero-fills the decoder rows past V). The pair goes
+//      to an fp32 scratch part [M, ceil(V / 256)] (25 MB at M 25600); the
+//      one lane whose column is the row's label writes its logit to
+//      label_logit [M].
+//   2. xent_combine_kernel: one warp a row merges the row's partials
+//      (max, then the rescaled sums) and writes nll.
+// No atomics: the result is the same bit for bit on every run.
+// What bounds it on an H100: 2 x 768 x 30522 flops a row (1.2 TFLOP at
+// M 25600, 1.21 ms at the bf16 peak) against 1.5 KB of row input and the
+// 47 MB decoder, so the tensor-core rate. 24 000 tiles at M 25600 spread
+// over 132 SMs leave no 1.5-wave tail (the first design's one CTA per
+// 128-row block gave 200 CTAs). The tiles go in groups of 16 row tiles
+// (on an H100 2.48 ms against 2.86 with the vocab tile fastest, PERF.md
+// section 6): within a
+// group the row tile changes fastest, so the CTAs in flight share a few
+// decoder tiles and a few hidden blocks, and the decoder is read from
+// device memory about once per group, not once per row tile. exp is
+// ex2.approx with log2(e) folded into one FFMA per logit.
+#include "gemm_wg.cuh"
 
 namespace {
 
-constexpr int XE_BM = 128, XE_VT = 128, XE_BK = 32, XE_STAGES = 3;
-constexpr int XE_THREADS = 256;
-constexpr int XE_LDH = HID + 8, XE_LDW = XE_BK + 8;
-constexpr size_t XE_SMEM = (size_t)XE_BM * XE_LDH * 2 +
-                           (size_t)XE_STAGES * XE_VT * XE_LDW * 2;
+constexpr int XW_GROUP = 16;  // row tiles of a tile group
+constexpr float XW_LOG2E = 1.4426950408889634f;
+constexpr float XW_PAD = -1e30f;
 
-__global__ void __launch_bounds__(XE_THREADS, 1)
-    xent_kernel(const bf16* __restrict__ hid, const int* __restrict__ labels,
-                const bf16* __restrict__ w, const float* __restrict__ b,
-                float* __restrict__ nll, int M, int V) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sH = reinterpret_cast<bf16*>(smem);        // [BM][LDH]
-  bf16* sW = sH + XE_BM * XE_LDH;                  // [STAGES][VT][LDW]
+__device__ __forceinline__ float xw_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const long m0 = (long)blockIdx.x * XE_BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp >> 1, wc = warp & 1;
-  const int gr = lane >> 2, gc = (lane & 3) * 2;
-  const int valid = rows_left(m0, M, XE_BM);
+// tile t's row and vocab tile: groups of XW_GROUP row tiles (the last one
+// smaller), the row tile fastest inside a group
+__device__ __forceinline__ void xw_tile(int t, int ntm, int ntn, int& tm,
+                                        int& tn) {
+  const int per = XW_GROUP * ntn;
+  const int grp = t / per, w = t - grp * per;
+  const int rows = min(XW_GROUP, ntm - grp * XW_GROUP);
+  tm = grp * XW_GROUP + w % rows;
+  tn = w / rows;
+}
 
-  stage_tile(sH, XE_LDH, hid + m0 * HID, HID, XE_BM, HID, valid, tid,
-             XE_THREADS);
-  cp_commit();
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    xent_wg_kernel(const __grid_constant__ WgMaps maps, const int M,
+                   const int V, const float* __restrict__ bias,
+                   const int* __restrict__ labels, float2* __restrict__ part,
+                   float* __restrict__ label_logit) {
+  constexpr int S = WG_STAGES, NJ = WG_BN / 8, NK = HID / WG_BK;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sa = wg_smem_base(smem_raw);         // [S] A tiles
+  const uint32_t sb = sa + S * WG_A_TILE;             // [S] B tiles
+  const uint32_t full = sb + S * WG_B_TILE;           // [S] mbarriers
+  const uint32_t empty = full + 8 * S;                // [S] mbarriers
+  const int ntm = (M + WG_BM - 1) / WG_BM, ntn = (V + WG_BN - 1) / WG_BN;
+  const int tiles = ntm * ntn;
+  const int wg = threadIdx.x / 128;
 
-  // running state of this thread's rows: slot 2 i + hh is local row
-  // 32 wr + 16 i + gr + 8 hh; replicated over the lane quad
-  float rm[4], rl[4], rt[4];
-  int lab[4];
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const long row = m0 + wr * 32 + (s >> 1) * 16 + gr + (s & 1) * 8;
-    lab[s] = row < M ? labels[row] : -1;
-    rm[s] = -1e30f;
-    rl[s] = 0.f;
-    rt[s] = 0.f;
-  }
-
-  const int n_vt = (V + XE_VT - 1) / XE_VT;
-  constexpr int NK = HID / XE_BK;
-  const int steps = n_vt * NK;
-  auto stage = [&](int s) {
-    const int vt = s / NK, kt = s - vt * NK;
-    const int v0 = vt * XE_VT;
-    stage_tile(sW + (s % XE_STAGES) * XE_VT * XE_LDW, XE_LDW,
-               w + (long)v0 * HID + kt * XE_BK, HID, XE_VT, XE_BK,
-               min(XE_VT, V - v0), tid, XE_THREADS);
-  };
-#pragma unroll
-  for (int s = 0; s < XE_STAGES - 1; ++s) {
-    if (s < steps) stage(s);
-    cp_commit();
-  }
-  const int a_off = (wr * 32 + (lane & 15)) * XE_LDH + (lane >> 4) * 8;
-  const int b_off = (wc * 64 + (lane & 7) + ((lane >> 4) << 3)) * XE_LDW +
-                    ((lane >> 3) & 1) * 8;
-
-  float acc[2][8][4];
-  for (int s = 0; s < steps; ++s) {
-    const int vt = s / NK, kt = s - vt * NK;
-    if (kt == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int t = 0; t < 4; ++t) acc[i][j][t] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
     }
-    cp_wait<XE_STAGES - 2>();
-    __syncthreads();
-    const int pf = s + XE_STAGES - 1;
-    if (pf < steps) stage(pf);
-    cp_commit();
-    const bf16* a = sH + a_off + kt * XE_BK;
-    const bf16* bw = sW + (s % XE_STAGES) * XE_VT * XE_LDW + b_off;
-#pragma unroll
-    for (int kk = 0; kk < XE_BK; kk += 16) {
-      uint32_t af[2][4], bfr[4][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) ldmatrix_x4(af[i], a + i * 16 * XE_LDH + kk);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        ldmatrix_x4(bfr[jj], bw + jj * 16 * XE_LDW + kk);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          mma_bf16(acc[i][2 * jj], af[i], bfr[jj][0], bfr[jj][1]);
-          mma_bf16(acc[i][2 * jj + 1], af[i], bfr[jj][2], bfr[jj][3]);
-        }
-    }
-    if (kt != NK - 1) continue;
-
-    // the vocab tile is complete: online (max, exp-sum, true logit) update
-    const int c0 = vt * XE_VT + wc * 64 + gc;
-#pragma unroll
-    for (int sl = 0; sl < 4; ++sl) {
-      const int i = sl >> 1, hh = sl & 1;
-      float lg[16];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = c0 + j * 8 + e;
-          const float v = col < V ? acc[i][j][2 * hh + e] + b[col] : -1e30f;
-          lg[2 * j + e] = v;
-          cmax = fmaxf(cmax, v);
-          if (col == lab[sl]) rt[sl] = v;
-        }
-      cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
-      cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 2));
-      const float nm = fmaxf(rm[sl], cmax);
-      float es = 0.f;
-#pragma unroll
-      for (int u = 0; u < 16; ++u) es += expf(lg[u] - nm);
-      es += __shfl_xor_sync(0xffffffffu, es, 1);
-      es += __shfl_xor_sync(0xffffffffu, es, 2);
-      rl[sl] = rl[sl] * expf(rm[sl] - nm) + es;
-      rm[sl] = nm;
-    }
-  }
-
-  // the true logit sits in one lane of one column half: sum it over the
-  // quad, then merge the two column halves' states through shared memory
-#pragma unroll
-  for (int sl = 0; sl < 4; ++sl) {
-    rt[sl] += __shfl_xor_sync(0xffffffffu, rt[sl], 1);
-    rt[sl] += __shfl_xor_sync(0xffffffffu, rt[sl], 2);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  float* mrg = reinterpret_cast<float*>(sW);       // [BM][3]
-  if (wc == 1 && (lane & 3) == 0) {
+
+  if (wg == 2) {  // producer
+    regs_dec<WG_PROD_REGS>();
+    if (threadIdx.x == 256) {
+      int it = 0;  // k tiles loaded by this CTA so far
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int tm, tn;
+        xw_tile(t, ntm, ntn, tm, tn);
+        for (int kt = 0; kt < NK; ++kt, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(empty + 8 * s, ((it / S) - 1) & 1);
+          mbar_expect_tx(full + 8 * s, WG_A_TILE + WG_B_TILE);
+          tma_load(sa + s * WG_A_TILE, &maps.a, kt * WG_BK, tm * WG_BM,
+                   full + 8 * s);
+          tma_load(sb + s * WG_B_TILE, &maps.b[0], kt * WG_BK, tn * WG_BN,
+                   full + 8 * s);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<WG_CONS_REGS>();
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int q = lane & 3, gc = q * 2;
+  float acc[NJ][4];
 #pragma unroll
-    for (int sl = 0; sl < 4; ++sl) {
-      const int r = wr * 32 + (sl >> 1) * 16 + gr + (sl & 1) * 8;
-      mrg[3 * r] = rm[sl];
-      mrg[3 * r + 1] = rl[sl];
-      mrg[3 * r + 2] = rt[sl];
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc[j][t] = 0.f;
+  int it = 0;  // k tiles consumed by this CTA so far
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int tm, tn;
+    xw_tile(t, ntm, ntn, tm, tn);
+    for (int kt = 0; kt < NK; ++kt, ++it) {
+      const int s = it % S;
+      mbar_wait(full + 8 * s, (it / S) & 1);
+      __syncwarp();  // the warp converged for the .aligned wgmma
+      const uint64_t da = wg_desc(sa + s * WG_A_TILE + wg * 64 * WG_ROW);
+      const uint64_t db = wg_desc(sb + s * WG_B_TILE);
+      wg_pin(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        wg_ss<NJ>(acc, da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+      wg_commit();
+      wg_wait<1>();  // the products of the stage before are done
+      wg_pin(acc);
+      if (kt > 0 && threadIdx.x % 128 == 0)
+        mbar_arrive(empty + 8 * ((it - 1) % S));
+    }
+    wg_wait0();
+    wg_pin(acc);
+    if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * ((it - 1) % S));
+
+    // the fragment: rows gr (h 0) and gr + 8 (h 1) of the warp's 16, the
+    // quad's lanes holding 64 columns each
+    const int n0 = tn * WG_BN;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = tm * WG_BM + wg * 64 + w * 16 + (lane >> 2) + h * 8;
+      const int lab = row < M ? __ldg(labels + row) : -1;
+      float mx = XW_PAD;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = n0 + j * 8 + gc;
+        const float v0 =
+            col < V ? acc[j][2 * h] + __ldg(bias + col) : XW_PAD;
+        const float v1 =
+            col + 1 < V ? acc[j][2 * h + 1] + __ldg(bias + col + 1) : XW_PAD;
+        acc[j][2 * h] = v0;
+        acc[j][2 * h + 1] = v1;
+        mx = fmaxf(mx, fmaxf(v0, v1));
+        if (col == lab) label_logit[row] = v0;
+        if (col + 1 == lab) label_logit[row] = v1;
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mc = mx * XW_LOG2E;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        sum += xw_ex2(fmaf(acc[j][2 * h], XW_LOG2E, -mc)) +
+               xw_ex2(fmaf(acc[j][2 * h + 1], XW_LOG2E, -mc));
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (q == 0 && row < M)
+        part[(long)row * ntn + tn] = make_float2(mx, sum);
     }
   }
-  __syncthreads();
-  if (wc == 0 && (lane & 3) == 0) {
-#pragma unroll
-    for (int sl = 0; sl < 4; ++sl) {
-      const int r = wr * 32 + (sl >> 1) * 16 + gr + (sl & 1) * 8;
-      if (m0 + r >= M) continue;
-      const float pm = mrg[3 * r], pl = mrg[3 * r + 1], pt = mrg[3 * r + 2];
-      const float mx = fmaxf(rm[sl], pm);
-      const float l = rl[sl] * expf(rm[sl] - mx) + pl * expf(pm - mx);
-      nll[m0 + r] =
-          lab[sl] == -1 ? 0.f : (mx + logf(l)) - (rt[sl] + pt);
-    }
+}
+
+constexpr int XC_WARPS = 8;
+
+// nll[row] = (max + log(sum of sum_t exp(max_t - max))) - label logit
+__global__ void __launch_bounds__(XC_WARPS * 32)
+    xent_combine_kernel(const float2* __restrict__ part,
+                        const float* __restrict__ label_logit,
+                        const int* __restrict__ labels,
+                        float* __restrict__ nll, int M, int ntn) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * XC_WARPS + warp;
+  if (row >= M) return;
+  if (labels[row] == -1) {
+    if (lane == 0) nll[row] = 0.f;
+    return;
   }
+  const float2* p = part + row * ntn;
+  float mx = XW_PAD;
+  for (int t = lane; t < ntn; t += 32) mx = fmaxf(mx, p[t].x);
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int t = lane; t < ntn; t += 32) sum += p[t].y * expf(p[t].x - mx);
+  sum = warp_sum(sum);
+  if (lane == 0) nll[row] = (mx + logf(sum)) - label_logit[row];
 }
 
 }  // namespace
 
 extern "C" int unimm_xent_head(const void* hid, const void* labels,
-                               const void* w, const void* b, void* nll,
-                               int M, int V, void* stream) {
+                               const void* w, const void* b, void* part,
+                               void* label_logit, void* nll, int M, int V,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaFuncSetAttribute(xent_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)XE_SMEM);
-  xent_kernel<<<(M + XE_BM - 1) / XE_BM, XE_THREADS, XE_SMEM, st>>>(
-      static_cast<const bf16*>(hid), static_cast<const int*>(labels),
-      static_cast<const bf16*>(w), static_cast<const float*>(b),
-      static_cast<float*>(nll), M, V);
+  if (M < 1 || V < 1) return cudaErrorInvalidValue;
+  WgMaps maps;
+  cudaError_t err = tma_map(&maps.a, hid, M, HID, WG_BM);
+  if (err == cudaSuccess) err = tma_map(&maps.b[0], w, V, HID, WG_BN);
+  if (err != cudaSuccess) return err;
+  static const cudaError_t ready =
+      prepare_kernel(xent_wg_kernel, WG_THREADS,
+                     128 * WG_PROD_REGS + 256 * WG_CONS_REGS, WG_SMEM);
+  if (ready != cudaSuccess) return ready;
+  const int ntn = (V + WG_BN - 1) / WG_BN;
+  const int tiles = ((M + WG_BM - 1) / WG_BM) * ntn;
+  const int sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  xent_wg_kernel<<<tiles < sms ? tiles : sms, WG_THREADS, WG_SMEM, st>>>(
+      maps, M, V, static_cast<const float*>(b),
+      static_cast<const int*>(labels), static_cast<float2*>(part),
+      static_cast<float*>(label_logit));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  xent_combine_kernel<<<(M + XC_WARPS - 1) / XC_WARPS, XC_WARPS * 32, 0,
+                        st>>>(
+      static_cast<const float2*>(part),
+      static_cast<const float*>(label_logit),
+      static_cast<const int*>(labels), static_cast<float*>(nll), M, ntn);
   return cudaGetLastError();
 }

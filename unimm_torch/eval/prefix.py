@@ -32,6 +32,7 @@ queued in ROADMAP.md.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -41,7 +42,8 @@ import torch
 from unimm_torch.config import VilbertConfig
 from unimm_torch.models import unimm, vilbert
 from unimm_torch.ops import masks
-from unimm_torch.ops.answer_block import answer_block, answer_block_plain
+from unimm_torch.ops.answer_block import (answer_block, answer_block_plain,
+                                          answer_chunk_table)
 from unimm_torch.ops.ffn_block import ffn_block, ffn_block_plain
 from unimm_torch.ops.xent_head import xent_head, xent_head_plain
 
@@ -115,6 +117,33 @@ def pack_option_rows(n, rb: int, p_quantum: int = 256):
     q = rb * p_quantum // math.gcd(rb, p_quantum)
     P = int(-(-int(cum.max()) // q) * q)
     return starts, max(P, q)
+
+
+def answer_biases(lc, opt, rin, A_row, O: int, Lcb: int, RB: int):
+    """The answer pass's layer-independent additive fp32 biases of packed
+    rows: ``b_ctx`` [G, 1, Lcb], context keys open on [1, lc), and the
+    blocked row->row ``b_rr`` [G, PB, RB, RB]: same option AND the
+    within-option rule (first copy causal, masked copy strictly before
+    i - A), self always open. ``lc`` [G]; ``opt`` (O marks packing
+    padding), ``rin`` (the row's index inside its option) and ``A_row``
+    (its option's ans_len) [G, P]."""
+    neg = masks.NEG_INF
+    G, P = opt.shape
+    PB = P // RB
+    dev = opt.device
+    jc = torch.arange(Lcb, device=dev)
+    ctx_open = (jc[None, :] >= 1) & (jc[None, :] < lc[:, None])
+    b_ctx = torch.where(ctx_open, 0.0, neg).float()[:, None, :]
+    first = (opt < O) & (rin < A_row)
+    ob = opt.reshape(G, PB, RB)
+    rnb = rin.reshape(G, PB, RB)
+    anb = A_row.reshape(G, PB, RB)
+    fq = first.reshape(G, PB, RB)[..., :, None]
+    same = (ob[..., :, None] == ob[..., None, :]) & (ob[..., :, None] < O)
+    rq, ks = rnb[..., :, None], rnb[..., None, :]
+    rr_open = same & torch.where(fq, ks <= rq, ks < (rq - anb[..., :, None]))
+    rr_open = rr_open | torch.eye(RB, dtype=torch.bool, device=dev)
+    return b_ctx, torch.where(rr_open, 0.0, neg).float()
 
 
 class PrefixScorer:
@@ -215,7 +244,6 @@ class PrefixScorer:
         RB = rb
         if P % RB:
             raise ValueError(f"packed length {P} not a multiple of {RB}")
-        PB = P // RB
         dev = rows["tokens"].device
         lc = rows["lc"].long()
         opt = rows["opt_id"].long()
@@ -236,27 +264,16 @@ class PrefixScorer:
                                     dtype=self.dtype)
 
         # --- biases (fp32, layer-independent) ---
-        neg = masks.NEG_INF
         Lcb = caches["t"][0].shape[1]
-        jc = torch.arange(Lcb, device=dev)
-        ctx_open = (jc[None, :] >= 1) & (jc[None, :] < lc[:, None])
-        b_ctx = torch.where(ctx_open, 0.0, neg).float()[:, None, :]
-        # blocked row->row bias [G, PB, RB, RB]: same option AND the
-        # within-option rule (first copy causal, masked copy strictly
-        # before i - A), self always open
-        ob = opt.reshape(G, PB, RB)
-        rnb = rin.reshape(G, PB, RB)
-        anb = A_row.reshape(G, PB, RB)
-        fq = first.reshape(G, PB, RB)[..., :, None]
-        same = (ob[..., :, None] == ob[..., None, :]) & (ob[..., :, None] < O)
-        rq, ks = rnb[..., :, None], rnb[..., None, :]
-        rr_open = same & torch.where(fq, ks <= rq, ks < (rq - anb[..., :, None]))
-        rr_open = rr_open | torch.eye(RB, dtype=torch.bool, device=dev)
-        b_rr = torch.where(rr_open, 0.0, neg).float()
+        b_ctx, b_rr = answer_biases(lc, opt, rin, A_row, O, Lcb, RB)
         b_img = masks.image_self_bias(rows["image_mask"])  # [G, 1, 1, Rg]
 
         use_kernel = cfg.attention_impl == "pallas_block"
-        attn = answer_block if use_kernel else answer_block_plain
+        if use_kernel:    # the kernel's chunk states, shared by the layers
+            attn = functools.partial(
+                answer_block, table=answer_chunk_table(b_ctx, b_rr))
+        else:
+            attn = answer_block_plain
         head = xent_head if use_kernel else xent_head_plain
         ffn = self._make_ffn(use_kernel, P)
         nh_t = cfg.num_attention_heads

@@ -35,9 +35,12 @@ build_seconds = None  # wall time of the build this process ran, if any
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U32, _I64 = ctypes.c_uint, ctypes.c_long
 _SIGNATURES = {
-    "unimm_answer_block": [_VP] * 20 + [_INT] * 4 + [_F32, _VP],
+    # x, kc, vc, b_ctx, b_rr, table, ten weights, q, k, v, ctx, pre, out;
+    # G, P, Lcb, RB; eps
+    "unimm_answer_block": [_VP] * 22 + [_INT] * 4 + [_F32, _VP],
     "unimm_ffn_block": [_VP] * 10 + [_INT] * 3 + [_F32, _VP],
-    "unimm_xent_head": [_VP] * 5 + [_INT] * 2 + [_VP],
+    # hidden, labels, decoder, bias, partials, label logits, nll; M, V
+    "unimm_xent_head": [_VP] * 7 + [_INT] * 2 + [_VP],
     # ...; B, L, block_b; eps
     "unimm_attention_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
     "unimm_co_text_block": [_VP] * 19 + [_INT] * 3 + [_F32, _VP],
@@ -58,6 +61,7 @@ _SIGNATURES = {
                            + [_F32, _VP]),
     # L; out int32[4]
     "unimm_text_attention_fwd_info": [_INT, _VP],
+    "unimm_answer_block_info": [_INT, _VP],
     "unimm_attention_v2_info": [_INT, _VP],
     "unimm_attention_block_info": [_INT, _VP],
     # L, drop; out

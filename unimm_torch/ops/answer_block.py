@@ -6,10 +6,12 @@ sub-block (QKV projection of the answer rows, scores against the cached
 context K/V followed by the row block's own K/V, additive biases, fp32
 softmax, PV, head merge, output projection, residual, LayerNorm). On a CUDA
 tensor it launches the hand-written kernel in ``csrc/answer_block.cu``
-(three launches: Q/K/V projection, attention per (query tile, head,
-slate), output projection + LayerNorm); on a CPU tensor it runs
-``answer_block_plain``, which repeats the kernel's arithmetic and rounding
-points in plain PyTorch.
+(four launches: the Q/K/V projection and the output projection on the
+wgmma + TMA core of ``csrc/gemm_wg.cuh``, between them a one-pass
+attention per (64 query rows, head, slate) that skips the key chunks
+``answer_chunk_table`` closes, then the row LayerNorm); on a CPU tensor it
+runs ``answer_block_plain``, which repeats the kernel's arithmetic and
+rounding points in plain PyTorch.
 
 The attention masks arrive as two layer-independent additive fp32 biases:
 
@@ -17,6 +19,9 @@ The attention masks arrive as two layer-independent additive fp32 biases:
 * ``b_rr`` [G, PB, RB, RB]: the block-diagonal row->row bias (an option's
   rows attend only its own rows; first copy causal, masked copy strictly
   before i - A, self always open).
+
+``answer_chunk_table`` reads both once per dispatch into the kernel's
+per-(16 query rows, 64-key chunk) states, which every layer reuses.
 """
 
 from __future__ import annotations
@@ -26,10 +31,13 @@ import math
 import torch
 
 from unimm_torch.ops import _build
-from unimm_torch.ops.masks import NEG_INF
+from unimm_torch.ops.masks import KEY_CHUNK, NEG_INF, ROW_TILE
 
 HID = 768        # the width the CUDA kernel is built for
 HEAD_DIM = 64
+
+# the states of answer_chunk_table
+CHUNK_CLOSED, CHUNK_OPEN, CHUNK_MIXED = 0, 1, 2
 
 
 def pick_o_blk(O: int, W: int, target: int = 256) -> int:
@@ -56,6 +64,52 @@ def block_rr_bias(rr_open, o_blk: int):
     return bias.reshape(G, OB, o_blk * W, o_blk * W)
 
 
+def answer_chunk_table(b_ctx, b_rr):
+    """uint8 [G, PB, RB / ROW_TILE, NC]: the state of each KEY_CHUNK-key
+    chunk for each ROW_TILE query rows of a row block, the attention
+    kernel's skip rule (csrc/answer_block.cu), on the device of the biases
+    (also its CPU twin). The keys are the context's, in ceil(Lcb / 64)
+    chunks (the last one's keys past Lcb are padding), then the row
+    block's RB (a multiple of 64) in RB / 64 chunks, NC in all.
+
+    * CHUNK_CLOSED: every bias of the chunk is <= NEG_INF for every row of
+      the tile, and each of those rows has a key whose bias is above
+      NEG_INF: the kernel skips the chunk. Exact, since such a row's max
+      comes from a bias-0 key, so each masked key weighs exp(s - 10000 -
+      max) = 0 in fp32. A row whose biases close every key takes its
+      softmax over all of them (at s - 10000), so it closes no chunk.
+    * CHUNK_OPEN: 64 real keys, every bias 0 for every row: no bias read.
+    * CHUNK_MIXED: the rest; the kernel adds the bias (padding keys -inf).
+    """
+    G, PB, RB, _ = b_rr.shape
+    Lcb = b_ctx.shape[-1]
+    KC, RT = KEY_CHUNK, ROW_TILE
+    if RB % KC:
+        raise ValueError(f"answer_chunk_table: RB={RB} is not a multiple "
+                         f"of {KC}")
+    CC = -(-Lcb // KC)
+    bc = torch.nn.functional.pad(b_ctx.reshape(G, Lcb).float(),
+                                 (0, CC * KC - Lcb), value=float("-inf"))
+    real = (torch.arange(CC * KC, device=bc.device) < Lcb).reshape(CC, KC)
+    bc = bc.reshape(G, CC, KC)
+    ctx_closed = (bc <= NEG_INF).all(-1)                     # [G, CC]
+    ctx_open = ((bc == 0) & real).all(-1)
+    br = b_rr.float().reshape(G, PB, RB // RT, RT, RB // KC, KC)
+    rr_closed = (br <= NEG_INF).all(-1)                      # [.., RT, NR]
+    # a row with a key above NEG_INF anywhere
+    has_key = (~rr_closed).any(-1) | (~ctx_closed).any(-1)[:, None, None,
+                                                             None]
+    closed = torch.cat([
+        ctx_closed[:, None, None, None, :].expand(G, PB, RB // RT, RT, CC),
+        rr_closed], -1) & has_key[..., None]
+    opened = torch.cat([
+        ctx_open[:, None, None, :].expand(G, PB, RB // RT, CC),
+        (br == 0).all(-1).all(3)], -1)
+    state = torch.where(closed.all(3), CHUNK_CLOSED,
+                        torch.where(opened, CHUNK_OPEN, CHUNK_MIXED))
+    return state.to(torch.uint8).contiguous()
+
+
 def _weights(p_attn):
     ps, po = p_attn.self, p_attn.output
     return (ps.query.weight, ps.query.bias, ps.key.weight, ps.key.bias,
@@ -64,12 +118,13 @@ def _weights(p_attn):
 
 
 def answer_block_plain(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads,
-                       eps=1e-12):
+                       eps=1e-12, return_ctx=False):
     """Plain PyTorch version of the kernel, with its rounding points:
     projections accumulate in fp32 and round to x.dtype after the bias; q
     is scaled in fp32 and rounded; scores and softmax are fp32; the
     probabilities and each head's context round to x.dtype; the output
-    projection, bias, residual and LayerNorm run in fp32."""
+    projection, bias, residual and LayerNorm run in fp32. Under
+    ``return_ctx`` also the merged per-head context [G, P, Hd]."""
     wq, bq, wk, bk, wv, bv, wo, bo, gamma, beta = _weights(p_attn)
     dt = x.dtype
     G, P, Hd = x.shape
@@ -104,7 +159,8 @@ def answer_block_plain(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads,
     mean = h32.mean(-1, keepdim=True)
     var = (h32 - mean).square().mean(-1, keepdim=True)
     y = (h32 - mean) * torch.rsqrt(var + eps)
-    return (y * gamma.float() + beta.float()).to(dt)
+    y = (y * gamma.float() + beta.float()).to(dt)
+    return (y, ctx) if return_ctx else y
 
 
 def _require(cond, msg):
@@ -112,19 +168,24 @@ def _require(cond, msg):
         raise ValueError(f"answer_block: {msg}")
 
 
-def answer_block(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads, eps=1e-12):
+def answer_block(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads, eps=1e-12,
+                 table=None, return_ctx=False):
     """LayerNorm(x + Wo . attention(rows x, keys [kc ; row K], values
     [vc ; row V]) + bo) for packed answer rows.
 
     x [G, P, 768]; kc, vc [G, Lcb, 768] (the cached context projected by
     the layer's key/value Linear); b_ctx [G, 1, Lcb] fp32; b_rr [G, PB, RB,
     RB] fp32 with PB * RB == P; p_attn the layer's ``attention`` module in
-    the compute dtype. A CPU tensor runs ``answer_block_plain``; a CUDA
-    tensor launches the kernel (bf16 activations and weights) or raises.
+    the compute dtype; ``table`` ``answer_chunk_table(b_ctx, b_rr)``, built
+    here when not given (the scorer builds it once per dispatch). Under
+    ``return_ctx`` also the merged per-head context [G, P, 768]. A CPU
+    tensor runs ``answer_block_plain``; a CUDA tensor launches the kernel
+    (bf16 activations and weights) or raises.
     """
     if x.device.type == "cpu":
         return answer_block_plain(x, kc, vc, b_ctx, b_rr, p_attn,
-                                  num_heads=num_heads, eps=eps)
+                                  num_heads=num_heads, eps=eps,
+                                  return_ctx=return_ctx)
     weights = _weights(p_attn)
     G, P, Hd = x.shape
     _require(Hd == HID and Hd // num_heads == HEAD_DIM,
@@ -134,12 +195,11 @@ def answer_block(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads, eps=1e-12):
              and b_rr.shape[2] == b_rr.shape[3], f"b_rr {tuple(b_rr.shape)}")
     PB, RB = b_rr.shape[1], b_rr.shape[2]
     Lcb = kc.shape[1]
-    _require(PB * RB == P and RB % 32 == 0
-             and (RB <= 128 or RB % 128 == 0),
-             f"P={P} must be PB*RB with RB a multiple of 32, and of 128 "
-             f"above 128 (RB={RB})")
-    _require(Lcb % 16 == 0 and 64 <= Lcb + RB <= 1024,
-             f"Lcb={Lcb} must be a multiple of 16 with 64 <= Lcb+RB <= 1024")
+    _require(PB * RB == P and RB % KEY_CHUNK == 0 and RB <= 4 * KEY_CHUNK,
+             f"P={P} must be PB*RB with RB in (64, 128, 192, 256) "
+             f"(RB={RB})")
+    _require(Lcb % 16 == 0 and 16 <= Lcb <= 4 * KEY_CHUNK,
+             f"Lcb={Lcb} must be a multiple of 16 in [16, 256]")
     _require(tuple(kc.shape) == (G, Lcb, HID)
              and tuple(vc.shape) == (G, Lcb, HID), "kc/vc shape")
     _require(tuple(b_ctx.shape) == (G, 1, Lcb), "b_ctx shape")
@@ -152,21 +212,37 @@ def answer_block(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads, eps=1e-12):
     for t in (b_ctx, b_rr):
         _require(t.dtype == torch.float32,
                  f"b_ctx / b_rr must be float32, got {t.dtype}")
-    for t in (x, kc, vc, b_ctx, b_rr) + weights:
+    if table is None:
+        table = answer_chunk_table(b_ctx, b_rr)
+    NC = -(-Lcb // KEY_CHUNK) + RB // KEY_CHUNK
+    _require(table.dtype == torch.uint8
+             and tuple(table.shape) == (G, PB, RB // ROW_TILE, NC),
+             f"table must be answer_chunk_table's uint8 [{G}, {PB}, "
+             f"{RB // ROW_TILE}, {NC}], got {table.dtype} "
+             f"{tuple(table.shape)}")
+    for t in (x, kc, vc, b_ctx, b_rr, table) + weights:
         _require(t.device == x.device, "all tensors on one device")
         _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
                  "inputs must be contiguous and 16-byte aligned")
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     lib = _build.library()
     q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))
+    pre = torch.empty(G, P, Hd, dtype=torch.float32, device=x.device)
     code = lib.unimm_answer_block(
         x.data_ptr(), kc.data_ptr(), vc.data_ptr(), b_ctx.data_ptr(),
-        b_rr.data_ptr(), *(t.data_ptr() for t in weights), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), ctx.data_ptr(), out.data_ptr(), G, P,
+        b_rr.data_ptr(), table.data_ptr(),
+        *(t.data_ptr() for t in weights), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), ctx.data_ptr(), pre.data_ptr(), out.data_ptr(), G, P,
         Lcb, RB, eps, _build.stream(x.device))
     _build.check(code, "answer_block")
     answer_block.launches += 1
-    return out
+    return (out, ctx) if return_ctx else out
+
+
+def kernel_info() -> dict:
+    """The attention launch's kernel (``answer_attn_kernel``): registers
+    and local memory bytes a thread, shared memory a CTA, CTAs an SM."""
+    return _build.kernel_info("unimm_answer_block_info", 0)
 
 
 answer_block.launches = 0

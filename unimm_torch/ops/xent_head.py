@@ -3,10 +3,12 @@
 ``xent_head`` replaces the TPU kernel
 ``unimm_tpu/ops/pallas_head.py:online_softmax_xent_tpu`` (eval only). On a
 CUDA tensor it launches the hand-written kernel in ``csrc/xent_head.cu``
-(one CTA per 64-row block walks every vocab tile with a running max,
-exp-sum and true-label logit; only [M] NLL reaches device memory); on a CPU
-tensor it runs the plain version, ``ops/losses.online_softmax_xent``, the
-chunked vocab scan of the JAX package's XLA path.
+(the logits on a wgmma + TMA mainloop over 128 x 256 tiles, each tile
+reduced in registers to each row's (max, exp-sum) over its vocab columns
+and the label's logit, into an fp32 scratch; then one warp a row merges a
+row's partials into its NLL); on a CPU tensor it runs the plain version,
+``ops/losses.online_softmax_xent``, the chunked vocab scan of the JAX
+package's XLA path.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from unimm_torch.ops import _build
 from unimm_torch.ops.losses import online_softmax_xent as xent_head_plain
 
 HID = 768            # the width the CUDA kernel is built for
+VOCAB_TILE = 256     # the kernel's vocab columns a tile
 
 __all__ = ["xent_head", "xent_head_plain"]
 
@@ -56,10 +59,14 @@ def xent_head(hidden, decoder_weight, decoder_bias, labels):
     M = lab.numel()
     nll = torch.empty(labels.shape, dtype=torch.float32,
                       device=hidden.device)
+    # per (row, vocab tile) (max, exp-sum), and each row's label logit
+    part = torch.empty(M, -(-V // VOCAB_TILE), 2, dtype=torch.float32,
+                       device=hidden.device)
+    label_logit = torch.empty(M, dtype=torch.float32, device=hidden.device)
     code = _build.library().unimm_xent_head(
         hidden.data_ptr(), lab.data_ptr(), decoder_weight.data_ptr(),
-        decoder_bias.data_ptr(), nll.data_ptr(), M, V,
-        _build.stream(hidden.device))
+        decoder_bias.data_ptr(), part.data_ptr(), label_logit.data_ptr(),
+        nll.data_ptr(), M, V, _build.stream(hidden.device))
     _build.check(code, "xent_head")
     xent_head.launches += 1
     return nll

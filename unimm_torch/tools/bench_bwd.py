@@ -8,18 +8,25 @@ descriptors and B5's forward (``attention_block_train_fwd``) at [240, 256,
 768] on the training descriptors, attention dropout 0.1 and 0; or the
 GEMM-core blocks (``--gemm``): K2 (``ffn_block``) at [200, 256, 768],
 intermediate 3072, and B8 (``co_text_block``) at [256, 224, 768] x [256,
-37, 1024], weights at std 0.02; or B 240 training steps.
+37, 1024], weights at std 0.02; or the main path's answer block and head
+(``--head``): K1 (``answer_block``) at chip_smoke.py phase 3's four
+shapes and on the prefix scorer's biases at G 40, Lcb 192 / RB 64 and Lcb
+256 / RB 256, weights at std 0.05, and K3 (``xent_head``) at M 25600 and
+1000, V 30522; or B 240 training steps.
 
     python3 -m unimm_torch.tools.bench_bwd [--label NAME] [--csrc DIR
-        --build DIR] [--forward | --gemm | --train-step
+        --build DIR] [--forward | --gemm | --head | --train-step
         {pallas_block,pallas} [--remat] [--steps 8]]
 
-Default, ``--forward`` and ``--gemm``: one JSON line with each wrapper's
-device time per call (CUDA events, median of 5 runs of 20 calls), its
-host time per call (the loop that enqueues 20 calls, the card busy behind
-it), the mean device time of every kernel it launched (``torch.profiler``),
+Default, ``--forward``, ``--gemm`` and ``--head``: one JSON line with each
+wrapper's device time per call (CUDA events, median of 5 runs of 20
+calls), its host time per call (the loop that enqueues 20 calls, the card
+busy behind it), the mean device time of every kernel it launched (``torch.profiler``),
 each output's largest error against its plain twin relative to the twin's
-largest entry, and whether two runs give the same bits. ``--gemm`` adds
+largest entry, and whether two runs give the same bits. ``--head`` gives
+each launch of one call in launch order with its mean device time and the
+largest absolute error against the twin (K1 with the chunk table built
+once, as the scorer builds it; ``table_ms`` its build). ``--gemm`` adds
 each launch of one call in launch order with its mean device time and,
 for a product, its TFLOP/s (the product's 2 M N K over that time; B8's
 attention launch counts its two score and value products), and the
@@ -191,21 +198,26 @@ def forward_times(dev):
     return _time_runs(runs)
 
 
-def _launch_split(fn, iters=5):
+def _launch_split(fn, iters=5, tries=3):
     """[(kernel name, mean device ms)] of each launch of one ``fn()`` call,
-    in launch order, over ``iters`` profiled calls."""
+    in launch order, over ``iters`` profiled calls (profiled again, up to
+    ``tries`` times, when the profiler's count of launches is not a
+    multiple of ``iters``: it has lost some of a short call's)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    n = len(evs) // iters
-    if n * iters != len(evs):
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        n = len(evs) // iters
+        if n * iters == len(evs):
+            break
+    else:
         raise SystemExit(f"bench_bwd: {len(evs)} launches in {iters} calls")
     return [(evs[i].name[:90],
              sum(evs[i + c * n].time_range.elapsed_us()
@@ -270,6 +282,118 @@ def gemm_times(dev):
     return out
 
 
+def _scorer_biases(G, Lcb, RB, g, O=100):
+    """The prefix scorer's biases (the rule of ``prefix.answer_biases``,
+    written out here so that a parent tree without that function runs it
+    too) for G slates of O options of ans_len 2-8 packed into RB-row
+    blocks: (b_ctx [G, 1, Lcb], b_rr [G, PB, RB, RB], P)."""
+    import numpy as np
+
+    from unimm_torch.eval.prefix import pack_option_rows
+    from unimm_torch.ops.masks import NEG_INF
+
+    dev = g.device
+    rng = np.random.default_rng(int(torch.randint(0, 2**31 - 1, (1,),
+                                                  generator=g, device=dev)))
+    lc = torch.from_numpy(rng.integers(2, Lcb + 1, G)).to(dev)
+    A = rng.integers(2, 9, (G, O))
+    starts, P = pack_option_rows(2 * A, RB)
+    opt = np.full((G, P), O)
+    rin = np.zeros((G, P), np.int64)
+    for gi in range(G):
+        for o in range(O):
+            sl = slice(starts[gi, o], starts[gi, o] + 2 * A[gi, o])
+            opt[gi, sl], rin[gi, sl] = o, np.arange(2 * A[gi, o])
+    a_row = np.take_along_axis(np.concatenate([A, np.zeros((G, 1), int)],
+                                              1), opt, 1)
+    opt, rin, a_row = (torch.from_numpy(t).to(dev).reshape(G, P // RB, RB)
+                       for t in (opt, rin, a_row))
+    j = torch.arange(Lcb, device=dev)
+    b_ctx = torch.where((j >= 1) & (j < lc[:, None]), 0.0, NEG_INF)
+    first = (opt < O) & (rin < a_row)
+    rq, ks = rin[..., :, None], rin[..., None, :]
+    rr = ((opt[..., :, None] == opt[..., None, :]) & (opt[..., :, None] < O)
+          & torch.where(first[..., :, None], ks <= rq,
+                        ks < rq - a_row[..., :, None]))
+    rr |= torch.eye(RB, dtype=torch.bool, device=dev)
+    return (b_ctx.float()[:, None, :].contiguous(),
+            torch.where(rr, 0.0, NEG_INF).float().contiguous(), P)
+
+
+def head_times(dev):
+    """K1 at phase 3's four shapes (its random options, causal inside) and
+    on the scorer's biases at the main path's two, and K3 at M 25600 and
+    1000 (V 30522): times, each launch, errors against the twins, bits
+    across two runs."""
+    from unimm_torch.ops import answer_block as ab
+    from unimm_torch.ops import xent_head as xh
+    from unimm_torch.ops.masks import NEG_INF
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).bfloat16()
+
+    runs, table_ms = {}, {}
+    for Lcb, RB, G, P, real in ((192, 64, 40, 1280, False),
+                                (256, 256, 40, 1280, False),
+                                (224, 256, 4, 1280, False),
+                                (96, 64, 4, 512, False),
+                                (192, 64, 40, 0, True),
+                                (256, 256, 40, 0, True)):
+        attn = _wide_attention(dev, g)
+        if real:
+            b_ctx, b_rr, P = _scorer_biases(G, Lcb, RB, g)
+        else:
+            lc = torch.randint(2, Lcb + 1, (G,), generator=g, device=dev)
+            j = torch.arange(Lcb, device=dev)
+            b_ctx = torch.where((j >= 1) & (j < lc[:, None]), 0.0,
+                                NEG_INF).float()[:, None, :].contiguous()
+            opt = torch.cumsum(torch.rand(G, P // RB, RB, generator=g,
+                                          device=dev) < 0.12, -1)
+            r = torch.arange(RB, device=dev)
+            b_rr = torch.where(((opt[..., :, None] == opt[..., None, :])
+                                & (r[None, :] <= r[:, None]))
+                               | torch.eye(RB, dtype=torch.bool, device=dev),
+                               0.0, NEG_INF).float().contiguous()
+        x, kc, vc = rand(G, P, 768), rand(G, Lcb, 768), rand(G, Lcb, 768)
+        args = (x, kc, vc, b_ctx, b_rr, attn)
+        # the chunk table, built once as the scorer does (a tree from
+        # before it has none)
+        name = (f"answer_block G={G} P={P} Lcb={Lcb} RB={RB}"
+                + (" scorer biases" if real else ""))
+        kw = {}
+        if hasattr(ab, "answer_chunk_table"):
+            kw["table"] = ab.answer_chunk_table(b_ctx, b_rr)
+            table_ms[name] = _device_ms(
+                lambda b=(b_ctx, b_rr): ab.answer_chunk_table(*b))
+        runs[name] = (
+            lambda a=args, kw=kw: ab.answer_block(*a, num_heads=12, **kw),
+            lambda a=args: ab.answer_block_plain(*a, num_heads=12))
+    V = 30522
+    w, b = rand(V, 768, scale=0.02), torch.randn(V, generator=g, device=dev)
+    for M in (25600, 1000):
+        h = rand(M, 768)
+        lab = torch.randint(0, V, (M,), generator=g, device=dev)
+        lab[torch.rand(M, generator=g, device=dev) < 0.5] = -1
+        runs[f"xent_head M={M} V={V}"] = (
+            lambda h=h, lab=lab: xh.xent_head(h, w, b * 0.1, lab),
+            lambda h=h, lab=lab: xh.xent_head_plain(h, w, b * 0.1, lab))
+    out = {}
+    for name, (kern, plain) in runs.items():
+        got, want = kern(), plain()
+        out[name] = dict(
+            ms=_device_ms(kern), host_us=_host_us(kern),
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            rel_errs=_rel([got], [want]), same_bits=torch.equal(got, kern()),
+            launches=[dict(kernel=k, ms=ms)
+                      for k, ms in _launch_split(kern)])
+        if name in table_ms:
+            out[name]["table_ms"] = table_ms[name]
+    return out
+
+
 def step_times(dev, impl, steps, remat=False):
     import numpy as np
 
@@ -314,6 +438,7 @@ def main(argv=None):
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--forward", action="store_true")
     ap.add_argument("--gemm", action="store_true")
+    ap.add_argument("--head", action="store_true")
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -332,6 +457,8 @@ def main(argv=None):
         res = forward_times(dev)
     elif args.gemm:
         res = gemm_times(dev)
+    elif args.head:
+        res = head_times(dev)
     else:
         res = backward_times(dev)
     print(json.dumps({"label": args.label, **res}), flush=True)

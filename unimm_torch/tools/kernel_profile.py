@@ -1,7 +1,7 @@
 """Device-time breakdowns from ``torch.profiler`` (CUPTI) on a CUDA card.
 
     python3 -m unimm_torch.tools.kernel_profile [--iters 5]
-    python3 -m unimm_torch.tools.kernel_profile --main-path
+    python3 -m unimm_torch.tools.kernel_profile --main-path [--steady]
     python3 -m unimm_torch.tools.kernel_profile --dis-path [--steady]
     python3 -m unimm_torch.tools.kernel_profile --train-step
         [--attention-impl {pallas_block,pallas,xla}] [--remat]
@@ -21,7 +21,9 @@ discriminative ``evaluate_split(mode="nsp")`` over 2 coalesced pinned
 warm training step (``train/step.make_train_step``, fused AdamW) at the
 default config on a 240-sequence ``make_train_batch``.
 ``--steady`` adds to ``--dis-path`` the steady dialogs/s of 4 pinned
-batches by chip_smoke.py's protocol (``steady_throughput``, 5 passes).
+batches by chip_smoke.py's protocol (``steady_throughput``, 5 passes), and
+to ``--main-path`` that of phase 4's 4 pinned and 4 realistic batches (3
+passes each, as phase 4 takes them).
 ``--attention-impl`` sets the text stream's attention path of
 ``--dis-path`` and ``--train-step`` (default "pallas_block"; "pallas" trains
 at attention dropout 0, where its kernel runs); ``--remat`` turns on
@@ -106,7 +108,7 @@ def main_path(dev, dis=False, impl="pallas_block", steady=False):
     else:
         batches = [workload.with_ranking_targets(
             workload.make_val_batch(rng, cfg, 2, 10, 100), rng)
-            for _ in range(2)]
+            for _ in range(4 if steady else 2)]
 
     def run():
         evaluate_split(model, cfg, batches[:2],
@@ -116,11 +118,21 @@ def main_path(dev, dis=False, impl="pallas_block", steady=False):
 
     run()
     _profile(run, f"dis {impl}" if dis else "gen")
-    if steady:
+    if steady and dis:
         rate, rates = steady_throughput(dev, model, cfg, batches,
                                         need_lm=False, repeats=5)
         print(json.dumps({"path": f"dis {impl}", "steady_dialogs_per_s":
                           rate, "passes": rates}), flush=True)
+    elif steady:   # chip_smoke.py phase 4's pinned and realistic series
+        rng = np.random.default_rng(1)
+        fn = workload.realistic_ctx_range(cfg.max_seq_len)
+        realistic = [workload.with_ranking_targets(workload.make_val_batch(
+            rng, cfg, 2, 10, 100, ctx_range_fn=fn), rng) for _ in range(4)]
+        for name, b in (("pinned", batches), ("realistic", realistic)):
+            rate, rates = steady_throughput(dev, model, cfg, b, need_lm=True)
+            print(json.dumps({"path": "gen", "series": name,
+                              "steady_dialogs_per_s": rate,
+                              "passes": rates}), flush=True)
 
 
 def train_step(dev, impl="pallas_block", remat=False):
@@ -219,7 +231,7 @@ def main():
     if args.main_path or args.dis_path:
         main_path(torch.device("cuda", 0), dis=args.dis_path,
                   impl=args.attention_impl if args.dis_path
-                  else "pallas_block", steady=args.steady and args.dis_path)
+                  else "pallas_block", steady=args.steady)
         print(card)
         return
     if args.train_step:
