@@ -31,11 +31,13 @@ prints its seconds):
      and 64 regions, at WIDE_STD, each bit-equal when rerun and with
      controls that must miss (the twin with one 64-wide k tile of W1, W2
      or Wd2 zeroed, or with the last row dropped). K1 at WIDE_STD at four
-     shapes and on the scorer's own biases at two, its per-head context
-     too, bit-equal when rerun, the twin at lc - 1 and on options shifted
-     by a row missing the context bound; K3 at M 25600 and 1000,
-     bit-equal when rerun, the twin on labels one column on and without
-     the last vocab tile missing its bound.
+     shapes and on the scorer's own biases at two, then at row blocks of
+     16-row tails (RB 32 and 96 on the packed biases, the W layout's Rw
+     160 on its biases at W 16 and 32) and context buckets 96 and 36, its
+     per-head context too, bit-equal when rerun, the twin at lc - 1 and on
+     options shifted by a row missing the context bound; K3 at M 25600
+     and 1000, bit-equal when rerun, the twin on labels one column on and
+     without the last vocab tile missing its bound.
   4. generative path: ``evaluate_split(mode="ll_sum")`` (prefix-cache
      scorer) at the default config (12 text / 6 vision / 6 connection
      layers, hidden 768 / 1024, vocab 30522) from a seeded init over 4
@@ -90,6 +92,25 @@ prints its seconds):
      block_b 1 bit for bit): ``tools/bench_attn_block`` runs its 13
      variants, 2 calls a measurement, with 2 B4, 2 K2, 4 B10 and 3 B11
      launches per call round.
+ 11. the evaluation CLIs at full width through ``main(argv)``, as a user
+     runs them (``python -m unimm_torch.cli.val_lm ...``): a fixture tree
+     (``tools/fixture_tree.py``, 2048 features and 1601 classes, 8 val and
+     4 test dialogs) with its features in a reference-format LMDB read by
+     the native reader, reference-format .ckpt files of seeded models
+     through -start_path / -model_paths, -max_seq_len 256, 100 options,
+     bf16: (a) val_lm (12 K1 / 18 K2 / 1 K3 per slate group), (b) under
+     -attention_impl xla (no launch), (c) -prefix_packed 0 (the W layout,
+     K1 at Rw 160), (d) -prefix_rowblock 32 (K1 at RB 32), (e) val_avg_lm,
+     (f) val with two -model_paths (12 B4 / 18 K2 per chunk per member),
+     (g) evaluate on the test split (one EvalAI record of 100 ranks per
+     dialog); (b)-(d) rank like (a) (top-1 agreement); each run's wall
+     seconds, one reading each (a functional check, not a rate). Then the
+     rate from files: a second tree of CLI_RATE_VAL val dialogs, one
+     val_lm run as warm-up, then CLI_RATE_TURNS turns of the val loader
+     alone and a timed val_lm run on the same dialogs: each run's evaluate
+     call and its dialogs/s (the host data pipeline included), the seconds
+     in it that the evaluator waited for the loader's next batch, and the
+     loader alone; median and spread of each.
 The last lines are the kernels JSON, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -182,7 +203,9 @@ def seeded_module(make, gen, dev, std=0.02):
 # out_ln_kernel and of the wgmma + TMA core gemm_nt_wg_kernel in the parent
 # commit of K1's and K3's redesign (43b20da): the instances that stayed
 # (B4, B5, B6, B9, B10, B11, and K2's and B8's on gemm_wg.cuh) must keep
-# that machine code; K1's mma.sync ones are gone
+# that machine code; with K1's and K3's instances since (answer_attn_kernel
+# for whole row blocks keeps the machine code it had before its 16-row-tail
+# instance was added)
 SASS_RECORD = "unimm_torch/tools/kernel_sass.json"
 
 
@@ -206,9 +229,10 @@ def report_kernels():
     forward at dropout 0 and above; dq and dk / dv for B6, B5 and B5 at
     dropout 0), their shared memory and CTAs an SM at L 256 (the
     runtime), the Hopper GEMM core's (gemm_wg.cuh: gemm_nt_wg_kernel,
-    2 instances each for K1, K2 and B8), K1's attention kernel's (with its
-    shared memory and CTAs an SM) and K3's logits kernel's, failing on a
-    spill; then whether each recorded instance kept the SASS of
+    2 instances each for K1, K2 and B8), K1's attention kernel's two
+    instances (whole row blocks and 16-row tails, with their shared
+    memory and CTAs an SM) and K3's logits kernel's, failing on a spill;
+    then whether each recorded instance kept the SASS of
     SASS_RECORD's build, failing on one that differs under the same
     nvcc."""
     from pathlib import Path
@@ -227,9 +251,11 @@ def report_kernels():
     # xent_head.cu compiles with gemm_wg.cuh's launch_gemm_residual_ln and
     # never launches
     report_spills("gemm_nt_wg_kernel", 7)
-    report_spills("answer_attn_kernel", 1)
+    report_spills("answer_attn_kernel", 2)
     report_spills("xent_wg_kernel", 1)
-    print(json.dumps({"answer_attn_kernel": k1.kernel_info()}), flush=True)
+    print(json.dumps({"answer_attn_kernel": {
+        "whole": k1.kernel_info(), "tail": k1.kernel_info(tail=True)}}),
+        flush=True)
     print(json.dumps({"seq_attn_fwd_kernel": {
         "text_attention_fwd": ta.fwd_kernel_info(256),
         "attention_v2": av2.kernel_info(256),
@@ -366,13 +392,16 @@ def real_rows(G, Lcb, RB, gen, O=100):
     return tuple(torch.from_numpy(a).to(dev) for a in (lc, opt, rin, A_row))
 
 
-def answer_inputs(dev, gen, Lcb, RB, G, P, real):
+def answer_inputs(dev, gen, Lcb, RB, G, P, real, w=0):
     """K1's case: x, kc, vc, the biases (b_ctx, b_rr), the layer at
     WIDE_STD, and the controls' biases: b_ctx at lc - 1 (the last context
     key closed) and b_rr shifted one row and key down its diagonal (each
     option's rows moved by one). ``real``: the scorer's biases
     (``prefix.answer_biases``) on packed rows of 2-8 token answers, P as
-    the packing gives it; else context keys [1, lc) and random options of
+    the packing gives it; ``w``: the scorer's W-layout biases
+    (``prefix.w_layout_biases``: 100 options of 1 .. w / 2 tokens, each
+    padded to w rows, ``pick_o_blk(100, w)`` options a row block of RB
+    rows), P = 100 w; else context keys [1, lc) and random options of
     about 8 rows, causal inside."""
     from unimm_torch.eval import prefix
     from unimm_torch.models import vilbert
@@ -381,7 +410,20 @@ def answer_inputs(dev, gen, Lcb, RB, G, P, real):
     Hd = 768
     attn = seeded_module(lambda: vilbert._attention(Hd), gen, dev,
                          std=WIDE_STD)
-    if real:
+    if w:
+        rng = np.random.default_rng(int(torch.randint(
+            0, 2**31 - 1, (1,), generator=gen, device=dev)))
+        lc = torch.from_numpy(rng.integers(2, Lcb + 1, G)).to(dev)
+        A = torch.from_numpy(rng.integers(1, w // 2 + 1, (G, 100))).to(dev)
+        P = 100 * w
+
+        def biases(lc_):
+            return prefix.w_layout_biases(lc_, A, w, Lcb)
+        b_ctx, b_rr = biases(lc)
+        if b_rr.shape[-1] != RB:
+            raise SystemExit(f"W {w}: row blocks of {b_rr.shape[-1]} rows, "
+                             f"not {RB}")
+    elif real:
         lc, opt, rin, A_row = real_rows(G, Lcb, RB, gen)
         P = opt.shape[1]
 
@@ -414,11 +456,12 @@ def answer_inputs(dev, gen, Lcb, RB, G, P, real):
     return attn, x, kc, vc, b_ctx, b_rr, controls
 
 
-def check_answer_block(dev, gen, Lcb, RB, G=40, P=1280, real=False):
+def check_answer_block(dev, gen, Lcb, RB, G=40, P=1280, real=False, w=0):
     """K1 against its plain twin at WIDE_STD: y within TOL, the per-head
     context (``return_ctx``) within B5_CTX_REL of its largest entry, both
     bit-equal when rerun; the twin on each control's biases must miss the
-    context bound."""
+    context bound. ``real`` / ``w``: the scorer's packed / W-layout biases
+    (``answer_inputs``)."""
     import torch.nn.functional as F
     from unimm_torch.ops.answer_block import (answer_block,
                                               answer_block_plain,
@@ -427,7 +470,7 @@ def check_answer_block(dev, gen, Lcb, RB, G=40, P=1280, real=False):
 
     H, D, Hd = 12, 64, 768
     attn, x, kc, vc, b_ctx, b_rr, controls = answer_inputs(
-        dev, gen, Lcb, RB, G, P, real)
+        dev, gen, Lcb, RB, G, P, real, w)
     P = x.shape[1]
     PB = P // RB
     table = answer_chunk_table(b_ctx, b_rr)   # once, as the scorer does
@@ -489,7 +532,8 @@ def check_answer_block(dev, gen, Lcb, RB, G=40, P=1280, real=False):
               + G * PB * RB * RB * 4 + 4 * (Hd * Hd + Hd) * 2 + 2 * Hd * 2)
     b_ms, b_by = bound(flops, nbytes)
     return dict(shape=f"G={G} P={P} Lcb={Lcb} RB={RB}"
-                + (" scorer biases" if real else ""), max_abs_err=err,
+                + (" scorer biases" if real else "")
+                + (f" W-layout biases W={w}" if w else ""), max_abs_err=err,
                 max_rel_err=rel, ctx_rel_err=ctx_rel,
                 control_rel_errs=ctrl, bit_equal=same,
                 ok=ok and same and ctx_rel <= B5_CTX_REL,
@@ -1378,6 +1422,16 @@ def phase_kernels(dev):
                          check_answer_block(dev, gen, 96, 64, G=4, P=512),
                          check_answer_block(dev, gen, 192, 64, real=True),
                          check_answer_block(dev, gen, 256, 256,
+                                            real=True),
+                         # row blocks of 16-row tails (32, 96 and the W
+                         # layout's Rw 160 at W 16 and 32) and context
+                         # buckets that are not multiples of 16 (36, the
+                         # max_seq_len 96 buckets' multiples of 12)
+                         check_answer_block(dev, gen, 96, 32, real=True),
+                         check_answer_block(dev, gen, 192, 96, real=True),
+                         check_answer_block(dev, gen, 256, 160, w=16),
+                         check_answer_block(dev, gen, 96, 160, G=4, w=32),
+                         check_answer_block(dev, gen, 36, 96, G=4,
                                             real=True)],
         # then row tails of the 128-row and 64-row tiles (M = 1 .. 300)
         # at WIDE_STD with the lost-tile and lost-row controls
@@ -2230,6 +2284,317 @@ def phase_bench_block(dev, card, runs, iters=2):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the evaluation command line
+# ---------------------------------------------------------------------------
+
+CLI_DIALOGS = dict(n_train=2, n_val=8, n_test=4)   # the fixture tree's
+CLI_EVAL_BATCH, CLI_TEST_BATCH = 2, 4               # the CLIs' batch sizes
+# the rate from files: val dialogs of the second tree, timed turns (each
+# the loader alone, then val_lm) after one val_lm warm-up
+CLI_RATE_VAL, CLI_RATE_TURNS = 12, 3
+
+
+def cli_runs(n_val, n_test, n_t, n_c, coalesce=2, group=40, chunk=250,
+             members=2):
+    """Each CLI run's launch counts, from the code's own rules: the val
+    split in batches of CLI_EVAL_BATCH dialogs of 10 rounds, merged by
+    ``coalesce``; generative runs score every slate of a merged batch in
+    ceil(slates / group) prefix groups (12 K1, 18 K2 and 1 K3 a group:
+    every fixture slate is eligible, its context and answers fitting 256
+    tokens); the ensemble runs score 100 options a slate through the flat
+    scorer in ceil(sequences / chunk) chunks a merged batch (12 B4 and 18
+    K2 a chunk a member); the test split has one slate a dialog, in
+    batches of CLI_TEST_BATCH."""
+    def merged(n, batch):
+        sizes = [min(batch, n - i) for i in range(0, n, batch)]
+        return [sum(sizes[i:i + coalesce])
+                for i in range(0, len(sizes), coalesce)]
+    g = sum(-(-10 * d // group) for d in merged(n_val, CLI_EVAL_BATCH))
+    gen = {"answer_block": n_t * g, "ffn_block": (n_t + n_c) * g,
+           "xent_head": g}
+    ens = {}
+    for name, n, batch, rounds in (("val", n_val, CLI_EVAL_BATCH, 10),
+                                   ("evaluate", n_test, CLI_TEST_BATCH, 1)):
+        c = members * sum(-(-d * rounds * 100 // chunk)
+                          for d in merged(n, batch))
+        ens[name] = {"attention_block": n_t * c, "ffn_block": (n_t + n_c) * c}
+    return gen, ens
+
+
+def top1(path):
+    """The option each record of a predictions file ranks first."""
+    with open(path) as f:
+        return np.array([r["ranks"].index(1) for r in json.load(f)])
+
+
+def cli_loader_seconds(argv):
+    """Seconds to iterate a val_lm run's val loader alone (the CLI's
+    dataset, reader and loader, no scoring) over the same dialogs."""
+    from unimm_torch.cli import common, options
+    from unimm_torch.data.dataset import VisdialDataset
+
+    params = options.read_command_line(argv + ["-save_name", "loader"])
+    dataset = VisdialDataset(params, common.load_tokenizer(params),
+                             common.open_reader(params))
+    dataset.split = "val"
+    t0 = time.perf_counter()
+    for _ in common.eval_loader(params, dataset, CLI_EVAL_BATCH):
+        pass
+    return time.perf_counter() - t0
+
+
+class WaitTimed:
+    """A loader whose consumer's waits for each batch are summed into
+    ``waits[0]``: the seconds the evaluator spent blocked on the host data
+    pipeline."""
+
+    def __init__(self, loader, waits):
+        self._loader, self._waits = loader, waits
+
+    def __getattr__(self, name):
+        return getattr(self._loader, name)
+
+    def __len__(self):
+        return len(self._loader)
+
+    def __iter__(self):
+        it = iter(self._loader)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                self._waits[0] += time.perf_counter() - t
+            yield batch
+
+
+def spread(xs):
+    """Median, least and most of a list of readings."""
+    return {"median": float(np.median(xs)), "min": min(xs), "max": max(xs),
+            "n": len(xs)}
+
+
+def cli_rate(root, base, one, cfg, dev, card, eval_s):
+    """The val_lm CLI's rate from files: a tree of CLI_RATE_VAL val
+    dialogs at the config's widths (its features in a native-read LMDB),
+    one val_lm run with the defaults as warm-up (not counted), then
+    CLI_RATE_TURNS turns of the val loader alone and a timed val_lm run
+    (launches as ``cli_runs`` derives them). Each run's evaluate call
+    (``eval_s``), the seconds the evaluator waited in it for the loader's
+    next batch (``wait_s``) and the loader alone, median and spread.
+    ``eval_s``: the list phase_cli's evaluate_split wrapper appends to."""
+    from unimm_torch.cli import common, val_lm
+    from unimm_torch.data import features
+    from unimm_torch.tools import fixture_tree
+
+    paths, _, _ = fixture_tree.write_fixture_tree(
+        str(root), n_train=2, n_val=CLI_RATE_VAL, n_test=1, seed=1,
+        feat_dim=cfg.v_feature_size, n_classes=cfg.v_target_size)
+    lmdb = str(root / "features.lmdb")
+    features.convert_npz_to_lmdb(paths["visdial_image_feats"], lmdb)
+    argv = list(base)
+    for flag in ("visdial_processed_train", "visdial_processed_val",
+                 "visdial_processed_test",
+                 "visdial_processed_val_dense_annotations", "vocab_path"):
+        argv[argv.index("-" + flag) + 1] = paths[flag]
+    argv[argv.index("-visdial_image_feats") + 1] = lmdb
+    argv += ["-val_dis", "0"] + one
+    gen, _ = cli_runs(CLI_RATE_VAL, 1, cfg.num_hidden_layers,
+                      len(cfg.t_biattention_id))
+    waits = [0.0]
+    real_loader = common.eval_loader
+    common.eval_loader = lambda *a: WaitTimed(real_loader(*a), waits)
+    res = {"main_s": [], "eval_s": [], "wait_s": [], "loader_alone_s": []}
+    try:
+        with contextlib.chdir(root):
+            for turn in range(CLI_RATE_TURNS + 1):
+                if turn:        # the warm-up run goes first, alone
+                    res["loader_alone_s"].append(cli_loader_seconds(argv))
+                eval_s.clear()
+                waits[0] = 0.0
+                _, secs, launches = counted(lambda: val_lm.main(
+                    argv + ["-save_name", f"rate{turn}"], device=dev))
+                expect(f"cli rate ({turn})", launches, gen)
+                if turn:
+                    res["main_s"].append(secs)
+                    res["eval_s"].append(eval_s[0])
+                    res["wait_s"].append(waits[0])
+                else:
+                    warm = dict(main_s=secs, eval_s=eval_s[0],
+                                wait_s=waits[0])
+    finally:
+        common.eval_loader = real_loader
+    rates = [CLI_RATE_VAL / t for t in res["eval_s"]]
+    out = {"dialogs": CLI_RATE_VAL, "turns": CLI_RATE_TURNS, "warm_up": warm,
+           **res, **{f"{k}_spread": spread(v) for k, v in res.items()},
+           "dialogs_per_s": rates, "dialogs_per_s_spread": spread(rates),
+           "wait_share": [w / e for w, e in zip(res["wait_s"],
+                                                res["eval_s"])],
+           "loader_alone_dialogs_per_s_median": CLI_RATE_VAL / float(
+               np.median(res["loader_alone_s"])),
+           "launches_per_run": gen, "card": card}
+    print(json.dumps({"cli_rate": out}), flush=True)
+    return out
+
+
+def phase_cli(dev, card, runs):
+    """The evaluation CLIs on the card at full width, through the entry
+    points a user calls (``main(argv)``): the fixture tree of
+    ``tools/fixture_tree.py`` at the config's widths (2048 features, 1601
+    classes), its features converted to a reference-format LMDB that the
+    native reader reads, reference-format .ckpt files written from seeded
+    models' state dicts and loaded through -start_path / -model_paths, at
+    -max_seq_len 256, -num_options 100, bf16. Runs: (a) val_lm with the
+    defaults, (b) -attention_impl xla (no kernel), (c) -prefix_packed 0
+    (the W layout: K1 at Rw 160), (d) -prefix_rowblock 32, (e) val_avg_lm,
+    (f) val with two -model_paths, (g) evaluate on the test split; each
+    counted, (b)-(d) ranking like (a) (top-1 agreement >=
+    MIN_TOP1_AGREEMENT). Prints each run's wall seconds (the whole main
+    and its evaluate call, the loader's host pipeline included), one
+    reading each; then ``cli_rate``'s repeated val_lm runs on a larger
+    tree."""
+    import shutil
+    from pathlib import Path
+
+    from unimm_torch.cli import evaluate, val, val_avg_lm, val_lm
+    from unimm_torch.config import VilbertConfig
+    from unimm_torch.data import features
+    from unimm_torch.eval import evaluator, prefix
+    from unimm_torch.models import vilbert
+    from unimm_torch.tools import fixture_tree
+
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "unimm_torch" / "phase11"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    config = here / "config" / "bert_base_6layer_6conect.json"
+    cfg = VilbertConfig.from_json_file(str(config))
+    n_t, n_c = cfg.num_hidden_layers, len(cfg.t_biattention_id)
+    t0 = time.perf_counter()
+    paths, _, _ = fixture_tree.write_fixture_tree(
+        str(root), feat_dim=cfg.v_feature_size, n_classes=cfg.v_target_size,
+        **CLI_DIALOGS)
+    lmdb = str(root / "features.lmdb")
+    features.convert_npz_to_lmdb(paths["visdial_image_feats"], lmdb)
+    backend = features.open_features(lmdb).db.backend
+    if backend != "native":
+        raise SystemExit(f"the LMDB reader is the {backend} one, not the "
+                         "native one")
+    ckpts = []
+    for seed in (0, 1):
+        model = vilbert.init_model(cfg, seed=seed, device=dev)
+        path = str(root / f"member{seed}.ckpt")
+        torch.save({"model_state_dict": {k: v.cpu() for k, v in
+                                         model.state_dict().items()},
+                    "iter_id": 0}, path)
+        ckpts.append(path)
+        del model
+    setup_s = time.perf_counter() - t0
+    base = ["-visdial_processed_train", paths["visdial_processed_train"],
+            "-visdial_processed_val", paths["visdial_processed_val"],
+            "-visdial_processed_test", paths["visdial_processed_test"],
+            "-visdial_processed_val_dense_annotations",
+            paths["visdial_processed_val_dense_annotations"],
+            "-visdial_image_feats", lmdb, "-vocab_path", paths["vocab_path"],
+            "-model_config", str(config), "-max_seq_len", "256",
+            "-num_options", "100", "-num_workers", "4",
+            "-save_path", str(root / "ckpt")]
+    one = ["-start_path", ckpts[0]]
+    two = ["-model_paths", ",".join(ckpts)]
+    gen, ens = cli_runs(CLI_DIALOGS["n_val"], CLI_DIALOGS["n_test"], n_t, n_c)
+    plan = [  # name, entry, argv, launches, row blocks K1 may take
+        ("a", val_lm, ["-val_dis", "0"] + one, gen, {64, 256}),
+        ("b", val_lm, ["-val_dis", "0", "-attention_impl", "xla"] + one, {},
+         set()),
+        ("c", val_lm, ["-val_dis", "0", "-prefix_packed", "0"] + one, gen,
+         {160}),
+        ("d", val_lm, ["-val_dis", "0", "-prefix_rowblock", "32"] + one, gen,
+         {32}),
+        ("e", val_avg_lm, ["-val_dis", "0"] + one, gen, {64, 256}),
+        ("f", val, two, ens["val"], set()),
+        ("g", evaluate, two, ens["evaluate"], set()),
+    ]
+    # K1's row blocks and each run's evaluate call, seen through wrappers
+    real_k1, real_split, real_ens = (prefix.answer_block,
+                                     evaluator.evaluate_split,
+                                     evaluator.evaluate_ensemble)
+    seen, eval_s = set(), []
+
+    def k1(x, kc, vc, b_ctx, b_rr, *a, **kw):
+        seen.add(b_rr.shape[-1])
+        return real_k1(x, kc, vc, b_ctx, b_rr, *a, **kw)
+
+    def timed(fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t)
+            return out
+        return run
+
+    res = {}
+    prefix.answer_block = k1
+    evaluator.evaluate_split = timed(real_split)
+    evaluator.evaluate_ensemble = timed(real_ens)
+    try:
+        with contextlib.chdir(root):
+            for name, mod, argv, want, rbs in plan:
+                seen.clear()
+                eval_s.clear()
+                metrics, secs, launches = counted(lambda: mod.main(
+                    base + argv + ["-save_name", name], device=dev))
+                expect(f"cli ({name})", launches, want)
+                if name in "acde" and not (seen and seen <= rbs):
+                    raise SystemExit(f"cli ({name}): K1 row blocks {seen}, "
+                                     f"want {rbs}")
+                if name == "b" and seen:
+                    raise SystemExit(f"cli (b): K1 launched at {seen}")
+                dialogs = CLI_DIALOGS["n_test" if name == "g" else "n_val"]
+                if metrics is not None and not all(
+                        math.isfinite(v) for v in metrics.values()):
+                    raise SystemExit(f"cli ({name}): metrics {metrics}")
+                runs[f"cli_{name}"] = launches
+                res[name] = dict(
+                    entry=mod.__name__.rsplit(".", 1)[1], argv=argv,
+                    launches=launches, k1_row_blocks=sorted(seen),
+                    main_s=secs, eval_s=eval_s[0], dialogs=dialogs,
+                    dialogs_per_s=dialogs / eval_s[0],
+                    ndcg=None if metrics is None else metrics["ndcg"],
+                    mrr=None if metrics is None else metrics["mrr"])
+                print(json.dumps({"cli": name, **res[name], "card": card}),
+                      flush=True)
+            a = top1("a_predictions.txt")
+            agree = {k: float((top1(f"{k}_predictions.txt") == a).mean())
+                     for k in "bcd"}
+            with open("g_predictions.txt") as f:
+                recs = json.load(f)
+        rate = cli_rate(root / "rate", base, one, cfg, dev, card, eval_s)
+    finally:
+        prefix.answer_block = real_k1
+        evaluator.evaluate_split = real_split
+        evaluator.evaluate_ensemble = real_ens
+    print(json.dumps({"cli_top1_agreement_vs_a": agree, "records": len(a),
+                      "min_agreement": MIN_TOP1_AGREEMENT}), flush=True)
+    if min(agree.values()) < MIN_TOP1_AGREEMENT:
+        raise SystemExit(f"cli: top-1 agreement {agree}")
+    if len(a) != 10 * CLI_DIALOGS["n_val"]:
+        raise SystemExit(f"cli (a): {len(a)} predictions")
+    if len(recs) != CLI_DIALOGS["n_test"] or any(
+            sorted(r["ranks"]) != list(range(1, 101)) or r["round_id"] != 10
+            for r in recs):
+        raise SystemExit("cli (g): the EvalAI file is not one record of "
+                         "100 ranks per test dialog")
+    print(json.dumps({"cli_phase": {
+        "lmdb_reader": backend, "setup_s": setup_s, "card": card}}),
+        flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return res, rate
+
+
 @contextlib.contextmanager
 def phase(name):
     """Print the phase's seconds when it ends."""
@@ -2455,6 +2820,9 @@ def main():
 
     with phase("10 attention-block bench"):
         phase_bench_block(dev, card, runs)
+
+    with phase("11 evaluation CLIs"):
+        phase_cli(dev, card, runs)
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -103,6 +103,23 @@ def test_answer_block_context_controls_and_bits(dev, Lcb, RB, P, real):
     assert res["ok"], res
 
 
+@pytest.mark.parametrize("Lcb,RB,real,w", [(96, 32, True, 0),
+                                            (192, 96, True, 0),
+                                            (256, 160, False, 16),
+                                            (96, 160, False, 32),
+                                            (36, 96, True, 0)])
+def test_answer_block_tails_controls_and_bits(dev, Lcb, RB, real, w):
+    """K1 at row blocks of 16-row tails (32, 96, the W layout's Rw 160 on
+    the scorer's W-layout biases at W 16 and 32) and at context buckets of
+    96 and 36, as chip_smoke.py phase 3 holds it at G 4: y and the context
+    against the twin at WIDE_STD, reruns bit-equal, both controls missing
+    the context bound."""
+    gen = torch.Generator(device=dev).manual_seed(Lcb + RB + w)
+    res = chip_smoke.check_answer_block(dev, gen, Lcb, RB, G=4, P=0,
+                                        real=real, w=w)
+    assert res["ok"], res
+
+
 def test_answer_block_takes_the_scorers_table(dev):
     """A table built once (as the scorer builds it) gives the bits of the
     call that builds its own."""
@@ -215,6 +232,32 @@ def test_ffn_block_row_tails_and_controls(dev, M):
             chip_smoke.drop_last_row(want)):
         with pytest.raises(AssertionError):
             _close(got, wrong, *tol)
+
+
+@pytest.mark.parametrize("O,W", [(100, 16), (25, 48)])
+def test_make_ffn_takes_the_w_layouts_rows(dev, O, W):
+    """The prefix scorer's answer-pass FFN with the kernels on, at the W
+    layout's O * W rows a slate (G 2: 1600 rows at O 100, W 16; 1200 at the
+    odd O 25, W 48), which no re-blocking touches: one K2 launch, within
+    K2's bound of its twin, bit-equal when rerun; the twin with the last
+    row dropped misses the bound."""
+    from unimm_torch.eval.prefix import PrefixScorer
+
+    gen = torch.Generator(device=dev).manual_seed(O + W)
+    layer = chip_smoke.seeded_module(lambda: vilbert._layer(768, 3072), gen,
+                                     dev, std=chip_smoke.WIDE_STD)
+    pi, po = layer.intermediate, layer.output
+    x = torch.randn(2, O * W, 768, generator=gen, device=dev).bfloat16()
+    ffn = PrefixScorer(VilbertConfig(), device=dev)._make_ffn(True)
+    n0 = tfb.ffn_block.launches
+    got = ffn(pi, po, x)
+    assert tfb.ffn_block.launches == n0 + 1
+    assert torch.equal(got, ffn(pi, po, x))
+    tol = chip_smoke.TOL["ffn_block"]
+    want = tfb.ffn_block_plain(x, pi, po)
+    _close(got, want, *tol)
+    with pytest.raises(AssertionError):
+        _close(got, chip_smoke.drop_last_row(want), *tol)
 
 
 @pytest.mark.parametrize("L,R", [(48, 1), (112, 37), (80, 64)])

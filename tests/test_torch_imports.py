@@ -25,8 +25,20 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "unimm_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
+print(" ".join(names))
 print(len(names))
 """
+
+# the host data modules, the LMDB readers, the CLIs and the fixture writer
+# of the evaluation command line, among the modules imported above
+_CLI_MODULES = {
+    "unimm_torch.data.tokenizer", "unimm_torch.data.encoding",
+    "unimm_torch.data.features", "unimm_torch.data.dataset",
+    "unimm_torch.data.loader", "unimm_torch.native.lmdb",
+    "unimm_torch.native.lmdb_format", "unimm_torch.cli.options",
+    "unimm_torch.cli.common", "unimm_torch.cli.val_lm",
+    "unimm_torch.cli.val_avg_lm", "unimm_torch.cli.val",
+    "unimm_torch.cli.evaluate", "unimm_torch.tools.fixture_tree"}
 
 
 def test_imports_with_jax_blocked():
@@ -34,7 +46,10 @@ def test_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 35
+    names, count = out.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 51
+    assert _CLI_MODULES <= set(names.split()), _CLI_MODULES - set(
+        names.split())
 
 
 def _imported_roots(path):
@@ -50,7 +65,7 @@ def _imported_roots(path):
 def test_no_jax_import_statements():
     files = sorted((ROOT / "unimm_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
-    assert len(files) >= 36
+    assert len(files) >= 51
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "unimm_tpu"}
         assert not bad, (f, bad)

@@ -121,17 +121,113 @@ def test_scorer_matches_flat_forward_eval(model, seed, truncate, impl, group):
     _ranks_equal(got["ll_sum"], -flat["lm_nll_sum"].numpy(), O)
 
 
-def test_make_ffn_reblocks_or_raises(model):
-    sc = tpx.PrefixScorer(PBLK_T, dtype=torch.float32, device="cpu")
+@pytest.mark.parametrize("rb", [32, 96])
+def test_scorer_row_blocks_match_jax(model, rb):
+    """A fixed row block that is not a multiple of 64 (K1's row blocks of
+    16-row tails): the port's packed scorer against JAX's at the same row
+    block (its Pallas kernel in interpret mode)."""
+    batch = make_shared_batch(np.random.default_rng(10 + rb), TINY, B=2, R=3,
+                              O=6)
+    got, ok = tpx.PrefixScorer(PBLK_T, dtype=torch.float32, group=4,
+                               row_block=rb, device="cpu").score(model, batch)
+    want, ok_j = jpx.PrefixScorer(TINY.replace(attention_impl="pallas_block"),
+                                  dtype=jnp.float32, group=4,
+                                  row_block=rb).score(jax_params(), batch)
+    assert ok.all() and ok_j.all()
+    for k in ("ll_sum", "ll_mean"):
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-4, atol=2e-5,
+                                   err_msg=k)
+    _ranks_equal(got["ll_sum"], want["ll_sum"], 6)
+
+
+@pytest.mark.parametrize("impl,packed,rb,truncate,O", [
+    ("pallas_block", False, 0, False, 6),
+    ("pallas_block", False, 0, True, 4),
+    ("xla", False, 0, False, 5),
+    ("pallas_block", True, 4, False, 6),   # options of > 4 rows: W layout
+    ("pallas_block", False, 0, False, 1),
+])
+def test_w_layout_matches_jax_and_packed(model, impl, packed, rb, truncate,
+                                         O):
+    """The W-padded answer pass (``packed=False``, or a group whose largest
+    option needs more rows than the fixed row block) against JAX's W
+    layout on the same weights, and against the port's packed scorer
+    (tests/test_prefix.py:89 and :231 hold JAX's against its flat path)."""
+    batch = make_shared_batch(np.random.default_rng(20 + O), TINY, B=2, R=3,
+                              O=O, truncate=truncate)
+    got, ok = tpx.PrefixScorer(TINY_T.replace(attention_impl=impl),
+                               dtype=torch.float32, group=4, packed=packed,
+                               row_block=rb, device="cpu").score(model, batch)
+    want, ok_j = jpx.PrefixScorer(TINY.replace(attention_impl=impl),
+                                  dtype=jnp.float32, group=4, packed=packed,
+                                  row_block=rb).score(jax_params(), batch)
+    packed_t, _ = tpx.PrefixScorer(TINY_T.replace(attention_impl=impl),
+                                   dtype=torch.float32, group=4,
+                                   device="cpu").score(model, batch)
+    assert ok.all() and ok_j.all()
+    for ref in (want, packed_t):
+        for k in ("ll_sum", "ll_mean"):
+            np.testing.assert_allclose(got[k], ref[k], rtol=2e-4, atol=2e-5,
+                                       err_msg=k)
+        _ranks_equal(got["ll_sum"], ref["ll_sum"], O)
+
+
+def test_w_layout_dispatch_runs_one_pass_a_group(model, monkeypatch):
+    """Which layout each group takes: every group the W layout under
+    ``packed=False``; under a fixed row block only the groups whose
+    largest option needs more rows."""
+    batch = make_shared_batch(np.random.default_rng(30), TINY, B=2, R=2, O=4)
+    n = np.minimum(batch["ctx_end"] + batch["ans_len"], TINY.max_seq_len) \
+        - (batch["ctx_end"] - batch["ans_len"])
+    calls = []
+    for name in ("_answer_impl", "_answer_impl_packed"):
+        orig = getattr(tpx.PrefixScorer, name)
+
+        def spy(self, *a, _orig=orig, _name=name, **kw):
+            calls.append(_name)
+            return _orig(self, *a, **kw)
+        monkeypatch.setattr(tpx.PrefixScorer, name, spy)
+    for packed, rb, want in ((False, 0, ["_answer_impl"] * 4),
+                             (True, 0, ["_answer_impl_packed"] * 4)):
+        calls.clear()
+        tpx.PrefixScorer(PBLK_T, dtype=torch.float32, group=1, packed=packed,
+                         row_block=rb, device="cpu").score(model, batch)
+        assert calls == want
+    calls.clear()
+    rb = int(np.median(n.reshape(4, 4).max(-1)))
+    tpx.PrefixScorer(PBLK_T, dtype=torch.float32, group=1, row_block=rb,
+                     device="cpu").score(model, batch)
+    need = np.sort(n.reshape(4, 4).max(-1))
+    assert calls.count("_answer_impl") == int((need > rb).sum()) > 0
+    assert calls.count("_answer_impl_packed") == int((need <= rb).sum()) > 0
+
+
+@pytest.mark.parametrize("rows", [64, 12, 100])
+def test_make_ffn_passes_rows_unblocked(model, monkeypatch, rows):
+    """With the kernels on, the answer pass's FFN hands K2 (``ffn_block``)
+    the answer rows as they are, [G, rows, H], also a count no row block
+    in (256, ..., 8) divides (12, and the W layout's O * W at odd O);
+    without them, or under ``fused_ffn`` off, it takes the plain FFN.
+    (K2 on the card at the W layout's rows: tests/test_torch_cuda.py.)"""
+    seen = []
+
+    def spy(h, p_inter, p_out, act):
+        seen.append(tuple(h.shape))
+        return tpx.ffn_block_plain(h, p_inter, p_out, act=act)
+
+    monkeypatch.setattr(tpx, "ffn_block", spy)
     layer = model.bert.encoder.layer[0]
     h = torch.from_numpy(np.random.default_rng(6).normal(
-        size=(2, 64, TINY.hidden_size)).astype(np.float32))
-    torch.testing.assert_close(
-        sc._make_ffn(True, 64)(layer.intermediate, layer.output, h),
-        sc._make_ffn(False, 64)(layer.intermediate, layer.output, h),
-        rtol=0, atol=0)
-    with pytest.raises(ValueError, match="no row block"):
-        sc._make_ffn(True, 12)
+        size=(2, rows, TINY.hidden_size)).astype(np.float32))
+    want = tpx.ffn_block_plain(h, layer.intermediate, layer.output)
+    for cfg, kernel, calls in ((PBLK_T, True, [(2, rows, TINY.hidden_size)]),
+                               (PBLK_T, False, []),
+                               (PBLK_T.replace(fused_ffn=False), True, [])):
+        seen.clear()
+        sc = tpx.PrefixScorer(cfg, dtype=torch.float32, device="cpu")
+        got = sc._make_ffn(kernel)(layer.intermediate, layer.output, h)
+        assert seen == calls
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # --- evaluator -------------------------------------------------------------

@@ -15,12 +15,20 @@ The port's ``VilbertModel`` carries the reference ``state_dict`` names, so:
   reference and the JAX package's ``from_torch_state_dict`` do, by
   dict-intersection update: missing keys keep the model's values, extra
   keys are skipped and returned;
+* ``load_reference_ckpt(path, model)`` reads a reference-format ``.ckpt``
+  file (its ``model_state_dict`` / ``iter_id`` wrapper or a bare state
+  dict) or a local ``.tar.gz`` archive holding one, and loads it leniently
+  (the JAX package's ``load_reference_ckpt``);
 * ``language_param_set`` / ``group_label`` give each parameter its
   optimizer group (train/optim.py), as the reference train.py groups them.
+
+Native (directory) checkpoints, saving and the optimizer state are ROADMAP.md
+queue A item 4.
 """
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import Any, Dict, List, Tuple, Union
 
@@ -134,6 +142,70 @@ def load_reference_state_dict_lenient(model: torch.nn.Module,
     for key, value in updates:        # the model changes only if all fit
         params[key].copy_(value)
     return model, len(updates), skipped
+
+
+def _resolve_archive(path: str):
+    """HF-style local archive resolution (the reference's
+    vilbert_dialog.py:1123-1232 ``from_pretrained``): a ``.tar.gz``
+    containing ``pytorch_model.bin`` is extracted to a temp dir and the
+    weights file path is returned with the directory (kept alive by the
+    caller). The URL/name-resolution half of the reference surface needs a
+    network and is intentionally not reproduced."""
+    import tarfile
+    import tempfile
+
+    if not (os.path.isfile(path) and tarfile.is_tarfile(path)):
+        return path, None
+    tmp = tempfile.TemporaryDirectory(prefix="unimm_archive_")
+    with tarfile.open(path, "r:*") as t:
+        try:
+            t.extractall(tmp.name, filter="data")
+        except TypeError:      # older tarfile without the filter kwarg:
+            # reject traversal members manually before extracting
+            for m in t.getmembers():
+                p = os.path.normpath(m.name)
+                if p.startswith(("/", "..")) or os.path.isabs(p):
+                    raise ValueError(
+                        f"archive member escapes extraction dir: {m.name!r}")
+            t.extractall(tmp.name)
+    candidates = []
+    for root, _, files in os.walk(tmp.name):
+        for f in files:
+            if f == "pytorch_model.bin":
+                return os.path.join(root, f), tmp
+            if f.endswith((".bin", ".ckpt", ".pt")):
+                candidates.append(os.path.join(root, f))
+    if len(candidates) == 1:
+        return candidates[0], tmp
+    if candidates:
+        # refuse to guess between several non-canonical weight files —
+        # os.walk order is filesystem-dependent and picking the wrong blob
+        # (e.g. an optimizer .pt) would silently load garbage
+        raise ValueError(
+            f"archive {path!r} has no pytorch_model.bin and several "
+            f"candidate weight files: "
+            f"{sorted(map(os.path.basename, candidates))}; "
+            "repack with the weights as pytorch_model.bin")
+    raise FileNotFoundError(
+        f"archive {path!r} contains no pytorch_model.bin/.bin/.ckpt/.pt "
+        "weights file")
+
+
+def load_reference_ckpt(path: str, model: torch.nn.Module):
+    """Load a reference-format .ckpt (torch.save pickle: the
+    ``model_state_dict`` / ``iter_id`` wrapper or a bare state dict) or a
+    local HF-style .tar.gz archive into ``model`` with
+    ``load_reference_state_dict_lenient``.
+
+    Returns (model, iter_id, n_transferred, skipped_keys)."""
+    path, _tmp = _resolve_archive(path)
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    iter_id = 0
+    if isinstance(blob, dict) and "model_state_dict" in blob:
+        iter_id = int(blob.get("iter_id", blob.get("iterId", 0)) or 0)
+        blob = blob["model_state_dict"]
+    model, n, skipped = load_reference_state_dict_lenient(model, blob)
+    return model, iter_id, n, skipped
 
 
 # ---------------------------------------------------------------------------

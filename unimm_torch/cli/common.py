@@ -1,0 +1,105 @@
+"""Shared CLI wiring: config / tokenizer / reader / model / checkpoint setup.
+
+The port's counterpart of the JAX package's ``cli/common.py``. Its
+``setup_jax`` (compile cache, ``jax.distributed``) has no counterpart:
+``setup_torch`` resolves the device (a CUDA device without a card raises),
+turns TF32 off (fp32 parity, ROADMAP.md invariants) and seeds. The mesh
+helpers wait for ROADMAP.md queue A item 7 (the flags that would reach them
+raise in ``options.check_ported``), ``StepProfiler`` for ``train.py`` (item
+4); an eval entry point builds a one-process ``DataLoader`` and puts the
+model on the device.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List
+
+import torch
+
+from unimm_torch import checkpoint as C
+from unimm_torch.config import VilbertConfig
+from unimm_torch.data import features
+from unimm_torch.data.loader import DataLoader
+from unimm_torch.data.tokenizer import WordPieceTokenizer
+from unimm_torch.models import vilbert
+
+
+def setup_torch(params: dict, device="cuda") -> torch.device:
+    """The device the entry point runs on (raises when a CUDA device is
+    asked for and there is no card); TF32 off; the torch seed."""
+    dev = vilbert.resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(params.get("seed", 0))
+    return dev
+
+
+def build_config(params: dict) -> VilbertConfig:
+    cfg = VilbertConfig.from_json_file(params["model_config"])
+    return cfg.replace(max_seq_len=params["max_seq_len"],
+                       attention_impl=params.get("attention_impl",
+                                                 "pallas_block"),
+                       remat=bool(params.get("remat", 0)))
+
+
+def eval_loader(params: dict, dataset, batch_size: int) -> DataLoader:
+    """The eval entry points' loader: one process, the whole split in
+    order."""
+    return DataLoader(dataset, batch_size, shuffle=False,
+                      num_workers=params["num_workers"])
+
+
+def load_tokenizer(params: dict) -> WordPieceTokenizer:
+    return WordPieceTokenizer.from_vocab_file(params["vocab_path"])
+
+
+def open_reader(params: dict):
+    return features.open_features(params["visdial_image_feats"])
+
+
+def compute_dtype(params: dict):
+    return torch.bfloat16 if params.get("dtype", "bfloat16") == "bfloat16" \
+        else torch.float32
+
+
+def init_model(params: dict, cfg: VilbertConfig, device="cuda"):
+    """The seeded init (``vilbert.init_model``, seed ``-seed``) on the
+    device, then ``-start_path`` over it."""
+    model = vilbert.init_model(cfg, seed=params.get("seed", 0),
+                               device=device)
+    if params.get("start_path"):
+        model = load_any_checkpoint(params["start_path"], model)
+    return model
+
+
+def load_any_checkpoint(path: str, model):
+    """Load a reference-format .ckpt (or a local .tar.gz archive of one)
+    into ``model``. A native checkpoint directory is ROADMAP.md queue A
+    item 4."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path}: native checkpoint directories are not ported yet "
+            "(ROADMAP.md queue A item 4)")
+    model, iter_id, n, skipped = C.load_reference_ckpt(path, model)
+    print(f"number of keys transferred {n}"
+          + (f" (skipped {len(skipped)})" if skipped else ""))
+    assert n > 0
+    return model
+
+
+def load_ensemble(params: dict, cfg: VilbertConfig, device="cuda") -> List:
+    """One model per ``-model_paths`` entry (else ``-start_path``), each a
+    seed-0 init with its checkpoint over it (the JAX package's template)."""
+    paths = [p for p in params.get("model_paths", "").split(",") if p]
+    if not paths and params.get("start_path"):
+        paths = [params["start_path"]]
+    assert paths, "provide -model_paths or -start_path"
+    return [load_any_checkpoint(p, vilbert.init_model(cfg, seed=0,
+                                                      device=device))
+            for p in paths]
+
+
+def print_metrics(metrics: dict):
+    for name, value in metrics.items():
+        print(f"{name}: {value}")

@@ -32,12 +32,19 @@
 // helpers it uses; its instances are untouched):
 //
 // 1. Scores once. A CTA of 4 warps takes 64 query rows of one row block
-//    (RB a multiple of 64) for one (slate, head); a warp holds its 16 rows'
-//    scores against one 64-key chunk as mma.sync accumulators, takes the
-//    chunk's row max, its exps and P.V, and goes on (online softmax). Key
-//    chunk c < CC = ceil(Lcb / 64) holds context keys [64 c, 64 c + 64)
-//    (those past Lcb are padding, at -inf), chunk CC + r the row block's
-//    keys [64 r, 64 r + 64). The rounding point of p: key chunk c of a row
+//    for one (slate, head): a row block of RB rows (a multiple of 16 up to
+//    256) is ceil(RB / 64) CTAs. When RB is not a multiple of 64 the
+//    launch picks the TAIL instance, whose last CTA a row block is short
+//    (its warps past the block's rows take no chunk and store nothing);
+//    whole row blocks run the instance without the tail's row count and
+//    guards, whose loop the short CTA would slow by a few percent. A warp
+//    holds its 16 rows' scores against one 64-key chunk as mma.sync
+//    accumulators, takes the chunk's row max, its exps and P.V, and goes
+//    on (online softmax). Key chunk c < CC = ceil(Lcb /
+//    64) holds context keys [64 c, 64 c + 64) (those past Lcb are padding,
+//    at -inf), chunk CC + r the row block's keys [64 r, 64 r + 64) (those
+//    past RB are padding, at -inf; the table never calls a chunk with
+//    padding keys OPEN). The rounding point of p: key chunk c of a row
 //    gives p~ = exp2((s - m_c) log2(e)), m_c the row's running max through
 //    chunk c; o sums bf16(p~) v in fp32, rescaled as the max grows, and is
 //    divided once by l, the fp32 sum of the unrounded p~, before it rounds
@@ -91,6 +98,7 @@ struct AnswerAttnArgs {
   int P, Lcb, RB;
 };
 
+template <bool TAIL>  // TAIL: RB is not a multiple of 64
 __global__ void __launch_bounds__(AA_THREADS, 3)
     answer_attn_kernel(const AnswerAttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -98,9 +106,21 @@ __global__ void __launch_bounds__(AA_THREADS, 3)
   const uint32_t sQ = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const uint32_t sK = sQ + AA_ROWS * SF_ROW_BYTES;  // [2][64 rows]
   const uint32_t sV = sK + 2 * AA_KC * SF_ROW_BYTES;
-  const int g = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * AA_ROWS;
-  const int pb = row0 / a.RB, rin0 = row0 - pb * a.RB, PB = a.P / a.RB;
-  const int CC = (a.Lcb + AA_KC - 1) / AA_KC, NC = CC + a.RB / AA_KC;
+  const int g = blockIdx.z, h = blockIdx.y, PB = a.P / a.RB;
+  int row0, pb, rin0, nrows = AA_ROWS;  // nrows: the CTA's rows
+  if constexpr (TAIL) {
+    const int TPB = (a.RB + AA_ROWS - 1) / AA_ROWS;  // CTAs a row block
+    pb = blockIdx.x / TPB;
+    rin0 = (blockIdx.x - pb * TPB) * AA_ROWS;
+    row0 = pb * a.RB + rin0;
+    nrows = min(AA_ROWS, a.RB - rin0);
+  } else {
+    row0 = blockIdx.x * AA_ROWS;
+    pb = row0 / a.RB;
+    rin0 = row0 - pb * a.RB;
+  }
+  const int CC = (a.Lcb + AA_KC - 1) / AA_KC;
+  const int NC = CC + (TAIL ? (a.RB + AA_KC - 1) / AA_KC : a.RB / AA_KC);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, gc = (lane & 3) * 2;
   const long hoff = (long)h * SA_D;
@@ -111,12 +131,18 @@ __global__ void __launch_bounds__(AA_THREADS, 3)
   const int q_u = lane >> 4, k_u = (lane >> 3) & 1, v_u = lane >> 4;
 
   sf_stage(sQ, a.q + ((long)g * a.P + row0) * HID + hoff, HID, AA_ROWS,
-           AA_ROWS, tid);
+           nrows, tid);
   cp_commit();
-  // the CTA's four 16-row tiles are consecutive rows of the table
+  // the CTA's 16-row tiles are consecutive rows of the table; a warp past
+  // the row block's rows (a short CTA) takes every chunk as CLOSED
   const uint8_t* tab =
       a.table + (((long)g * PB + pb) * (a.RB / 16) + rin0 / 16) * NC;
-  if (tid < 4 * NC) st[tid / NC][tid % NC] = tab[tid];
+  if (tid < 4 * NC) {
+    if constexpr (TAIL)
+      st[tid / NC][tid % NC] = tid / NC < nrows / 16 ? tab[tid] : AA_CLOSED;
+    else
+      st[tid / NC][tid % NC] = tab[tid];
+  }
   __syncthreads();
   unsigned live = 0, mine = 0;  // chunks the CTA loads; this warp takes
   for (int c = 0; c < NC; ++c) {
@@ -124,7 +150,7 @@ __global__ void __launch_bounds__(AA_THREADS, 3)
     if (st[warp][c] != AA_CLOSED) mine |= 1u << c;
   }
 
-  // chunk c into ring slot s: context keys past Lcb zero-filled
+  // chunk c into ring slot s: keys past Lcb or past RB zero-filled
   auto stage_chunk = [&](int c, int s) {
     const uint32_t dk = sK + s * AA_KC * SF_ROW_BYTES;
     const uint32_t dv = sV + s * AA_KC * SF_ROW_BYTES;
@@ -136,8 +162,16 @@ __global__ void __launch_bounds__(AA_THREADS, 3)
     } else {
       const long base =
           ((long)g * a.P + pb * a.RB + (c - CC) * AA_KC) * HID + hoff;
-      sf_stage(dk, a.k + base, HID, AA_KC, AA_KC, tid);
-      sf_stage(dv, a.v + base, HID, AA_KC, AA_KC, tid);
+      // a whole chunk stages with a constant row count (a count known
+      // only at run time predicates every copy)
+      const int valid = a.RB - (c - CC) * AA_KC;
+      if (!TAIL || valid >= AA_KC) {
+        sf_stage(dk, a.k + base, HID, AA_KC, AA_KC, tid);
+        sf_stage(dv, a.v + base, HID, AA_KC, AA_KC, tid);
+      } else {
+        sf_stage(dk, a.k + base, HID, AA_KC, valid, tid);
+        sf_stage(dv, a.v + base, HID, AA_KC, valid, tid);
+      }
     }
   };
 
@@ -196,6 +230,15 @@ __global__ void __launch_bounds__(AA_THREADS, 3)
             ba = key < a.Lcb ? *reinterpret_cast<const float2*>(bc + key)
                              : make_float2(-INFINITY, -INFINITY);
             bb = ba;
+          } else if constexpr (TAIL) {  // RB is even
+            // a key past RB reads the row's last pair and takes -inf: the
+            // loads stay unpredicated (predicated, they cost the attention
+            // launch 12% at RB 64 and 17% at RB 256 on an H100)
+            const int key = (c - CC) * AA_KC + j * 8 + gc;
+            const int kk = min(key, a.RB - 2);
+            ba = *reinterpret_cast<const float2*>(brr_a + kk);
+            bb = *reinterpret_cast<const float2*>(brr_b + kk);
+            if (key >= a.RB) ba = bb = make_float2(-INFINITY, -INFINITY);
           } else {
             const int key = (c - CC) * AA_KC + j * 8 + gc;
             ba = *reinterpret_cast<const float2*>(brr_a + key);
@@ -252,7 +295,9 @@ __global__ void __launch_bounds__(AA_THREADS, 3)
   }
 
   // o / l; each head's context rounds to bf16 (a warp left no chunk, which
-  // the table never gives, would store 0)
+  // the table never gives, would store 0); a warp past the row block's
+  // rows stores nothing
+  if (TAIL && warp * 16 >= nrows) return;
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -271,17 +316,30 @@ __global__ void __launch_bounds__(AA_THREADS, 3)
   }
 }
 
+template <bool TAIL>
 cudaError_t answer_attn_configure() {
   static const cudaError_t err = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        answer_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        answer_attn_kernel<TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         AA_SMEM);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(answer_attn_kernel,
+    return cudaFuncSetAttribute(answer_attn_kernel<TAIL>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout,
                                 cudaSharedmemCarveoutMaxShared);
   }();
   return err;
+}
+
+// the instance for RB: whole row blocks or 16-row tails
+template <bool TAIL>
+cudaError_t launch_answer_attn(const AnswerAttnArgs& a, int G,
+                               cudaStream_t st) {
+  const cudaError_t err = answer_attn_configure<TAIL>();
+  if (err != cudaSuccess) return err;
+  const int ctas = a.P / a.RB * ((a.RB + AA_ROWS - 1) / AA_ROWS);
+  answer_attn_kernel<TAIL>
+      <<<dim3(ctas, HID / SA_D, G), AA_THREADS, AA_SMEM, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -294,7 +352,7 @@ extern "C" int unimm_answer_block(
     void* q_buf, void* k_buf, void* v_buf, void* ctx_buf, void* pre_buf,
     void* out, int G, int P, int Lcb, int RB, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (RB < AA_KC || RB % AA_KC || RB > 4 * AA_KC || P % RB || Lcb < 2 ||
+  if (RB < 16 || RB % 16 || RB > 4 * AA_KC || P % RB || Lcb < 2 ||
       Lcb % 2 || Lcb > 4 * AA_KC)
     return cudaErrorInvalidValue;
   const int M = G * P;
@@ -312,8 +370,6 @@ extern "C" int unimm_answer_block(
   cudaError_t err = launch_gemm_nt_wg(gq, 3, e, st);
   if (err != cudaSuccess) return err;
 
-  err = answer_attn_configure();
-  if (err != cudaSuccess) return err;
   const AnswerAttnArgs a{static_cast<const bf16*>(q_buf),
                          static_cast<const bf16*>(k_buf),
                          static_cast<const bf16*>(v_buf),
@@ -326,25 +382,29 @@ extern "C" int unimm_answer_block(
                          P,
                          Lcb,
                          RB};
-  answer_attn_kernel<<<dim3(P / AA_ROWS, HID / SA_D, G), AA_THREADS, AA_SMEM,
-                       st>>>(a);
-  err = cudaGetLastError();
+  err = RB % AA_ROWS ? launch_answer_attn<true>(a, G, st)
+                     : launch_answer_attn<false>(a, G, st);
   if (err != cudaSuccess) return err;
 
   return launch_gemm_residual_ln(ctx_buf, wo, bo, x, gamma, beta, eps,
                                  pre_buf, out, M, HID, st);
 }
 
-// out: answer_attn_kernel's registers and local memory bytes a thread
-// (stack and spills), dynamic shared memory a CTA, CTAs an SM
-extern "C" int unimm_answer_block_info(int, void* out) {
+// out: answer_attn_kernel<tail != 0>'s registers and local memory bytes
+// a thread (stack and spills), dynamic shared memory a CTA, CTAs an SM
+extern "C" int unimm_answer_block_info(int tail, void* out) {
+  const void* fn = tail ? reinterpret_cast<const void*>(
+                              answer_attn_kernel<true>)
+                        : reinterpret_cast<const void*>(
+                              answer_attn_kernel<false>);
   cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, answer_attn_kernel);
-  if (e == cudaSuccess) e = answer_attn_configure();
+  cudaError_t e = cudaFuncGetAttributes(&fa, fn);
+  if (e == cudaSuccess)
+    e = tail ? answer_attn_configure<true>() : answer_attn_configure<false>();
   int ctas = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, answer_attn_kernel, AA_THREADS, AA_SMEM);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, AA_THREADS,
+                                                      AA_SMEM);
   int* o = static_cast<int*>(out);
   o[0] = fa.numRegs;
   o[1] = (int)fa.localSizeBytes;

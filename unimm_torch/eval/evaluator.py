@@ -45,7 +45,8 @@ class RankingEvaluator:
                  dtype=torch.bfloat16, need_lm=True, need_nsp=True,
                  length_buckets=True, bucket_div: int = 8,
                  gen_prefix=True, prefix_group: int = 40,
-                 prefix_rowblock: int = 0, device="cuda"):
+                 prefix_packed=True, prefix_rowblock: int = 0,
+                 device="cuda"):
         """``length_buckets``: score sequences sorted by their attended
         extent (``masks.attended_extent``), each chunk sliced to the
         smallest covering multiple of L / ``bucket_div``; exact, since rows
@@ -55,6 +56,8 @@ class RankingEvaluator:
         ``gen_prefix``: for LM-only scoring (``need_nsp=False``), score
         slates whose options share a context through the prefix-cache
         scorer (``score_slates``); ineligible slates take the flat path.
+        ``prefix_packed`` / ``prefix_rowblock``: the prefix scorer's
+        ``packed`` and ``row_block``.
 
         The compute-dtype copy of each model is made once and reused while
         its parameters are unchanged (``vilbert.ComputeModels``), one per
@@ -73,7 +76,7 @@ class RankingEvaluator:
                 and not cfg.in_batch_pairs and not cfg.fast_mode):
             self._prefix = PrefixScorer(
                 cfg, dtype=dtype, group=prefix_group, bucket_div=bucket_div,
-                row_block=prefix_rowblock,
+                packed=prefix_packed, row_block=prefix_rowblock,
                 compute_models=self._compute_model, device=self.device)
 
     def _fwd(self, cast, d_bias, chunk, pmax):
@@ -303,7 +306,8 @@ def evaluate_split(model, cfg: VilbertConfig, loader, *, mode: str,
                    ranks_out: Optional[list] = None,
                    progress_every: int = 10, log=print,
                    gen_prefix: bool = True, prefix_group: int = 40,
-                   prefix_rowblock: int = 0, pipeline_depth: int = 1,
+                   prefix_packed: bool = True, prefix_rowblock: int = 0,
+                   pipeline_depth: int = 1,
                    coalesce: int = 2, device="cuda") -> dict:
     """Run ranking eval over a loader of [B, R, O] val batches.
 
@@ -316,6 +320,7 @@ def evaluate_split(model, cfg: VilbertConfig, loader, *, mode: str,
     """
     ev, key = _evaluator(cfg, mode, chunk_size=chunk_size, dtype=dtype,
                          gen_prefix=gen_prefix, prefix_group=prefix_group,
+                         prefix_packed=prefix_packed,
                          prefix_rowblock=prefix_rowblock, device=device)
     sparse = M.SparseGTMetrics()
     ndcg = M.NDCG()
@@ -370,7 +375,8 @@ def evaluate_ensemble(models: Sequence, cfg: VilbertConfig, loader, *,
                       dtype=torch.bfloat16, ranks_out: Optional[list] = None,
                       test_split: bool = False, log=print,
                       gen_prefix: bool = True, prefix_group: int = 40,
-                      prefix_rowblock: int = 0, pipeline_depth: int = 1,
+                      prefix_packed: bool = True, prefix_rowblock: int = 0,
+                      pipeline_depth: int = 1,
                       coalesce: int = 1, progress_every: int = 10,
                       device="cuda") -> dict:
     """Multi-checkpoint ensemble: per-model scores are min-max normalised
@@ -382,6 +388,7 @@ def evaluate_ensemble(models: Sequence, cfg: VilbertConfig, loader, *,
     of a group are launched before the previous group is fetched."""
     ev, key = _evaluator(cfg, mode, chunk_size=chunk_size, dtype=dtype,
                          gen_prefix=gen_prefix, prefix_group=prefix_group,
+                         prefix_packed=prefix_packed,
                          prefix_rowblock=prefix_rowblock, device=device)
     sparse = M.SparseGTMetrics()
     ndcg = M.NDCG()

@@ -1,7 +1,7 @@
 """Prefix-cache generative scoring: prefill each slate's shared context once,
 then score all answer options against the cached context K/V.
 
-The port of the JAX package's ``eval/prefix.py`` packed path. Under the
+The port of the JAX package's ``eval/prefix.py``. Under the
 generative masks the context rows and the whole vision stream of a slate
 are identical across its options at every layer (context rows never attend
 [CLS] or either answer copy; the image stream attends only context
@@ -10,9 +10,14 @@ columns). So per slate:
 1. **Context prefill**: one plain encoder forward over the context only
    (descriptor ``mode=gen, ctx_end=Lc, ans_len=0``), tapping each text
    layer's input and each connection layer's vision input.
-2. **Answer pass**: only the ``2 * ans_len`` answer rows of every option,
-   packed contiguously into row blocks, run through the text stream; their
-   queries attend the cached context K/V plus their own option's rows.
+2. **Answer pass**: only the ``2 * ans_len`` answer rows of every option
+   run through the text stream; their queries attend the cached context
+   K/V plus their own option's rows. The rows are packed contiguously into
+   row blocks (``packed``, the default), or, when ``packed`` is off or a
+   group's largest option needs more rows than its row block, each option
+   is padded to W rows (16, 32, ... up to the sequence length) and
+   ``pick_o_blk(O, W)`` options make one row block of ``Rw`` rows (the W
+   layout).
    Under ``attention_impl="pallas_block"`` each text layer is one
    ``answer_block`` kernel plus one ``ffn_block`` kernel, each connection
    layer a plain co-attention over the cached vision stream plus one
@@ -25,9 +30,8 @@ Exact up to float rounding: masked columns add exp(-1e4) = 0 to the fp32
 softmax, so the scores equal the flat full-forward scores
 (``models/unimm.forward_eval``).
 
-Not in this slice: the W-padded answer layout (groups whose largest option
-does not fit a row block) and the mesh / multi-process arguments; both are
-queued in ROADMAP.md.
+Not ported: the mesh / multi-process arguments (ROADMAP.md queue A, item
+7).
 """
 
 from __future__ import annotations
@@ -43,12 +47,10 @@ from unimm_torch.config import VilbertConfig
 from unimm_torch.models import unimm, vilbert
 from unimm_torch.ops import masks
 from unimm_torch.ops.answer_block import (answer_block, answer_block_plain,
-                                          answer_chunk_table)
+                                          answer_chunk_table, block_rr_bias,
+                                          pick_o_blk)
 from unimm_torch.ops.ffn_block import ffn_block, ffn_block_plain
 from unimm_torch.ops.xent_head import xent_head, xent_head_plain
-
-W_PADDED_NOT_PORTED = ("the W-padded answer layout (_answer_impl) is not ported "
-                 "yet: ROADMAP.md queue A, 'W-padded answer pass'")
 
 
 def slate_eligibility(batch) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -146,23 +148,45 @@ def answer_biases(lc, opt, rin, A_row, O: int, Lcb: int, RB: int):
     return b_ctx, torch.where(rr_open, 0.0, neg).float()
 
 
+def w_layout_biases(lc, A, W: int, Lcb: int):
+    """The W layout's layer-independent additive fp32 biases: ``b_ctx`` [G,
+    1, Lcb], context keys open on [1, lc), and ``b_rr`` [G, O / o_blk, Rw,
+    Rw] with Rw = o_blk W, o_blk = ``pick_o_blk(O, W)``: each option's W
+    rows attend only that option's rows, the first copy (rows < A)
+    causally, the rest the first copy strictly before i - A and themselves
+    (``block_rr_bias``). ``lc`` [G]; ``A`` [G, O] the options' ans_len."""
+    G, O = A.shape
+    dev = A.device
+    jc = torch.arange(Lcb, device=dev)
+    ctx_open = (jc >= 1) & (jc < lc[:, None])                 # [G, Lcb]
+    b_ctx = torch.where(ctx_open, 0.0, masks.NEG_INF).float()[:, None]
+    r = torch.arange(W, device=dev)
+    rq, ks = r[:, None], r[None, :]
+    A4 = A[..., None, None]
+    rr_open = torch.where(rq < A4, ks <= rq, (ks < rq - A4) | (ks == rq))
+    return b_ctx, block_rr_bias(rr_open, pick_o_blk(O, W))
+
+
 class PrefixScorer:
-    """Scores generative slates by context prefill + packed answer-rows
-    passes on one device.
+    """Scores generative slates by context prefill + answer-rows passes
+    (packed or W-padded) on one device.
 
     ``group``: slates per group; groups share one context bucket Lcb and
-    are balanced to equal sizes. ``row_block``: 0 picks the row block per
-    group (``_rb_for``), else fixed. ``compute_models``: the
-    ``vilbert.ComputeModels`` cache of compute-dtype copies to use (one of
-    its own by default; the evaluator shares its cache). Ineligible slates
-    are left to the caller (``last_ok`` after ``score_async``).
+    are balanced to equal sizes. ``packed``: the packed answer layout
+    (default), else the W layout for every group. ``row_block``: 0 picks
+    the packed row block per group (``_rb_for``), else fixed; a group
+    whose largest option needs more rows takes the W layout.
+    ``compute_models``: the ``vilbert.ComputeModels`` cache of
+    compute-dtype copies to use (one of its own by default; the evaluator
+    shares its cache). Ineligible slates are left to the caller
+    (``last_ok`` after ``score_async``).
     """
 
     _IMG_KEYS = ("image_feat", "image_loc", "image_mask")
 
     def __init__(self, cfg: VilbertConfig, *, dtype=torch.bfloat16,
-                 group: int = 40, bucket_div: int = 8, row_block: int = 0,
-                 compute_models=None, device="cuda"):
+                 group: int = 40, bucket_div: int = 8, packed: bool = True,
+                 row_block: int = 0, compute_models=None, device="cuda"):
         if cfg.in_batch_pairs or cfg.fast_mode:
             raise ValueError("prefix scoring needs in_batch_pairs and "
                              "fast_mode off")
@@ -170,6 +194,7 @@ class PrefixScorer:
         self.dtype = dtype
         self.group = group
         self._bucket_div = bucket_div
+        self.packed = packed
         self._rb = row_block
         self.device = vilbert.resolve_device(device)
         self._ctx_cfg = cfg.replace(attention_impl="xla")
@@ -187,27 +212,19 @@ class PrefixScorer:
             return self._rb
         return 64 if (Lcb <= 192 and need <= 64) else 256
 
-    def _make_ffn(self, use_kernel: bool, rows: int):
+    def _make_ffn(self, use_kernel: bool):
         """The answer pass's FFN: the fused kernel when the kernels are on
-        and ``cfg.fused_ffn``, re-blocking the per-group ``rows`` into the
-        largest <= 256-row divisor; its plain version otherwise. Raises when
-        no divisor exists rather than quietly taking the plain path."""
+        and ``cfg.fused_ffn``, its plain version otherwise. The kernel takes
+        the answer rows as they are, whatever their count (the packed P or
+        the W layout's O * W a slate): its products run over all the rows
+        of the call as one M, with partial last tiles, so no row block has
+        to divide them (the JAX package re-blocks them into a <= 256-row
+        divisor for its VMEM, and takes its plain FFN when there is none)."""
         cfg = self.cfg
-        if not (use_kernel and cfg.fused_ffn):
-            def ffn(p_inter, p_out, h):
-                return ffn_block_plain(h, p_inter, p_out, act=cfg.hidden_act)
-            return ffn
-        rbf = next((b for b in (256, 128, 64, 32, 16, 8) if rows % b == 0),
-                   None)
-        if rbf is None:
-            raise ValueError(f"fused FFN: no row block in (256, 128, 64, 32, "
-                             f"16, 8) divides the {rows} answer rows")
+        fn = ffn_block if use_kernel and cfg.fused_ffn else ffn_block_plain
 
         def ffn(p_inter, p_out, h):
-            g = h.shape[0]
-            hb = h.reshape(g * (rows // rbf), rbf, h.shape[-1])
-            return ffn_block(hb, p_inter, p_out,
-                             act=cfg.hidden_act).reshape(h.shape)
+            return fn(h, p_inter, p_out, act=cfg.hidden_act)
         return ffn
 
     def _put(self, arrays):
@@ -230,6 +247,64 @@ class PrefixScorer:
                      tap=tap)
         return {"t": taps["t"], "c_v": [x for x in taps["c_v"]
                                         if x is not None]}
+
+    def _text_stream(self, model, x, caches, b_ctx, b_rr, image_mask):
+        """The answer rows x [G, Pr, D] through the text stream: per text
+        layer one answer block on the blocked biases (b_ctx [G, 1, Lcb],
+        b_rr [G, Pr / RB, RB, RB]) and one FFN, per connection layer the
+        plain co-attention over the cached vision stream and one FFN."""
+        cfg = self.cfg
+        b_img = masks.image_self_bias(image_mask)            # [G, 1, 1, Rg]
+        use_kernel = cfg.attention_impl == "pallas_block"
+        if use_kernel and x.device.type == "cuda":
+            # the kernel's chunk states, built once and shared by the layers
+            attn = functools.partial(
+                answer_block, table=answer_chunk_table(b_ctx, b_rr))
+        elif use_kernel:
+            attn = answer_block          # runs its plain version on the CPU
+        else:
+            attn = answer_block_plain
+        ffn = self._make_ffn(use_kernel)
+        nh_t = cfg.num_attention_heads
+
+        def t_layer(lp, x, li):
+            ps = lp.attention.self
+            tc = caches["t"][li]                            # [G, Lcb, D]
+            h = attn(x, vilbert.linear(ps.key, tc),
+                     vilbert.linear(ps.value, tc), b_ctx, b_rr,
+                     lp.attention, num_heads=nh_t)
+            return ffn(lp.intermediate, lp.output, h)
+
+        def c_layer(cp, x, v_in):
+            # text side of the connection layer: rows are independent
+            # queries over the cached vision stream (plain PyTorch, as the
+            # JAX package leaves it to XLA)
+            t_out = vilbert.co_text_side(cp, cfg, v_in, x, b_img)
+            return ffn(cp.t_intermediate, cp.t_output, t_out)
+
+        enc = model.bert.encoder
+        t_start = 0
+        for count, t_end in enumerate(cfg.t_biattention_id):
+            for i in range(t_start, t_end):
+                x = t_layer(enc.layer[i], x, i)
+            if cfg.with_coattention:
+                x = c_layer(enc.c_layer[count], x, caches["c_v"][count])
+            t_start = t_end
+        for i in range(t_start, cfg.num_hidden_layers):
+            x = t_layer(enc.layer[i], x, i)
+        return x
+
+    def _label_nll(self, model, d_bias, x, labels, n_lab):
+        """The label head at each row of x [N, Pr, D]'s first ``n_lab``
+        labelled positions: (nll [N, n_lab] fp32, labels there, -1 unused,
+        positions [N, n_lab])."""
+        cfg = self.cfg
+        pos_l, labs = unimm.label_positions(labels, n_lab)
+        hid = vilbert.mlm_head_at_positions(model, cfg, x, pos_l)
+        head = (xent_head if cfg.attention_impl == "pallas_block"
+                else xent_head_plain)
+        return head(hid, model.bert.embeddings.word_embeddings.weight,
+                    d_bias, labs), labs, pos_l
 
     def _answer_impl_packed(self, model, d_bias, caches, rows, rb: int):
         """Packed-layout answer pass. ``rows`` holds tokens / segments /
@@ -262,55 +337,17 @@ class PrefixScorer:
                                     rows["tokens"].long(),
                                     rows["segments"].long(), pos,
                                     dtype=self.dtype)
-
         # --- biases (fp32, layer-independent) ---
         Lcb = caches["t"][0].shape[1]
         b_ctx, b_rr = answer_biases(lc, opt, rin, A_row, O, Lcb, RB)
-        b_img = masks.image_self_bias(rows["image_mask"])  # [G, 1, 1, Rg]
-
-        use_kernel = cfg.attention_impl == "pallas_block"
-        if use_kernel:    # the kernel's chunk states, shared by the layers
-            attn = functools.partial(
-                answer_block, table=answer_chunk_table(b_ctx, b_rr))
-        else:
-            attn = answer_block_plain
-        head = xent_head if use_kernel else xent_head_plain
-        ffn = self._make_ffn(use_kernel, P)
-        nh_t = cfg.num_attention_heads
-
-        def t_layer(lp, x, li):
-            ps = lp.attention.self
-            tc = caches["t"][li]                            # [G, Lcb, D]
-            h = attn(x, vilbert.linear(ps.key, tc),
-                     vilbert.linear(ps.value, tc), b_ctx, b_rr,
-                     lp.attention, num_heads=nh_t)
-            return ffn(lp.intermediate, lp.output, h)
-
-        def c_layer(cp, x, v_in):
-            # text side of the connection layer: rows are independent
-            # queries over the cached vision stream (plain PyTorch, as the
-            # JAX package leaves it to XLA)
-            t_out = vilbert.co_text_side(cp, cfg, v_in, x, b_img)
-            return ffn(cp.t_intermediate, cp.t_output, t_out)
-
-        enc = p.encoder
-        t_start = 0
-        for count, t_end in enumerate(cfg.t_biattention_id):
-            for i in range(t_start, t_end):
-                x = t_layer(enc.layer[i], x, i)
-            if cfg.with_coattention:
-                x = c_layer(enc.c_layer[count], x, caches["c_v"][count])
-            t_start = t_end
-        for i in range(t_start, cfg.num_hidden_layers):
-            x = t_layer(enc.layer[i], x, i)
+        x = self._text_stream(model, x, caches, b_ctx, b_rr,
+                              rows["image_mask"])
 
         # labels occupy at most half of any option's rows (the masked
         # second copy), so P // 2 gathered positions always suffice
-        P_lab = max(8, P // 2)
-        pos_l, labs = unimm.label_positions(rows["mlm_labels"].long(), P_lab)
-        hid = vilbert.mlm_head_at_positions(model, cfg, x, pos_l)
-        decoder = p.embeddings.word_embeddings.weight
-        nll = head(hid, decoder, d_bias, labs)               # [G, P_lab]
+        labs_in = rows["mlm_labels"].long()
+        nll, labs, pos_l = self._label_nll(model, d_bias, x, labs_in,
+                                           max(8, P // 2))   # [G, P_lab]
         # per-option NLL by a one-hot segment sum over the label rows
         opt_l = torch.gather(opt, 1, pos_l)
         onehot = ((opt_l[..., None] == torch.arange(O, device=dev))
@@ -320,9 +357,85 @@ class PrefixScorer:
         return {"ll_sum": -nll_sum,
                 "ll_mean": -(nll_sum / torch.clamp(cnt, min=1.0))}
 
+    def _answer_impl(self, model, d_bias, caches, rows):
+        """W-layout answer pass (the JAX package's ``_answer_impl``): each
+        option's rows padded to W. ``rows`` holds tokens / segments /
+        mlm_labels [G, O, W] (the sequence's columns lc .. lc + W - 1),
+        lc [G], ans_len / ctx_end [G, O], image_mask [G, Rg]. The rows run
+        as [G, O * W] in row blocks of ``Rw = pick_o_blk(O, W) * W`` rows
+        (``block_rr_bias``: no row attends another option's rows), the
+        JAX kernel path's layout, on the kernels and on their plain
+        versions alike. Returns ll_sum / ll_mean [G, O]."""
+        cfg = self.cfg
+        p = model.bert
+        G, O, W = rows["tokens"].shape
+        dev = rows["tokens"].device
+        lc = rows["lc"].long()                                # [G]
+        A = rows["ans_len"].long()                            # [G, O]
+        ce = rows["ctx_end"].long()
+        r_ids = torch.arange(W, device=dev)
+        i_glob = lc[:, None, None] + r_ids                    # [G, 1, W]
+        first = r_ids < A[..., None]                          # [G, O, W]
+        T = torch.clamp(ce + A, max=cfg.max_seq_len)
+        n_rows = torch.clamp(T - lc[:, None], 0, W)
+        valid = r_ids < n_rows[..., None]
+        # gen position ids: the first copy keeps i, the masked copy reuses
+        # the first copy's positions (i - A); padding rows -> 0
+        pos = torch.where(valid, torch.where(first, i_glob,
+                                             i_glob - A[..., None]),
+                          torch.zeros_like(i_glob))
+        x = vilbert.text_embeddings(p.embeddings, cfg,
+                                    rows["tokens"].long(),
+                                    rows["segments"].long(), pos,
+                                    dtype=self.dtype)
+        b_ctx, b_rr = w_layout_biases(lc, A, W, caches["t"][0].shape[1])
+        x = self._text_stream(model, x.reshape(G, O * W, -1), caches,
+                              b_ctx, b_rr, rows["image_mask"])
+
+        # labels sit on second-copy rows, at most W // 2 an option
+        n_lab = max(8, W // 2)
+        nll, labs, _ = self._label_nll(
+            model, d_bias, x.reshape(G * O, W, -1),
+            rows["mlm_labels"].long().reshape(G * O, W), n_lab)
+        cnt = (labs != -1).float().sum(-1)
+        nll_sum = nll.float().sum(-1)
+        return {"ll_sum": (-nll_sum).reshape(G, O),
+                "ll_mean": (-(nll_sum / torch.clamp(cnt, min=1.0))).reshape(
+                    G, O)}
+
     # ------------------------------------------------------------------
     # host orchestration
     # ------------------------------------------------------------------
+
+    def _pack_rows(self, g, n, rb, O, toks, segs, labs, lc, al, image_mask):
+        """Stage group ``g``'s answer rows in the packed layout: ``n`` [gs,
+        O] rows per option, bin-packed into ``rb``-row blocks
+        (``pack_option_rows``); the dict ``_answer_impl_packed`` takes."""
+        gs = g.size
+        starts, P = pack_option_rows(n, rb)
+        reps = n.ravel()
+        oid = np.repeat(np.tile(np.arange(O, dtype=np.int64), gs), reps)
+        sid = np.repeat(np.repeat(np.arange(gs), O), reps)
+        csum = np.concatenate([[0], np.cumsum(reps)[:-1]])
+        rin = (np.arange(int(reps.sum()), dtype=np.int64)
+               - np.repeat(csum, reps))
+        ppos = np.repeat(starts.ravel(), reps) + rin
+        src = lc[g].astype(np.int64)[sid] + rin       # < Lx
+        tokens_p = np.zeros((gs, P), np.int32)
+        segs_p = np.zeros((gs, P), np.int32)
+        labs_p = np.full((gs, P), -1, np.int32)
+        opt_p = np.full((gs, P), O, np.int32)
+        rin_p = np.zeros((gs, P), np.int32)
+        tg, sg, lg = toks[g], segs[g], labs[g]
+        tokens_p[sid, ppos] = tg[sid, oid, src]
+        segs_p[sid, ppos] = sg[sid, oid, src]
+        labs_p[sid, ppos] = lg[sid, oid, src]
+        opt_p[sid, ppos] = oid
+        rin_p[sid, ppos] = rin
+        return self._put(dict(
+            tokens=tokens_p, segments=segs_p, mlm_labels=labs_p,
+            opt_id=opt_p, r_in=rin_p, lc=lc[g], ans_len=al[g],
+            image_mask=image_mask))
 
     def score(self, model, batch) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
         """Score the eligible slates of a [B, R, O] batch.
@@ -378,47 +491,46 @@ class PrefixScorer:
                 g = np.concatenate([g, np.repeat(g[-1:], pad)])
             Lcb = masks.quarter_bucket(int(lc[g].max()), Lx,
                                        div=self._bucket_div)
-            need = int(n_all[g].max())
-            rb = self._rb_for(Lcb, need)
-            if need > rb:
-                raise NotImplementedError(W_PADDED_NOT_PORTED)
-
             ctx_batch = self._put(dict(
                 tokens=toks[g, 0, :Lcb], segments=segs[g, 0, :Lcb],
                 mode=np.ones(g.size, np.int32), ctx_end=lc[g],
                 ans_len=np.zeros(g.size, np.int32),
                 img_index=img_of_slate[g]))
             ctx_batch.update(imgs)
-
-            gs = g.size
-            n = n_all[g]                          # [gs, O] rows per option
-            starts, P = pack_option_rows(n, rb)
-            reps = n.ravel()
-            oid = np.repeat(np.tile(np.arange(O, dtype=np.int64), gs), reps)
-            sid = np.repeat(np.repeat(np.arange(gs), O), reps)
-            csum = np.concatenate([[0], np.cumsum(reps)[:-1]])
-            rin = (np.arange(int(reps.sum()), dtype=np.int64)
-                   - np.repeat(csum, reps))
-            ppos = np.repeat(starts.ravel(), reps) + rin
-            src = lc[g].astype(np.int64)[sid] + rin       # < Lx
-            tokens_p = np.zeros((gs, P), np.int32)
-            segs_p = np.zeros((gs, P), np.int32)
-            labs_p = np.full((gs, P), -1, np.int32)
-            opt_p = np.full((gs, P), O, np.int32)
-            rin_p = np.zeros((gs, P), np.int32)
-            tg, sg, lg = toks[g], segs[g], labs[g]
-            tokens_p[sid, ppos] = tg[sid, oid, src]
-            segs_p[sid, ppos] = sg[sid, oid, src]
-            labs_p[sid, ppos] = lg[sid, oid, src]
-            opt_p[sid, ppos] = oid
-            rin_p[sid, ppos] = rin
-            rows = self._put(dict(
-                tokens=tokens_p, segments=segs_p, mlm_labels=labs_p,
-                opt_id=opt_p, r_in=rin_p, lc=lc[g], ans_len=al[g],
-                image_mask=imask_h[img_of_slate[g]]))
             caches = self._context_impl(cast, ctx_batch)
-            res = self._answer_impl_packed(cast, d_bias, caches, rows, rb)
-            outs.append((g[:gs - pad] if pad else g, pad, res))
+            g_out = g[:g.size - pad] if pad else g
+
+            need = int(n_all[g].max())
+            rb = self._rb_for(Lcb, need)
+            if self.packed and need <= rb:
+                rows = self._pack_rows(g, n_all[g], rb, O, toks, segs, labs,
+                                       lc, al, imask_h[img_of_slate[g]])
+                outs.append((g_out, pad, self._answer_impl_packed(
+                    cast, d_bias, caches, rows, rb)))
+                continue
+
+            # the W layout: each option's rows padded to W (16, 32, ...
+            # up to Lx)
+            need = max(1, int(rows_max[g].max()))
+            W = 16
+            while W < need:
+                W *= 2
+            W = min(W, Lx)
+            idx = (lc[g][:, None, None]
+                   + np.arange(W, dtype=np.int64)[None, None, :])
+            in_range = idx < Lx
+            take = np.broadcast_to(np.minimum(idx, Lx - 1), (g.size, O, W))
+
+            def _rows(a, fill):
+                v = np.take_along_axis(a[g], take, axis=-1)
+                return np.where(in_range, v, fill).astype(a.dtype)
+
+            rows = self._put(dict(
+                tokens=_rows(toks, 0), segments=_rows(segs, 0),
+                mlm_labels=_rows(labs, -1), lc=lc[g], ans_len=al[g],
+                ctx_end=ce[g], image_mask=imask_h[img_of_slate[g]]))
+            outs.append((g_out, pad, self._answer_impl(cast, d_bias, caches,
+                                                       rows)))
 
         def finalize():
             for g, pad, res in outs:

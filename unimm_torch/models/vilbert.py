@@ -599,7 +599,7 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
     """
     if cfg.in_batch_pairs or cfg.fast_mode:
         raise NotImplementedError("in_batch_pairs / fast_mode are not "
-                                  "ported yet (ROADMAP Queue A item 9)")
+                                  "ported yet (ROADMAP Queue A item 5)")
 
     def t_fn(lp, x):
         return encoder_layer(lp, x, t_bias, num_heads=cfg.num_attention_heads,

@@ -35,6 +35,7 @@ from unimm_torch.ops.masks import KEY_CHUNK, NEG_INF, ROW_TILE
 
 HID = 768        # the width the CUDA kernel is built for
 HEAD_DIM = 64
+MAX_KEYS = 4 * KEY_CHUNK   # the kernel's largest RB and Lcb
 
 # the states of answer_chunk_table
 CHUNK_CLOSED, CHUNK_OPEN, CHUNK_MIXED = 0, 1, 2
@@ -70,7 +71,8 @@ def answer_chunk_table(b_ctx, b_rr):
     kernel's skip rule (csrc/answer_block.cu), on the device of the biases
     (also its CPU twin). The keys are the context's, in ceil(Lcb / 64)
     chunks (the last one's keys past Lcb are padding), then the row
-    block's RB (a multiple of 64) in RB / 64 chunks, NC in all.
+    block's RB (a multiple of ROW_TILE) in ceil(RB / 64) chunks (the last
+    one's keys past RB are padding), NC in all.
 
     * CHUNK_CLOSED: every bias of the chunk is <= NEG_INF for every row of
       the tile, and each of those rows has a key whose bias is above
@@ -84,17 +86,20 @@ def answer_chunk_table(b_ctx, b_rr):
     G, PB, RB, _ = b_rr.shape
     Lcb = b_ctx.shape[-1]
     KC, RT = KEY_CHUNK, ROW_TILE
-    if RB % KC:
+    if RB % RT:
         raise ValueError(f"answer_chunk_table: RB={RB} is not a multiple "
-                         f"of {KC}")
-    CC = -(-Lcb // KC)
+                         f"of {RT}")
+    CC, NR = -(-Lcb // KC), -(-RB // KC)
     bc = torch.nn.functional.pad(b_ctx.reshape(G, Lcb).float(),
                                  (0, CC * KC - Lcb), value=float("-inf"))
     real = (torch.arange(CC * KC, device=bc.device) < Lcb).reshape(CC, KC)
     bc = bc.reshape(G, CC, KC)
     ctx_closed = (bc <= NEG_INF).all(-1)                     # [G, CC]
     ctx_open = ((bc == 0) & real).all(-1)
-    br = b_rr.float().reshape(G, PB, RB // RT, RT, RB // KC, KC)
+    br = torch.nn.functional.pad(b_rr.float(), (0, NR * KC - RB),
+                                 value=float("-inf"))
+    br = br.reshape(G, PB, RB // RT, RT, NR, KC)
+    real_r = (torch.arange(NR * KC, device=bc.device) < RB).reshape(NR, KC)
     rr_closed = (br <= NEG_INF).all(-1)                      # [.., RT, NR]
     # a row with a key above NEG_INF anywhere
     has_key = (~rr_closed).any(-1) | (~ctx_closed).any(-1)[:, None, None,
@@ -104,7 +109,7 @@ def answer_chunk_table(b_ctx, b_rr):
         rr_closed], -1) & has_key[..., None]
     opened = torch.cat([
         ctx_open[:, None, None, :].expand(G, PB, RB // RT, CC),
-        (br == 0).all(-1).all(3)], -1)
+        ((br == 0) & real_r).all(-1).all(3)], -1)
     state = torch.where(closed.all(3), CHUNK_CLOSED,
                         torch.where(opened, CHUNK_OPEN, CHUNK_MIXED))
     return state.to(torch.uint8).contiguous()
@@ -181,6 +186,22 @@ def answer_block(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads, eps=1e-12,
     ``return_ctx`` also the merged per-head context [G, P, 768]. A CPU
     tensor runs ``answer_block_plain``; a CUDA tensor launches the kernel
     (bf16 activations and weights) or raises.
+
+    The kernel takes the row blocks and context buckets of the JAX
+    package's kernel up to 256: RB any multiple of 16 in [16, 256] (the
+    packed layout's fixed or per-group row block, the W layout's
+    ``pick_o_blk(O, W) * W``) and Lcb any even length in [2, 256]. Route:
+    the table and the kernel take 16-row tails, with no padding copied.
+    A row block is ceil(RB / 64) CTAs of 64 query rows, the last one short
+    by a multiple of 16 rows (its warps past the block take every chunk as
+    CLOSED and store nothing), and the row block's last key chunk holds
+    its keys past RB as padding, at -inf, which the table never calls
+    OPEN: each weighs exp(-inf) = 0, and a real row keeps its open keys.
+    The kernel has an instance for such tails and one for RB a multiple
+    of 64, which carries no row count or guard; the launch picks it from
+    RB.
+    RB > 256 or Lcb > 256 (a fixed ``row_block`` above 256 or a
+    ``max_seq_len`` above 256) raises ``ValueError``.
     """
     if x.device.type == "cpu":
         return answer_block_plain(x, kc, vc, b_ctx, b_rr, p_attn,
@@ -195,11 +216,12 @@ def answer_block(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads, eps=1e-12,
              and b_rr.shape[2] == b_rr.shape[3], f"b_rr {tuple(b_rr.shape)}")
     PB, RB = b_rr.shape[1], b_rr.shape[2]
     Lcb = kc.shape[1]
-    _require(PB * RB == P and RB % KEY_CHUNK == 0 and RB <= 4 * KEY_CHUNK,
-             f"P={P} must be PB*RB with RB in (64, 128, 192, 256) "
-             f"(RB={RB})")
-    _require(Lcb % 16 == 0 and 16 <= Lcb <= 4 * KEY_CHUNK,
-             f"Lcb={Lcb} must be a multiple of 16 in [16, 256]")
+    _require(PB * RB == P and RB % ROW_TILE == 0
+             and ROW_TILE <= RB <= MAX_KEYS,
+             f"P={P} must be PB*RB with RB a multiple of {ROW_TILE} in "
+             f"[{ROW_TILE}, {MAX_KEYS}] (RB={RB})")
+    _require(Lcb % 2 == 0 and 2 <= Lcb <= MAX_KEYS,
+             f"Lcb={Lcb} must be even in [2, {MAX_KEYS}]")
     _require(tuple(kc.shape) == (G, Lcb, HID)
              and tuple(vc.shape) == (G, Lcb, HID), "kc/vc shape")
     _require(tuple(b_ctx.shape) == (G, 1, Lcb), "b_ctx shape")
@@ -214,7 +236,7 @@ def answer_block(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads, eps=1e-12,
                  f"b_ctx / b_rr must be float32, got {t.dtype}")
     if table is None:
         table = answer_chunk_table(b_ctx, b_rr)
-    NC = -(-Lcb // KEY_CHUNK) + RB // KEY_CHUNK
+    NC = -(-Lcb // KEY_CHUNK) + -(-RB // KEY_CHUNK)
     _require(table.dtype == torch.uint8
              and tuple(table.shape) == (G, PB, RB // ROW_TILE, NC),
              f"table must be answer_chunk_table's uint8 [{G}, {PB}, "
@@ -239,10 +261,12 @@ def answer_block(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads, eps=1e-12,
     return (out, ctx) if return_ctx else out
 
 
-def kernel_info() -> dict:
-    """The attention launch's kernel (``answer_attn_kernel``): registers
-    and local memory bytes a thread, shared memory a CTA, CTAs an SM."""
-    return _build.kernel_info("unimm_answer_block_info", 0)
+def kernel_info(tail: bool = False) -> dict:
+    """The attention launch's kernel (``answer_attn_kernel``, the instance
+    for whole 64-row CTAs or, under ``tail``, the one with a short CTA a
+    row block): registers and local memory bytes a thread, shared memory a
+    CTA, CTAs an SM."""
+    return _build.kernel_info("unimm_answer_block_info", int(tail))
 
 
 answer_block.launches = 0

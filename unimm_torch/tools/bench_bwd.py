@@ -11,8 +11,10 @@ intermediate 3072, and B8 (``co_text_block``) at [256, 224, 768] x [256,
 37, 1024], weights at std 0.02; or the main path's answer block and head
 (``--head``): K1 (``answer_block``) at chip_smoke.py phase 3's four
 shapes and on the prefix scorer's biases at G 40, Lcb 192 / RB 64 and Lcb
-256 / RB 256, weights at std 0.05, and K3 (``xent_head``) at M 25600 and
-1000, V 30522; or B 240 training steps.
+256 / RB 256, then Lcb 96 / RB 32, Lcb 192 / RB 96 and the W layout's Lcb
+256 / RB 160 (another tree that refuses one records the refusal),
+weights at std 0.05, and K3 (``xent_head``) at M 25600 and 1000, V
+30522; or B 240 training steps.
 
     python3 -m unimm_torch.tools.bench_bwd [--label NAME] [--csrc DIR
         --build DIR] [--forward | --gemm | --head | --train-step
@@ -320,11 +322,39 @@ def _scorer_biases(G, Lcb, RB, g, O=100):
             torch.where(rr, 0.0, NEG_INF).float().contiguous(), P)
 
 
-def head_times(dev):
-    """K1 at phase 3's four shapes (its random options, causal inside) and
-    on the scorer's biases at the main path's two, and K3 at M 25600 and
-    1000 (V 30522): times, each launch, errors against the twins, bits
-    across two runs."""
+def _w_biases(G, Lcb, W, g, O=100):
+    """The prefix scorer's W-layout biases (``prefix.w_layout_biases``) for
+    G slates of O options of ans_len 1 .. W / 2: (b_ctx, b_rr, P = O W).
+    A tree without the W layout gets the same biases rebuilt here from
+    ``answer_block.block_rr_bias``, so that it can be timed too."""
+    from unimm_torch.eval import prefix
+    from unimm_torch.ops.answer_block import block_rr_bias, pick_o_blk
+    from unimm_torch.ops.masks import NEG_INF
+
+    dev = g.device
+    A = torch.randint(1, W // 2 + 1, (G, O), generator=g, device=dev)
+    lc = torch.randint(2, Lcb + 1, (G,), generator=g, device=dev)
+    if hasattr(prefix, "w_layout_biases"):
+        b_ctx, b_rr = prefix.w_layout_biases(lc, A, W, Lcb)
+    else:
+        j = torch.arange(Lcb, device=dev)
+        b_ctx = torch.where((j >= 1) & (j < lc[:, None]), 0.0,
+                            NEG_INF).float()[:, None, :]
+        r = torch.arange(W, device=dev)
+        rq, ks, A4 = r[:, None], r[None, :], A[..., None, None]
+        rr = torch.where(rq < A4, ks <= rq, (ks < rq - A4) | (ks == rq))
+        b_rr = block_rr_bias(rr, pick_o_blk(O, W))
+    return b_ctx.contiguous(), b_rr.contiguous(), O * W
+
+
+def head_times(dev, other_tree=False):
+    """K1 at phase 3's four shapes (its random options, causal inside), on
+    the scorer's biases at the main path's two and at the row blocks of
+    16-row tails (RB 32 and 96, the W layout's Rw 160), and K3 at M 25600
+    and 1000 (V 30522): times, each launch, errors against the twins, bits
+    across two runs. Under ``other_tree`` (the kernels of ``--csrc``, or a
+    package imported from another tree's root) a K1 that refuses a shape
+    records the refusal (``refused``); this tree's K1 raises."""
     from unimm_torch.ops import answer_block as ab
     from unimm_torch.ops import xent_head as xh
     from unimm_torch.ops.masks import NEG_INF
@@ -335,15 +365,20 @@ def head_times(dev):
         return (torch.randn(*shape, generator=g, device=dev)
                 * scale).bfloat16()
 
-    runs, table_ms = {}, {}
+    runs, table_ms, refused = {}, {}, {}
     for Lcb, RB, G, P, real in ((192, 64, 40, 1280, False),
                                 (256, 256, 40, 1280, False),
                                 (224, 256, 4, 1280, False),
                                 (96, 64, 4, 512, False),
                                 (192, 64, 40, 0, True),
-                                (256, 256, 40, 0, True)):
+                                (256, 256, 40, 0, True),
+                                (96, 32, 40, 0, True),
+                                (192, 96, 40, 0, True),
+                                (256, 160, 40, 0, "w16")):
         attn = _wide_attention(dev, g)
-        if real:
+        if real == "w16":
+            b_ctx, b_rr, P = _w_biases(G, Lcb, 16, g)
+        elif real:
             b_ctx, b_rr, P = _scorer_biases(G, Lcb, RB, g)
         else:
             lc = torch.randint(2, Lcb + 1, (G,), generator=g, device=dev)
@@ -362,12 +397,20 @@ def head_times(dev):
         # the chunk table, built once as the scorer does (a tree from
         # before it has none)
         name = (f"answer_block G={G} P={P} Lcb={Lcb} RB={RB}"
-                + (" scorer biases" if real else ""))
+                + (" W-layout biases W=16" if real == "w16" else
+                   " scorer biases" if real else ""))
         kw = {}
-        if hasattr(ab, "answer_chunk_table"):
-            kw["table"] = ab.answer_chunk_table(b_ctx, b_rr)
-            table_ms[name] = _device_ms(
-                lambda b=(b_ctx, b_rr): ab.answer_chunk_table(*b))
+        try:
+            if hasattr(ab, "answer_chunk_table"):
+                kw["table"] = ab.answer_chunk_table(b_ctx, b_rr)
+                table_ms[name] = _device_ms(
+                    lambda b=(b_ctx, b_rr): ab.answer_chunk_table(*b))
+            ab.answer_block(*args, num_heads=12, **kw)
+        except ValueError as e:     # a tree whose K1 refuses the shape
+            if not other_tree:
+                raise
+            refused[name] = str(e)
+            continue
         runs[name] = (
             lambda a=args, kw=kw: ab.answer_block(*a, num_heads=12, **kw),
             lambda a=args: ab.answer_block_plain(*a, num_heads=12))
@@ -391,6 +434,8 @@ def head_times(dev):
                       for k, ms in _launch_split(kern)])
         if name in table_ms:
             out[name]["table_ms"] = table_ms[name]
+    for name, msg in refused.items():
+        out[name] = {"refused": msg}
     return out
 
 
@@ -458,7 +503,9 @@ def main(argv=None):
     elif args.gemm:
         res = gemm_times(dev)
     elif args.head:
-        res = head_times(dev)
+        here = Path(__file__).resolve().parents[2]
+        res = head_times(dev, other_tree=args.csrc is not None or Path(
+            _build.__file__).resolve().parents[2] != here)
     else:
         res = backward_times(dev)
     print(json.dumps({"label": args.label, **res}), flush=True)
