@@ -111,6 +111,23 @@ prints its seconds):
      call and its dialogs/s (the host data pipeline included), the seconds
      in it that the evaluator waited for the loader's next batch, and the
      loader alone; median and spread of each.
+ 12. the training CLIs at full width through ``main(argv)``, as a user runs
+     them (``python -m unimm_torch.cli.train ...``, ``... dense_finetune``):
+     a fixture tree of 90 train and 4 val dialogs at the config's widths
+     (features in a native-read LMDB), the default config file at
+     -max_seq_len 256, bf16, a seeded start .ckpt, -batch_size 240
+     -sequences_per_image 8 (3 steps an epoch): (a) train 2 epochs with a
+     save each epoch, the epoch-2 eval and -fused_adamw 1; (b) -continue
+     from (a)'s native directory, the restored state bit-equal to (a)'s;
+     (c) -continue from (a)'s .ckpt, the Adam count restored; (d) (a)
+     relaunched with -auto_resume does nothing; (e) -batch_multiply 2
+     -length_buckets 1, B5 at the morsels' bucket lengths; (f) val_lm from
+     (a)'s .ckpt; (g) dense_finetune -overfit, 5 steps of 100 options with
+     the GT first. Launch counts as derived from the code (12 + 12 B5 a
+     micro-step, one B7 a parameter tensor an update, 12 B4 / 18 K2 an
+     eval chunk, 12 K1 / 18 K2 / 1 K3 a slate group), every loss finite;
+     each run's seconds and the training runs' ms a step beside the
+     loader's wait and phase 8 (b)'s ms a step.
 The last lines are the kernels JSON, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -2005,7 +2022,7 @@ def phase_train(dev, card, runs, cfg=None, B=240, B_small=64):
                         model.named_parameters()]), ocfg, lang)
         o.mu = [m.clone() for m in src.mu]
         o.nu = [v.clone() for v in src.nu]
-        o.count = src.count
+        o.count, o.sched_count = src.count, src.sched_count
         o.step([None if g is None else g.clone() for g in grads])
         opts.append(o)
     plain, fused = opts
@@ -2595,6 +2612,278 @@ def phase_cli(dev, card, runs):
     return res, rate
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the training command line
+# ---------------------------------------------------------------------------
+
+# the fixture tree's dialogs: 3 loader batches of 30 images an epoch at
+# -batch_size 240 -sequences_per_image 8; 4 val dialogs (one eval batch)
+TRAIN_CLI_DIALOGS = dict(n_train=90, n_val=4, n_test=1)
+TRAIN_CLI_STEPS = 3                  # loader batches (steps) an epoch
+DENSE_STEPS = 5                      # -overfit: 5 dialogs, one step each
+
+
+class StepRecorder:
+    """Wraps the CLIs' step functions: each step waits for the card at its
+    end and records its seconds, its loss (a device scalar), the batch's
+    rows and length, and whether the slate's GT is first (a dense slate:
+    NSP label 0 on the first row only)."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self):
+        self.secs, self.loss, self.rows, self.lengths, self.gt_first = (
+            [], [], [], [], [])
+
+    def wrap(self, fn):
+        def run(state, batch, *a, **kw):
+            t = time.perf_counter()
+            out = fn(state, batch, *a, **kw)
+            torch.cuda.synchronize()
+            self.secs.append(time.perf_counter() - t)
+            self.loss.append(out[1]["loss"])
+            self.rows.append(int(batch["tokens"].shape[0]))
+            self.lengths.append(int(batch["tokens"].shape[1]))
+            nsp = batch["next_sentence_label"]
+            self.gt_first.append(bool(nsp[0] == 0 and (nsp[1:] == 1).all()))
+            return out
+        return run
+
+    def summary(self):
+        losses = [float(v) for v in self.loss]
+        if not all(math.isfinite(v) for v in losses):
+            raise SystemExit(f"non-finite loss {losses}")
+        later = self.secs[1:]
+        return dict(steps=len(self.secs), losses=losses,
+                    rows=sorted(set(self.rows)), lengths=self.lengths,
+                    first_step_s=self.secs[0] if self.secs else None,
+                    ms_per_step_after_first=(sum(later) / len(later) * 1e3
+                                             if later else None))
+
+
+def phase_train_cli(dev, card, runs, train_b, config=None, max_seq_len=256):
+    """The training CLIs on the card at full width through ``main(argv)``
+    (``python -m unimm_torch.cli.train`` / ``dense_finetune``): a fixture
+    tree at the config's widths (2048 features, 1601 classes; 90 train and
+    4 val dialogs; its features in a native-read LMDB), the default config
+    file at -max_seq_len 256, bf16, a seeded reference-format start .ckpt,
+    -batch_size 240 -sequences_per_image 8 (30 images, 3 steps an epoch).
+    Runs, each counted: (a) train 2 epochs, -save_every_epochs 1
+    -eval_every_epochs 2 -fused_adamw 1; (b) -continue from (a)'s native
+    directory (the restored state equal to (a)'s tensors bit for bit, the
+    step going on from (a)'s); (c) -continue from (a)'s .ckpt (the Adam
+    count restored above 0); (d) (a)'s command relaunched with
+    -auto_resume does nothing (no launch, no file written); (e)
+    -batch_multiply 2 -length_buckets 1
+    (B5 at the morsels' bucket lengths); (f) val_lm from (a)'s .ckpt; (g)
+    dense_finetune -overfit from (a)'s .ckpt (100 options a step, the GT
+    first). Launches as derived from the code: 12 + 12 B5 a micro-step,
+    one B7 a parameter tensor an update, 12 B4 / 18 K2 an eval chunk, 12
+    K1 / 18 K2 / 1 K3 a slate group. Every loss finite. Prints each run's
+    wall seconds, the training runs' mean ms a step after the first (each
+    step timed to the card's idle) and the seconds their loop waited for
+    the loader: single readings, a functional check."""
+    import shutil
+    from pathlib import Path
+
+    from unimm_torch import checkpoint as C
+    from unimm_torch.cli import dense_finetune, train, val_lm
+    from unimm_torch.config import VilbertConfig
+    from unimm_torch.data import features
+    from unimm_torch.models import vilbert
+    from unimm_torch.tools import fixture_tree
+    from unimm_torch.train import step as tstep
+
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "unimm_torch" / "phase12"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    config = config or here / "config" / "bert_base_6layer_6conect.json"
+    cfg = VilbertConfig.from_json_file(str(config)).replace(
+        max_seq_len=max_seq_len)
+    n_t, n_c = cfg.num_hidden_layers, len(cfg.t_biattention_id)
+    t0 = time.perf_counter()
+    paths, _, _ = fixture_tree.write_fixture_tree(
+        str(root), feat_dim=cfg.v_feature_size, n_classes=cfg.v_target_size,
+        **TRAIN_CLI_DIALOGS)
+    lmdb = str(root / "features.lmdb")
+    features.convert_npz_to_lmdb(paths["visdial_image_feats"], lmdb)
+    model = vilbert.init_model(cfg, seed=0, device=dev)
+    n_params = len(list(model.parameters()))
+    start = str(root / "start.ckpt")
+    C.save_reference_ckpt(start, model)
+    del model
+    setup_s = time.perf_counter() - t0
+    flags = ("visdial_processed_train", "visdial_processed_val",
+             "visdial_processed_test", "visdial_processed_train_dense",
+             "visdial_processed_train_dense_annotations",
+             "visdial_processed_val_dense_annotations", "vocab_path")
+    base = [a for f in flags for a in ("-" + f, paths[f])] + [
+        "-visdial_image_feats", lmdb, "-model_config", str(config),
+        "-max_seq_len", str(max_seq_len), "-num_options", "100",
+        "-num_workers", "4", "-batch_size", "240",
+        "-sequences_per_image", "8",
+        "-language_weights", str(here / "config" / "language_weights.json"),
+        "-save_path", str(root / "ckpt")]
+    b5 = {"attention_block_train_fwd": n_t, "attention_block_train_bwd": n_t}
+
+    def per(d, k):
+        return {name: n * k for name, n in d.items()}
+
+    def files_of(d):
+        """Each file under ``d`` with its size and modification time."""
+        return sorted((str(f), f.stat().st_size, f.stat().st_mtime_ns)
+                      for f in Path(d).rglob("*") if f.is_file())
+
+    def train_want(micro, updates, eval_chunks=0):
+        want = per(b5, micro)
+        want["adamw_update_leaf"] = n_params * updates
+        if eval_chunks:
+            want["attention_block"] = n_t * eval_chunks
+            want["ffn_block"] = (n_t + n_c) * eval_chunks
+        return want
+
+    # the epoch-2 eval: one batch of 4 val dialogs, 4000 sequences in
+    # chunks of 250
+    eval_chunks = -(-TRAIN_CLI_DIALOGS["n_val"] * 10 * 100 // 250)
+    gen, _ = cli_runs(TRAIN_CLI_DIALOGS["n_val"], 1, n_t, n_c)
+    fused = ["-fused_adamw", "1"]
+    a_args = ["-num_epochs", "2", "-save_every_epochs", "1",
+              "-eval_every_epochs", "2", "-start_path", start] + fused
+    one = ["-num_epochs", "1", "-save_every_epochs", "2",
+           "-eval_every_epochs", "2"] + fused
+    a_ckpt = str(root / "ckpt" / "a" /
+                 f"visdial_dialog_encoder_{2 * TRAIN_CLI_STEPS}.ckpt")
+    steps = TRAIN_CLI_STEPS
+    plan = [  # name, entry, argv, launches, steps after the run
+        ("a", train, a_args, train_want(2 * steps, 2 * steps, eval_chunks),
+         2 * steps),
+        ("b", train, one + ["-continue", "-start_path",
+                            str(root / "ckpt" / "a" / "native")],
+         train_want(steps, steps), 3 * steps),
+        ("c", train, one + ["-continue", "-start_path", a_ckpt],
+         train_want(steps, steps), 3 * steps),
+        ("d", train, a_args + ["-auto_resume"], {}, 2 * steps),
+        ("e", train, ["-num_epochs", "1", "-save_every_epochs", "2",
+                      "-eval_every_epochs", "2", "-batch_multiply", "2",
+                      "-length_buckets", "1", "-start_path", start] + fused,
+         train_want(steps, 1), steps),
+        ("f", val_lm, ["-val_dis", "0", "-start_path", a_ckpt], gen, None),
+        ("g", dense_finetune, ["-overfit", "-num_epochs", "1",
+                               "-start_path", a_ckpt] + fused,
+         train_want(DENSE_STEPS, DENSE_STEPS), DENSE_STEPS),
+    ]
+    rec, waits, checks = StepRecorder(), [0.0], {}
+    real = (tstep.make_train_step_with_fallback,
+            dense_finetune.make_dense_step, train.DataLoader,
+            dense_finetune.DataLoader, C.restore_native,
+            C.load_reference_train_state)
+    kept = {}
+
+    def loader(*a, **kw):      # the training loaders' waits, timed
+        ld = real[2](*a, **kw)
+        return WaitTimed(ld, waits) if kw.get("shuffle") else ld
+
+    def restore_native(path, state):
+        out = real[4](path, state)
+        if "a" not in kept:
+            return out
+        want = kept["a"]
+        o, w = out["opt"], want["opt"]
+        same = (out["step"] == want["step"] and out["seed"] == want["seed"]
+                and (o.count, o.sched_count, o.mini_step) == (
+                    w.count, w.sched_count, w.mini_step)
+                and all(torch.equal(x, y) for x, y in zip(
+                    list(out["model"].parameters()) + o.mu + o.nu,
+                    list(want["model"].parameters()) + w.mu + w.nu)))
+        checks["b_restored_bit_equal"] = same
+        return out
+
+    def load_train_state(*a, **kw):
+        out = real[5](*a, **kw)
+        checks.setdefault("restored_adam_count", out[1].count)
+        return out
+
+    tstep.make_train_step_with_fallback = (
+        lambda *a, **kw: rec.wrap(real[0](*a, **kw)))
+    dense_finetune.make_dense_step = lambda *a, **kw: rec.wrap(
+        real[1](*a, **kw))
+    train.DataLoader = dense_finetune.DataLoader = loader
+    C.restore_native, C.load_reference_train_state = (restore_native,
+                                                      load_train_state)
+    res = {}
+    try:
+        with contextlib.chdir(root):
+            for name, mod, argv, want, want_step in plan:
+                rec.clear()
+                waits[0] = 0.0
+                checks.pop("restored_adam_count", None)
+                # (d) relaunches (a)'s run under its name
+                save = "a" if name == "d" else name
+                before = files_of(root / "ckpt" / "a")
+                out, secs, launches = counted(lambda: mod.main(
+                    base + argv + ["-save_name", save], device=dev))
+                expect(f"train cli ({name})", launches, want)
+                if name == "d" and files_of(root / "ckpt" / "a") != before:
+                    raise SystemExit("train cli (d): the relaunch of a "
+                                     "complete run wrote files")
+                runs[f"train_cli_{name}"] = launches
+                r = dict(entry=mod.__name__.rsplit(".", 1)[1], argv=argv,
+                         launches=launches, main_s=secs,
+                         loader_wait_s=waits[0], **rec.summary())
+                if want_step is not None:
+                    r["step"] = out["step"]
+                    if out["step"] != want_step:
+                        raise SystemExit(f"train cli ({name}): step "
+                                         f"{out['step']}, want {want_step}")
+                if name == "a":
+                    kept["a"] = out
+                    # keep the latest save only: each is ~3 GB twice
+                    shutil.rmtree(root / "ckpt" / "a" / "native" /
+                                  f"step_{steps}")
+                    (root / "ckpt" / "a" /
+                     f"visdial_dialog_encoder_{steps}.ckpt").unlink()
+                elif name == "b":
+                    if not checks.get("b_restored_bit_equal"):
+                        raise SystemExit("train cli (b): the restored state "
+                                         "differs from (a)'s")
+                    del kept["a"]
+                elif name == "c":
+                    r["restored_adam_count"] = checks["restored_adam_count"]
+                    if not checks["restored_adam_count"] > 0:
+                        raise SystemExit("train cli (c): Adam count 0")
+                elif name == "e":
+                    r["bucket_lengths"] = sorted(set(r["lengths"]))
+                    if min(r["lengths"]) >= cfg.max_seq_len:
+                        raise SystemExit("train cli (e): no morsel below "
+                                         f"{cfg.max_seq_len}: {r['lengths']}")
+                elif name == "f":
+                    r["ndcg"], r["mrr"] = out["ndcg"], out["mrr"]
+                    if not all(math.isfinite(v) for v in out.values()):
+                        raise SystemExit(f"train cli (f): metrics {out}")
+                elif name == "g":
+                    if r["rows"] != [100] or not all(rec.gt_first):
+                        raise SystemExit(
+                            f"train cli (g): slates {r['rows']}, GT first "
+                            f"{rec.gt_first}")
+                out = None
+                res[name] = r
+                print(json.dumps({"train_cli": name, **r, "card": card}),
+                      flush=True)
+    finally:
+        (tstep.make_train_step_with_fallback, dense_finetune.make_dense_step,
+         train.DataLoader, dense_finetune.DataLoader, C.restore_native,
+         C.load_reference_train_state) = real
+    print(json.dumps({"train_cli_phase": {
+        "setup_s": setup_s, "parameter_tensors": n_params,
+        "phase8_b_ms_per_step": {k: v["ms_per_step"]
+                                 for k, v in train_b.items()},
+        "card": card}}), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 @contextlib.contextmanager
 def phase(name):
     """Print the phase's seconds when it ends."""
@@ -2823,6 +3112,9 @@ def main():
 
     with phase("11 evaluation CLIs"):
         phase_cli(dev, card, runs)
+
+    with phase("12 training CLIs"):
+        phase_train_cli(dev, card, runs, train_b)
 
     kernels = []
     for name, source, replaces in KERNELS:

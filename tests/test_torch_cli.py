@@ -196,7 +196,9 @@ def test_cli_without_a_card_raises(world):
 
 
 def test_native_checkpoint_directory_names_its_item(world, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    """A directory without a native checkpoint is refused by name (a native
+    one loads: tests/test_torch_persist.py)."""
+    with pytest.raises(FileNotFoundError, match="no native checkpoint"):
         t_common.load_any_checkpoint(str(tmp_path), None)
 
 

@@ -30,7 +30,8 @@ print(len(names))
 """
 
 # the host data modules, the LMDB readers, the CLIs and the fixture writer
-# of the evaluation command line, among the modules imported above
+# of the evaluation and training command lines, among the modules imported
+# above
 _CLI_MODULES = {
     "unimm_torch.data.tokenizer", "unimm_torch.data.encoding",
     "unimm_torch.data.features", "unimm_torch.data.dataset",
@@ -38,7 +39,11 @@ _CLI_MODULES = {
     "unimm_torch.native.lmdb_format", "unimm_torch.cli.options",
     "unimm_torch.cli.common", "unimm_torch.cli.val_lm",
     "unimm_torch.cli.val_avg_lm", "unimm_torch.cli.val",
-    "unimm_torch.cli.evaluate", "unimm_torch.tools.fixture_tree"}
+    "unimm_torch.cli.evaluate", "unimm_torch.tools.fixture_tree",
+    # the training command line: its CLIs, logger and dense losses
+    "unimm_torch.utils.logging", "unimm_torch.cli.train",
+    "unimm_torch.cli.dense_finetune", "unimm_torch.ops.rank_loss",
+    "unimm_torch.ops.focal_losses"}
 
 
 def test_imports_with_jax_blocked():
@@ -47,7 +52,7 @@ def test_imports_with_jax_blocked():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names, count = out.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 51
+    assert int(count) >= 58
     assert _CLI_MODULES <= set(names.split()), _CLI_MODULES - set(
         names.split())
 
@@ -65,7 +70,7 @@ def _imported_roots(path):
 def test_no_jax_import_statements():
     files = sorted((ROOT / "unimm_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
-    assert len(files) >= 51
+    assert len(files) >= 58
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "unimm_tpu"}
         assert not bad, (f, bad)

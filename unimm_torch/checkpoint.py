@@ -19,16 +19,29 @@ The port's ``VilbertModel`` carries the reference ``state_dict`` names, so:
   file (its ``model_state_dict`` / ``iter_id`` wrapper or a bare state
   dict) or a local ``.tar.gz`` archive holding one, and loads it leniently
   (the JAX package's ``load_reference_ckpt``);
+* ``save_reference_ckpt`` / ``load_reference_train_state`` write and read
+  the reference's full training checkpoint (train.py:504-505: the
+  ``model_state_dict`` / ``optimizer_state_dict`` / ``scheduler_state_dict``
+  / ``iter_id`` dict) with the JAX package's rules: the optimizer state is
+  keyed by parameter index in ``model_state_dict`` order without the tied
+  decoder; the Adam count comes from the largest ``step`` and the schedule
+  count is ``iter_id // batch_multiply``;
+* ``save_native`` / ``restore_native`` / ``latest_native`` keep the whole
+  training state (fp32 master weights, the optimizer's two counters, its
+  MultiSteps state and moments, the step and the dropout seed) as one
+  ``torch.save`` file under ``<directory>/step_<n>/``, written under a
+  temporary name and renamed, so a killed save never leaves a
+  ``step_<n>`` behind. The JAX package writes Orbax directories there;
+  the two formats do not read each other;
+* ``latest_reference_ckpt`` finds a run's newest reference ``.ckpt``;
 * ``language_param_set`` / ``group_label`` give each parameter its
   optimizer group (train/optim.py), as the reference train.py groups them.
-
-Native (directory) checkpoints, saving and the optimizer state are ROADMAP.md
-queue A item 4.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 from collections import OrderedDict
 from typing import Any, Dict, List, Tuple, Union
 
@@ -41,6 +54,7 @@ _EMBEDDING_LEAVES = {
     "token_type_embeddings_extension", "sep_embeddings",
 }
 TIED_DECODER = "cls.predictions.decoder.weight"
+PREFIX = "bert_pretrained."
 WORD_EMBEDDINGS = "bert.embeddings.word_embeddings.weight"
 
 
@@ -206,6 +220,224 @@ def load_reference_ckpt(path: str, model: torch.nn.Module):
         blob = blob["model_state_dict"]
     model, n, skipped = load_reference_state_dict_lenient(model, blob)
     return model, iter_id, n, skipped
+
+
+# ---------------------------------------------------------------------------
+# the reference's full training checkpoint (train.py:371-386, :504-505)
+# ---------------------------------------------------------------------------
+
+def _jax_order(names):
+    """``names`` in the JAX package's parameter order (its pytree's sorted
+    paths): the order its ``save_reference_ckpt`` writes them in."""
+    return sorted(names, key=lambda n: tuple(n.split(".")))
+
+
+def _index_names(keys):
+    """The optimizer's parameter index order of a reference checkpoint:
+    its ``model_state_dict`` keys without the tied decoder (the
+    reference's ``named_parameters()`` leaves shared tensors out)."""
+    return [k for k in keys if _normalize_key(k) != TIED_DECODER]
+
+
+@torch.no_grad()
+def load_reference_train_state(path: str, model: torch.nn.Module, opt,
+                               batch_multiply: int = 1):
+    """Full ``-continue`` restore from a reference-format .ckpt into
+    ``model`` and ``opt`` (a fresh ``train.optim.GroupedAdamW`` of it):
+    the weights (leniently, as ``load_reference_state_dict_lenient``),
+    AdamW's exp_avg / exp_avg_sq, the Adam count (the largest ``step``)
+    and the schedule count ``iter_id // batch_multiply`` (the reference
+    ticks its scheduler every micro-batch; this optimizer counts updates).
+    A moment in the file is [out, in] like the model's parameter, so
+    nothing is transposed. A file without optimizer state leaves ``opt``
+    as it is. Returns (model, opt, iter_id, n_transferred)."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if "model_state_dict" not in blob:
+        raise ValueError(f"{path} is not a full reference checkpoint "
+                         "(no model_state_dict)")
+    iter_id = int(blob.get("iter_id", blob.get("iterId", 0)) or 0)
+    msd = blob["model_state_dict"]
+    model, n, _ = load_reference_state_dict_lenient(model, msd)
+    osd = blob.get("optimizer_state_dict")
+    if not osd or not osd.get("state"):
+        return model, opt, iter_id, n
+    index = {name: i for i, name in enumerate(opt.names)}
+    names = _index_names(list(msd.keys()))
+    for m in opt.mu + opt.nu:
+        m.zero_()
+    step = 0
+    for idx, pstate in osd["state"].items():
+        i = index.get(_normalize_key(names[int(idx)]))
+        if i is None:
+            continue
+        opt.mu[i].copy_(torch.as_tensor(pstate["exp_avg"]).float())
+        opt.nu[i].copy_(torch.as_tensor(pstate["exp_avg_sq"]).float())
+        step = max(step, int(np.asarray(pstate.get("step", 0))))
+    opt.count = step
+    opt.sched_count = iter_id // max(1, batch_multiply)
+    opt.mini_step, opt.acc = 0, None
+    return model, opt, iter_id, n
+
+
+def extract_adam_moments(opt):
+    """(mu, nu, count): fp32 CPU copies of ``opt``'s moments by parameter
+    name, and its Adam count (the inverse of the restore above)."""
+    mu = {n: m.detach().float().cpu() for n, m in zip(opt.names, opt.mu)}
+    nu = {n: v.detach().float().cpu() for n, v in zip(opt.names, opt.nu)}
+    return mu, nu, int(opt.count)
+
+
+def _fp32_cpu(t):
+    return t.detach().to(device="cpu", dtype=torch.float32, copy=True)
+
+
+def save_reference_ckpt(path: str, model: torch.nn.Module, iter_id: int = 0,
+                        opt=None, lang_set=None, lr: float = 2e-5,
+                        image_lr: float = 2e-5):
+    """Write a reference-format checkpoint as the JAX package's
+    ``save_reference_ckpt`` does: ``model_state_dict`` (every parameter as
+    ``bert_pretrained.<name>``, fp32, in the JAX package's order, then the
+    tied decoder) and ``iter_id``; with ``opt`` also the torch AdamW
+    ``optimizer_state_dict`` (one param group per parameter, each state
+    holding the Adam count as ``step``) and a ``scheduler_state_dict``."""
+    params = dict(model.named_parameters())
+    order = _jax_order(params)
+    sd = OrderedDict((PREFIX + n, _fp32_cpu(params[n])) for n in order)
+    sd[PREFIX + TIED_DECODER] = sd[PREFIX + WORD_EMBEDDINGS].clone()
+    blob = {"model_state_dict": sd, "iter_id": iter_id}
+    if opt is not None:
+        mu, nu, count = extract_adam_moments(opt)
+        lang_set = lang_set or set()
+        state, groups = {}, []
+        for i, name in enumerate(_index_names(list(sd))):
+            key = _normalize_key(name)
+            state[i] = {"step": count, "exp_avg": mu[key],
+                        "exp_avg_sq": nu[key]}
+            base = lr if key in lang_set else image_lr
+            nodecay = ("bias" in key) or ("LayerNorm.weight" in key)
+            groups.append({"params": [i], "lr": base,
+                           "weight_decay": 0.0 if nodecay else 0.01,
+                           "betas": (0.9, 0.999), "eps": 1e-6,
+                           "correct_bias": True})
+        blob["optimizer_state_dict"] = {"state": state,
+                                        "param_groups": groups}
+        blob["scheduler_state_dict"] = {
+            "last_epoch": iter_id, "_step_count": iter_id + 1,
+            "base_lrs": [g["lr"] for g in groups],
+            "warmup_steps": 10000, "t_total": 200000,
+        }
+    torch.save(blob, path)
+
+
+def latest_reference_ckpt(directory: str):
+    """(path, iter_id) of the highest-numbered
+    ``visdial_dialog_encoder_<iter>.ckpt`` under ``directory``, or None."""
+    if not os.path.isdir(directory):
+        return None
+    best = None
+    prefix, suffix = "visdial_dialog_encoder_", ".ckpt"
+    for name in os.listdir(directory):
+        if name.startswith(prefix) and name.endswith(suffix):
+            try:
+                it = int(name[len(prefix):-len(suffix)])
+            except ValueError:
+                continue
+            if best is None or it > best[1]:
+                best = (os.path.join(directory, name), it)
+    return best
+
+
+# ---------------------------------------------------------------------------
+# native checkpoints: the whole training state, one torch.save file a step
+# ---------------------------------------------------------------------------
+
+NATIVE_FILE = "state.pt"
+
+
+def _cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, list):
+        return [_cpu(v) for v in x]
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    return x
+
+
+def save_native(directory: str, state: dict, step: int) -> str:
+    """Write ``state`` (``train.step.init_state``'s dict: model, opt, step,
+    seed) as ``<directory>/step_<step>/state.pt``, replacing an existing
+    one. The file is written into a hidden temporary directory that is
+    then renamed, so ``latest_native`` never sees a half-written step."""
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step}")
+    tmp = os.path.join(directory, f".tmp_step_{step}_{os.getpid()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    blob = {"params": OrderedDict((n, _cpu(p)) for n, p in
+                                  state["model"].named_parameters()),
+            "opt": _cpu(state["opt"].state_dict()),
+            "step": int(state["step"]), "seed": int(state["seed"])}
+    torch.save(blob, os.path.join(tmp, NATIVE_FILE))
+    if os.path.exists(final):
+        old = os.path.join(directory, f".old_step_{step}_{os.getpid()}")
+        os.rename(final, old)
+        os.rename(tmp, final)
+        shutil.rmtree(old, ignore_errors=True)
+    else:
+        os.rename(tmp, final)
+    return final
+
+
+@torch.no_grad()
+def restore_native(path: str, state: dict) -> dict:
+    """Load ``<path>/state.pt`` into ``state``'s model and optimizer (in
+    place, on their device) and set its step and seed. Returns
+    ``state``."""
+    blob = torch.load(os.path.join(path, NATIVE_FILE), map_location="cpu",
+                      weights_only=False)
+    params = dict(state["model"].named_parameters())
+    if set(params) != set(blob["params"]):
+        raise KeyError(f"{path}: the checkpoint holds other parameters")
+    for name, value in blob["params"].items():
+        params[name].copy_(value)
+    state["opt"].load_state_dict(blob["opt"])
+    state["step"], state["seed"] = int(blob["step"]), int(blob["seed"])
+    return state
+
+
+def latest_native(directory: str):
+    """(path, step) of the highest ``step_<n>`` under ``directory``, or
+    None (temporary names are not ``step_<n>``)."""
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_"):
+            try:
+                steps.append(int(name.split("_", 1)[1]))
+            except ValueError:
+                pass
+    if not steps:
+        return None
+    step = max(steps)
+    return os.path.join(directory, f"step_{step}"), step
+
+
+@torch.no_grad()
+def load_native_params(path: str, model: torch.nn.Module):
+    """Load the weights of a native checkpoint into ``model``: ``path`` is
+    a ``step_<n>`` directory or a directory of them (its latest)."""
+    if not os.path.isfile(os.path.join(path, NATIVE_FILE)):
+        latest = latest_native(path)
+        if latest is None:
+            raise FileNotFoundError(f"{path}: no native checkpoint")
+        path = latest[0]
+    blob = torch.load(os.path.join(path, NATIVE_FILE), map_location="cpu",
+                      weights_only=False)
+    model.load_state_dict(blob["params"], strict=True)
+    return model, int(blob["step"])
 
 
 # ---------------------------------------------------------------------------

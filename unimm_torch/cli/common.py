@@ -5,9 +5,10 @@ The port's counterpart of the JAX package's ``cli/common.py``. Its
 ``setup_torch`` resolves the device (a CUDA device without a card raises),
 turns TF32 off (fp32 parity, ROADMAP.md invariants) and seeds. The mesh
 helpers wait for ROADMAP.md queue A item 7 (the flags that would reach them
-raise in ``options.check_ported``), ``StepProfiler`` for ``train.py`` (item
-4); an eval entry point builds a one-process ``DataLoader`` and puts the
-model on the device.
+raise in ``options.check_ported``); an eval entry point builds a
+one-process ``DataLoader`` and puts the model on the device.
+``StepProfiler`` traces a window of training steps with ``torch.profiler``
+where the JAX package uses ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -50,6 +51,43 @@ def eval_loader(params: dict, dataset, batch_size: int) -> DataLoader:
                       num_workers=params["num_workers"])
 
 
+class StepProfiler:
+    """Traces steps ``start`` to ``stop`` with ``torch.profiler`` when
+    -profile_dir is set (a Chrome trace, ``trace_<start>_<stop>.json``,
+    in that directory); without it every call does nothing."""
+
+    def __init__(self, directory: str, start: int = 10, stop: int = 15):
+        self.dir = directory
+        self.start, self.stop = start, stop
+        self._prof = None
+
+    def step(self, i: int):
+        if not self.dir:
+            return
+        if i == self.start and self._prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
+        elif i >= self.stop and self._prof is not None:
+            self._finish()
+            print(f"profiler trace written to {self.dir}")
+
+    def _finish(self):
+        prof, self._prof = self._prof, None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.dir, f"trace_{self.start}_{self.stop}.json"))
+
+    def close(self):
+        if self._prof is not None:
+            self._finish()
+
+
 def load_tokenizer(params: dict) -> WordPieceTokenizer:
     return WordPieceTokenizer.from_vocab_file(params["vocab_path"])
 
@@ -74,13 +112,13 @@ def init_model(params: dict, cfg: VilbertConfig, device="cuda"):
 
 
 def load_any_checkpoint(path: str, model):
-    """Load a reference-format .ckpt (or a local .tar.gz archive of one)
-    into ``model``. A native checkpoint directory is ROADMAP.md queue A
-    item 4."""
+    """Load a reference-format .ckpt (or a local .tar.gz archive of one),
+    or the weights of a native checkpoint directory (a ``step_<n>``
+    directory or a directory of them: its latest), into ``model``."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: native checkpoint directories are not ported yet "
-            "(ROADMAP.md queue A item 4)")
+        model, step = C.load_native_params(path, model)
+        print(f"native checkpoint restored at step {step}")
+        return model
     model, iter_id, n, skipped = C.load_reference_ckpt(path, model)
     print(f"number of keys transferred {n}"
           + (f" (skipped {len(skipped)})" if skipped else ""))

@@ -7,8 +7,8 @@ standard library only; held equal to it in tests/test_torch_data.py):
 ``VisdialDataset`` with its train, val and test items, ``collate``,
 ``flatten_for_forward`` with its training subsample, and
 ``length_bucket_morsels`` (one process; the multi-process ``sync`` is
-ROADMAP.md queue A item 7). ``VisdialDatasetDense`` is ported with dense
-finetuning, its only user (queue A item 6).
+ROADMAP.md queue A item 7), and ``VisdialDatasetDense``, dense
+finetuning's set.
 
 The datasets reimplement the reference dataset semantics (the reference's
 dataloader/dataloader_visdial.py VisdialDataset) without building dense
@@ -307,6 +307,84 @@ class VisdialDataset:
         item = _stack_rounds([seqs])   # [1, 100, ...]
         item["round_id"] = np.int32(dialog["round_id"])
         img = self._image(dialog["image_id"], rng, mask_prob=0)
+        item.update(_image_fields(img))
+        item["image_id"] = np.int64(dialog["image_id"])
+        return item
+
+
+class VisdialDatasetDense:
+    """Dense-annotation finetuning set: one annotated round, all 100 options."""
+
+    def __init__(self, params: dict, tokenizer, features_reader):
+        self.params = params
+        self.tok = _TokenCache(tokenizer)
+        self.reader = features_reader
+        self.cls_id = tokenizer.cls_id
+        self.sep_id = tokenizer.sep_id
+        self.mask_id = tokenizer.mask_id
+        self.vocab_size = tokenizer.vocab_size
+        self.max_regions = params.get("max_regions", 37)
+        self.seed = params.get("seed", 0)
+        self.epoch = 0
+        with open(params["visdial_processed_train_dense"]) as f:
+            self.data = json.load(f)["data"]
+        with open(params["visdial_processed_train_dense_annotations"]) as f:
+            self.annotations = json.load(f)
+        n = len(self.data["dialogs"])
+        if params.get("overfit"):
+            n = min(5, n)
+        self.num_data_points = {"train": n}
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __len__(self):
+        return self.num_data_points["train"]
+
+    def __getitem__(self, index: int) -> dict:
+        p = self.params
+        rng = np.random.default_rng((self.seed, self.epoch, index, 0xD))
+        dialog = self.data["dialogs"][index]
+        questions, answers = self.data["questions"], self.data["answers"]
+        ann = self.annotations[index]
+        assert dialog["image_id"] == ann["image_id"]
+
+        cur_rounds = ann["round_id"]
+        cur = [self.tok.encode(dialog["caption"])]
+        for rnd, utt in enumerate(dialog["dialog"][:cur_rounds]):
+            cur.append(self.tok.encode(questions[utt["question"]]))
+            if rnd != cur_rounds - 1:
+                cur.append(self.tok.encode(answers[utt["answer"]]))
+
+        # per-item mode draw (dataloader_dense_annotations.py:148)
+        use_dis = rng.random() < p["train_dis_rate"]
+        encode = E.encode_dis if use_dis else E.encode_gen
+        seqs = []
+        for oi, ao in enumerate(dialog["dialog"][cur_rounds - 1]
+                                ["answer_options"]):
+            opt = cur.copy()
+            opt.append(self.tok.encode(answers[ao]))
+            ctx, start_seg = E.prune_rounds(opt, p["visdial_tot_rounds"])
+            rel = ann["relevance"][oi]
+            seqs.append(encode(ctx, start_seg, self.cls_id, self.sep_id,
+                               self.mask_id, max_seq_len=p["max_seq_len"],
+                               mask_prob=p["mask_prob"],
+                               is_negative=(rel == 0),
+                               weight=(rel if rel > 0 else 1),
+                               vocab_size=self.vocab_size, rng=rng))
+        gt_option = dialog["dialog"][cur_rounds - 1]["gt_index"]
+        item = _stack_rounds([seqs])
+        nsp = np.ones(len(seqs), np.int32)
+        nsp[gt_option] = 0
+        item["next_sentence_label"] = nsp[None, :]
+        item["gt_relevance"] = np.asarray(ann["relevance"], np.float32)
+        item["gt_option"] = np.int32(gt_option)
+        item["round_id"] = np.int32(cur_rounds)
+        img_rng = rng
+        features, num_boxes, boxes, _, cls_prob = self.reader[dialog["image_id"]]
+        img = E.encode_image(features, num_boxes, boxes, cls_prob,
+                             max_regions=self.max_regions, mask_prob=0,
+                             rng=img_rng)
         item.update(_image_fields(img))
         item["image_id"] = np.int64(dialog["image_id"])
         return item

@@ -25,13 +25,15 @@ def _f32(v, device):
 
 
 def adamw_update_leaf_plain(g, p, mu, nu, lr, wd, bc1, bc2, *, b1=0.9,
-                            b2=0.999, eps=1e-6):
+                            b2=0.999, eps=1e-6, b1_mu=None):
     """(update, mu', nu') in fp32, one operation per rounding as the
-    kernel; inputs are not modified."""
+    kernel; inputs are not modified. ``b1_mu``, when given, is b1 * mu
+    already formed (a narrower first moment's product, rounded as optax
+    rounds it) and takes the place of ``b1 * mu``."""
     d = g.device
     b1_, omb1 = _f32(b1, d), _f32(1.0 - b1, d)
     b2_, omb2 = _f32(b2, d), _f32(1.0 - b2, d)
-    mu2 = b1_ * mu + omb1 * g
+    mu2 = (b1_ * mu if b1_mu is None else b1_mu) + omb1 * g
     nu2 = b2_ * nu + omb2 * (g * g)
     direction = (mu2 / _f32(bc1, d)) / (torch.sqrt(nu2 / _f32(bc2, d))
                                         + _f32(eps, d))

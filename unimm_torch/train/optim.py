@@ -7,7 +7,9 @@ reference train.py:322-348 and utils/optim_utils.py:8-26 with optax):
   on, written out in optax's op order (moments as ``b * m + (1 - b) *
   g``, bias correction by division, then ``-lr * (direction + wd * p)``).
   This is not ``torch.optim.AdamW``, which decays the weights before the
-  step and places eps differently;
+  step and places eps differently. A bfloat16 first moment
+  (``mu_dtype``) forms ``b1 * m`` in bfloat16, b1 rounded to it, as optax
+  does with its weakly typed constant;
 * two learning rates: parameters named in config/language_weights.json
   get ``lr``, the rest (vision stream, poolers, co-attention, image head)
   ``image_lr``; no weight decay for bias / LayerNorm parameters, 0.01
@@ -16,6 +18,15 @@ reference train.py:322-348 and utils/optim_utils.py:8-26 with optax):
 * gradient accumulation with optax.MultiSteps semantics
   (``batch_multiply``): the running mean of k gradients, one update every
   k calls.
+
+Two counters, as optax keeps them in ``ScaleByAdamState.count`` and
+``ScaleByScheduleState.count``: ``count`` sets the bias correction and
+``sched_count`` the learning rate. Both advance on every update, but a
+restore may set them apart: ``checkpoint.load_reference_train_state``
+takes the Adam count from the file's ``step`` and the schedule count from
+``iter_id // batch_multiply``. ``state_dict`` / ``load_state_dict`` carry
+both, the moments in their dtype and the MultiSteps state (``mini_step``,
+``acc``).
 
 ``make_optimizer`` computes each tensor's update with plain PyTorch
 operations (``ops/adamw.adamw_update_leaf_plain``); ``make_fused_optimizer``
@@ -115,9 +126,37 @@ class GroupedAdamW:
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32)
                    for p in self.params]
-        self.count = 0        # updates taken (optax's adam / schedule count)
+        self.count = 0        # optax's adam count: the bias correction
+        self.sched_count = 0  # optax's schedule count: the learning rate
         self.mini_step = 0    # MultiSteps: gradients accumulated so far
         self.acc = None
+
+    def state_dict(self) -> dict:
+        """The optimizer's whole state, tensors as they are (device and
+        dtype): the two counters, the MultiSteps state and the moments,
+        in parameter order with the parameters' names."""
+        return {"names": list(self.names), "count": self.count,
+                "sched_count": self.sched_count,
+                "mini_step": self.mini_step,
+                "acc": None if self.acc is None else list(self.acc),
+                "mu": list(self.mu), "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict):
+        """Restore ``state_dict``'s output (copied into this optimizer's
+        tensors, on their device; the moments keep this optimizer's
+        dtypes)."""
+        if list(sd["names"]) != self.names:
+            raise ValueError("optimizer state of other parameters")
+        for dst, src in zip(self.mu + self.nu,
+                            list(sd["mu"]) + list(sd["nu"])):
+            dst.copy_(src)
+        self.count = int(sd["count"])
+        self.sched_count = int(sd["sched_count"])
+        self.mini_step = int(sd["mini_step"])
+        self.acc = (None if sd["acc"] is None else
+                    [a.to(device=p.device, dtype=torch.float32, copy=True)
+                     for a, p in zip(sd["acc"], self.params)])
 
     def _grads(self, grads):
         if grads is None:
@@ -145,7 +184,7 @@ class GroupedAdamW:
         return True
 
     def _update(self, grads):
-        lr = {g: float(s(self.count)) for g, s in self.sched.items()}
+        lr = {g: float(s(self.sched_count)) for g, s in self.sched.items()}
         t = torch.tensor(self.count + 1, dtype=torch.float32)
         bc1 = float(1.0 - torch.tensor(B1, dtype=torch.float32) ** t)
         bc2 = float(1.0 - torch.tensor(B2, dtype=torch.float32) ** t)
@@ -158,13 +197,20 @@ class GroupedAdamW:
                                             self.nu[i], lr[group], wd, bc1,
                                             bc2, b1=B1, b2=B2, eps=eps)
             else:
+                m = self.mu[i]
+                # a narrower first moment: optax forms b1 * mu in its dtype
+                # (b1 rounded to it, a weakly typed constant) before the sum
+                b1_mu = (None if m.dtype == torch.float32 else
+                         (torch.tensor(B1, dtype=m.dtype, device=m.device)
+                          * m).float())
                 u, mu, nu = adamw_update_leaf_plain(
-                    g, p.data, self.mu[i].float(), self.nu[i], lr[group],
-                    wd, bc1, bc2, b1=B1, b2=B2, eps=eps)
+                    g, p.data, m.float(), self.nu[i], lr[group], wd, bc1,
+                    bc2, b1=B1, b2=B2, eps=eps, b1_mu=b1_mu)
                 self.mu[i].copy_(mu)
                 self.nu[i].copy_(nu)
             p.add_(u.to(p.dtype))
         self.count += 1
+        self.sched_count += 1
 
 
 def make_optimizer(model, cfg: OptimConfig,
