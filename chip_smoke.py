@@ -4,9 +4,12 @@ the serving paths end to end and check that they went through the kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --train-gates [SEED ...]
+    python3 chip_smoke.py --world
 
-``--train-gates`` runs phase 1, the build and phase 8 (a)'s two gates
-alone, on the batches of the given seeds (default GATE_SEEDS), printing
+``--world`` runs phase 1, the build and phase 13 alone (``--world-rank
+SPEC RANK`` is one of its rank processes). ``--train-gates`` runs phase 1,
+the build and phase 8 (a)'s two gates alone, on the batches of the given
+seeds (default GATE_SEEDS), printing
 both results and each batch's single-batch margins, and exits 1 if a gate
 fails: the readings of a gate on a changed tree, as a planted fault.
 
@@ -128,6 +131,25 @@ prints its seconds):
      eval chunk, 12 K1 / 18 K2 / 1 K3 a slate group), every loss finite;
      each run's seconds and the training runs' ms a step beside the
      loader's wait and phase 8 (b)'s ms a step.
+ 13. the data-parallel world at full width: two rank processes on the one
+     card (``--world-rank``; ``device="cuda:0"`` on both, backend gloo,
+     passed explicitly, since NCCL takes one rank a device) run the CLIs
+     through -coordinator_address -num_processes 2 -process_id r, against
+     one-process runs of the same commands on a fixture tree of 24 train
+     and 9 val dialogs and a start .ckpt: (a) val_lm -eval_data_sharded 1
+     (rank 1's last batch tail padding), (b) val_lm serving (each rank
+     scores half of every prefix group): every record once in the
+     predictions file, top-1 agreement with the one-process run, the
+     largest ll_sum and metric differences, 12 K1 / 18 K2 / 1 K3 a group
+     a rank; (c) train, 2 ranks x 120 sequences against 1 x 240 (every
+     sequence of 12 images a step, so the same global batches), dropout
+     0, 2 steps, -fused_adamw 1: the ranks' weights bit-equal, every loss
+     part within LOSS_RTOL of the one-rank run's, 12 + 12 B5 and 534 B7 a
+     rank and step, each rank's peak memory and ms a step beside its
+     gradient all-reduce's ms (the card synchronized around it); (d)
+     dense_finetune, 2 steps, the slate split 50 / 50, as (c); (e) one
+     rank under NCCL: one train step and a data-sharded val_lm, each
+     bit-equal to the same command without the flags.
 The last lines are the kernels JSON, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -135,6 +157,7 @@ The last lines are the kernels JSON, the card line, and
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2635,6 +2658,7 @@ class StepRecorder:
     def clear(self):
         self.secs, self.loss, self.rows, self.lengths, self.gt_first = (
             [], [], [], [], [])
+        self.parts = []
 
     def wrap(self, fn):
         def run(state, batch, *a, **kw):
@@ -2643,6 +2667,7 @@ class StepRecorder:
             torch.cuda.synchronize()
             self.secs.append(time.perf_counter() - t)
             self.loss.append(out[1]["loss"])
+            self.parts.append(out[1])
             self.rows.append(int(batch["tokens"].shape[0]))
             self.lengths.append(int(batch["tokens"].shape[1]))
             nsp = batch["next_sentence_label"]
@@ -2884,6 +2909,452 @@ def phase_train_cli(dev, card, runs, train_b, config=None, max_seq_len=256):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the data-parallel world (two ranks on the one card)
+# ---------------------------------------------------------------------------
+
+# the tree: 24 train dialogs (2 steps of 12 images at -batch_size 240
+# -sequences_per_image 20: every sequence of an image, so no subsample and
+# the same global batch for one rank or two), 9 val dialogs (the global
+# batch of 2 leaves a one-dialog tail) and a second tree of 2 dense dialogs
+DIST_DIALOGS = dict(n_train=24, n_val=9, n_test=1)
+DIST_DENSE = 2
+DIST_TIMEOUT_S = 300
+
+
+class ScoreRecorder:
+    """Wraps ``RankingEvaluator.score_slates_async``: each observed (valid)
+    dialog's [R, O] ll_sum scores, by image id, as the batch is
+    fetched."""
+
+    def __init__(self):
+        self.scores = {}
+
+    def wrap(self, fn):
+        rec = self
+
+        def run(ev, model, batch):
+            fin = fn(ev, model, batch)
+            B, R, O = np.asarray(batch["tokens"]).shape[:3]
+            ids = np.asarray(batch["image_id"])
+            valid = np.asarray(batch.get("valid", np.ones(B, bool)))
+
+            def finalize():
+                out = fin()
+                s = out["ll_sum"].reshape(B, R, O)
+                for b in np.nonzero(valid)[0]:
+                    rec.scores[int(ids[b])] = s[b].copy()
+                return out
+            return finalize
+        return run
+
+
+def params_sha256(model):
+    """One SHA-256 over every parameter's bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for _, p in model.named_parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_run(entry, argv, dev, backend=None):
+    """One CLI run through ``main(argv)``, counted, with its scores (gen
+    runs), its steps (training runs), its peak memory, each all-reduce in
+    a world (``dist.allreduce_sum_``: the card waits before and after it;
+    its MiB and ms) and, for a training run, the SHA-256 of its weights.
+    Returns a JSON-able record and the scores by image id."""
+    from unimm_torch.cli import dense_finetune, train, val_lm
+    from unimm_torch.eval import evaluator
+    from unimm_torch.parallel import dist
+    from unimm_torch.train import step as tstep
+
+    mod = {"val_lm": val_lm, "train": train,
+           "dense_finetune": dense_finetune}[entry]
+    scores, rec, reduces = ScoreRecorder(), StepRecorder(), []
+    real = (evaluator.RankingEvaluator.score_slates_async,
+            tstep.make_train_step_with_fallback,
+            dense_finetune.make_dense_step, dist.allreduce_sum_)
+
+    def timed_reduce(tensors):
+        if not dist.active():
+            return real[3](tensors)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real[3](tensors)
+        torch.cuda.synchronize()
+        reduces.append({"mib": sum(x.numel() * x.element_size()
+                                   for x in tensors) / 2**20,
+                        "ms": (time.perf_counter() - t) * 1e3})
+
+    evaluator.RankingEvaluator.score_slates_async = scores.wrap(real[0])
+    tstep.make_train_step_with_fallback = (
+        lambda *a, **kw: rec.wrap(real[1](*a, **kw)))
+    dense_finetune.make_dense_step = lambda *a, **kw: rec.wrap(
+        real[2](*a, **kw))
+    dist.allreduce_sum_ = timed_reduce
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        out, secs, launches = counted(lambda: mod.main(
+            argv, device=dev, backend=backend))
+    finally:
+        (evaluator.RankingEvaluator.score_slates_async,
+         tstep.make_train_step_with_fallback,
+         dense_finetune.make_dense_step, dist.allreduce_sum_) = real
+    r = dict(entry=entry, launches=launches, main_s=secs,
+             peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+             allreduce=reduces)
+    if entry == "val_lm":
+        r["metrics"] = out
+    else:
+        r.update(rec.summary(), step=out["step"],
+                 weights_sha256=params_sha256(out["model"]),
+                 parts=[{k: float(v) for k, v in p.items()}
+                        for p in rec.parts])
+    return r, scores.scores
+
+
+def main_world_rank(spec_path, rank):
+    """``--world-rank SPEC RANK``: one rank process of phase 13. Runs the
+    spec's CLI runs in order (each joining the world through the flags
+    unless the run says ``"world": false``), prints one JSON line a run and
+    writes each gen run's scores to ``<out>/<run>_<rank>.npz``."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(spec["device"])
+    torch.empty(0, device=dev)      # the card's context, for its counters
+    flags = ["-coordinator_address", f"127.0.0.1:{spec['port']}",
+             "-num_processes", str(spec["world"]), "-process_id", str(rank)]
+    for run in spec["runs"]:
+        argv = run["argv"] + (flags if run.get("world", True) else [])
+        r, scores = dist_run(run["entry"], argv, dev,
+                             spec["backend"] if run.get("world", True)
+                             else None)
+        if scores:
+            np.savez(os.path.join(spec["out"], f"{run['name']}_{rank}.npz"),
+                     **{str(k): v for k, v in scores.items()})
+        print(json.dumps({"world_run": run["name"], "rank": rank, **r}),
+              flush=True)
+    return 0
+
+
+def spawn_world(spec, out, n):
+    """Start ``n`` rank processes of ``spec`` (this script with
+    --world-rank) and wait for them; a rank that fails or outlives
+    DIST_TIMEOUT_S fails the phase with its output. Returns {(run, rank):
+    record} and each rank's seconds from start to exit."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    spec = dict(spec, port=s.getsockname()[1], world=n, out=str(out))
+    s.close()
+    path = out / f"spec_{spec['backend']}.json"
+    path.write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--world-rank", str(path), str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise SystemExit(f"world ({spec['backend']}): a rank outlived "
+                         f"{DIST_TIMEOUT_S} s")
+    secs = time.perf_counter() - t0
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise SystemExit(f"world ({spec['backend']}) rank {r} exited "
+                             f"{p.returncode}:\n{o[-6000:]}")
+    recs = {}
+    for o in outs:
+        for line in o.splitlines():
+            if line.startswith('{"world_run"'):
+                d = json.loads(line)
+                recs[(d.pop("world_run"), d.pop("rank"))] = d
+    return recs, secs
+
+
+def load_scores(path):
+    with np.load(path) as z:
+        return {int(k): v for k, v in z.items()}
+
+
+def score_gap(got, want):
+    """(largest |d ll_sum| over the shared dialogs, top-1 agreement of the
+    rounds) of two {image id: [R, O]} score dicts over the same dialogs."""
+    if sorted(got) != sorted(want):
+        raise SystemExit(f"world: dialogs {sorted(got)} != {sorted(want)}")
+    g = np.stack([got[k] for k in sorted(got)])
+    w = np.stack([want[k] for k in sorted(want)])
+    return (float(np.abs(g - w).max()),
+            float((g.argmax(-1) == w.argmax(-1)).mean()))
+
+
+def phase_dist(dev, card, runs, config=None, max_seq_len=256,
+               rank_device="cuda:0", one_backend="nccl"):
+    """The data-parallel world on the card at full width, through the
+    entry points a user runs in each rank (``main(argv)`` with
+    ``-coordinator_address -num_processes -process_id``): two rank
+    processes on the one card (``device="cuda:0"`` on both; backend gloo,
+    passed explicitly: NCCL takes one rank a device), against one-process
+    runs of the same commands in this process. (a) val_lm
+    -eval_data_sharded 1 over 9 val dialogs (rank 1's last batch is tail
+    padding): every record once in the merged file, each dialog's scores
+    and the metrics against the one-process run (top-1 agreement >=
+    MIN_TOP1_AGREEMENT); (b) val_lm serving (each rank scores half of
+    every prefix group): the same checks, K1 / K2 / K3 launches a rank;
+    (c) train, 2 ranks x 120 sequences against 1 rank x 240 (the same
+    global batches: every sequence of 12 images a step), dropout 0, 2
+    steps from one start .ckpt, -fused_adamw 1: the ranks' weights
+    bit-equal, every loss part within LOSS_RTOL of the one-rank run's,
+    12 + 12 B5 and 534 B7 a rank and step, each rank's peak memory and ms
+    a step beside its gradient all-reduce's ms; (d) dense_finetune, 2 steps, the 100-option slate split 50 /
+    50: as (c). (e) one rank under NCCL (the backend's default on a card):
+    one train step and a data-sharded val_lm, each bit-equal to the same
+    command without the flags. ``config`` / ``max_seq_len`` /
+    ``rank_device`` / ``one_backend`` rehearse it on the CPU at TINY size
+    (with ``torch.cuda``'s calls and ``expect`` stubbed in every
+    process)."""
+    import shutil
+    from pathlib import Path
+
+    from unimm_torch import checkpoint as C
+    from unimm_torch.config import VilbertConfig
+    from unimm_torch.data import features
+    from unimm_torch.models import vilbert
+    from unimm_torch.tools import fixture_tree
+
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "unimm_torch" / "phase13"
+    shutil.rmtree(root, ignore_errors=True)
+    out = root / "out"
+    out.mkdir(parents=True)
+    config = Path(config or here / "config" / "bert_base_6layer_6conect.json")
+    cfg = VilbertConfig.from_json_file(str(config)).replace(
+        max_seq_len=max_seq_len)
+    n_t, n_c = cfg.num_hidden_layers, len(cfg.t_biattention_id)
+    nodrop = root / "nodrop.json"
+    nodrop.write_text(json.dumps(dict(json.loads(config.read_text()),
+                                      **NO_DROPOUT)))
+    t0 = time.perf_counter()
+    paths, _, _ = fixture_tree.write_fixture_tree(
+        str(root), feat_dim=cfg.v_feature_size, n_classes=cfg.v_target_size,
+        **DIST_DIALOGS)
+    dense, _, _ = fixture_tree.write_fixture_tree(
+        str(root / "dense"), n_train=DIST_DENSE, n_val=1, n_test=1,
+        feat_dim=cfg.v_feature_size, n_classes=cfg.v_target_size)
+    lmdb = str(root / "features.lmdb")
+    features.convert_npz_to_lmdb(paths["visdial_image_feats"], lmdb)
+    model = vilbert.init_model(cfg, seed=0, device=dev)
+    n_params = len(list(model.parameters()))
+    start = str(root / "start.ckpt")
+    C.save_reference_ckpt(start, model)
+    del model
+    setup_s = time.perf_counter() - t0
+    flags = ("visdial_processed_train", "visdial_processed_val",
+             "visdial_processed_test",
+             "visdial_processed_val_dense_annotations", "vocab_path")
+    base = [a for f in flags for a in ("-" + f, paths[f])] + [
+        "-visdial_processed_train_dense",
+        dense["visdial_processed_train_dense"],
+        "-visdial_processed_train_dense_annotations",
+        dense["visdial_processed_train_dense_annotations"],
+        "-visdial_image_feats", lmdb, "-max_seq_len", str(max_seq_len),
+        "-num_options", "100", "-num_workers", "4", "-batch_size", "240",
+        "-sequences_per_image", "20", "-num_negative_samples", "1",
+        "-language_weights", str(here / "config" / "language_weights.json"),
+        "-save_path", str(root / "ckpt")]
+    lm = base + ["-model_config", str(config), "-val_dis", "0",
+                 "-start_path", start, "-eval_data_sharded", "1"]
+    fit = base + ["-model_config", str(nodrop), "-num_epochs", "1",
+                  "-save_every_epochs", "2", "-eval_every_epochs", "2",
+                  "-fused_adamw", "1", "-start_path", start]
+    b5 = {"attention_block_train_fwd": n_t, "attention_block_train_bwd": n_t}
+
+    def train_want(steps):
+        return dict({k: v * steps for k, v in b5.items()},
+                    adamw_update_leaf=n_params * steps)
+
+    def gen_want(dialog_batches):
+        """K1 / K2 / K3 of val_lm over loader batches of these dialog
+        counts, coalesced by 2, 40 slates a prefix group."""
+        merged = [sum(dialog_batches[i:i + 2])
+                  for i in range(0, len(dialog_batches), 2)]
+        g = sum(-(-10 * d // 40) for d in merged)
+        return {"answer_block": n_t * g, "ffn_block": (n_t + n_c) * g,
+                "xent_head": g}
+
+    n_val = DIST_DIALOGS["n_val"]
+    serve_batches = [min(2, n_val - i) for i in range(0, n_val, 2)]
+    shard_batches = [1] * len(serve_batches)       # one dialog a rank each
+    res = {"setup_s": setup_s, "card": card}
+    with contextlib.chdir(root):
+        # the one-process runs
+        ref = {}
+        for name, entry, argv, want in (
+                ("lm", "val_lm", lm + ["-save_name", "ref_lm"],
+                 gen_want(serve_batches)),
+                ("train", "train", fit + ["-save_name", "ref_train"],
+                 train_want(2)),
+                ("dense", "dense_finetune",
+                 fit + ["-save_name", "ref_dense"], train_want(DIST_DENSE))):
+            r, scores = dist_run(entry, argv, dev)
+            expect(f"world one-process {name}", r["launches"], want)
+            runs[f"dist_ref_{name}"] = r["launches"]
+            ref[name] = (r, scores)
+            print(json.dumps({"world_ref": name, **r, "card": card}),
+                  flush=True)
+        torch.cuda.empty_cache()
+        # (a)-(d): two ranks on the one card under gloo
+        plan = [
+            {"name": "a", "entry": "val_lm", "argv": lm + [
+                "-save_name", "a"]},
+            {"name": "b", "entry": "val_lm", "argv": lm[:-2] + [
+                "-save_name", "b"]},
+            {"name": "c", "entry": "train", "argv": fit + [
+                "-save_name", "c"]},
+            {"name": "d", "entry": "dense_finetune", "argv": fit + [
+                "-save_name", "d"]}]
+        recs, secs = spawn_world({"device": rank_device, "backend": "gloo",
+                                  "runs": plan}, out, 2)
+        res["world_s"] = secs
+        wants = {"a": gen_want(shard_batches), "b": gen_want(serve_batches),
+                 "c": train_want(2), "d": train_want(DIST_DENSE)}
+        ref_file = top1_by_record(root / "ref_lm_predictions.txt")
+        for name in "abcd":
+            for rank in (0, 1):
+                r = recs[(name, rank)]
+                expect(f"world ({name}) rank {rank}", r["launches"],
+                       wants[name])
+                runs[f"dist_{name}_rank{rank}"] = r["launches"]
+            r0, r1 = recs[(name, 0)], recs[(name, 1)]
+            row = {"ranks": [r0, r1]}
+            if name in "ab":
+                got = load_scores(out / f"{name}_0.npz")
+                if name == "a":
+                    got.update(load_scores(out / f"{name}_1.npz"))
+                else:
+                    other = load_scores(out / f"{name}_1.npz")
+                    if any(not np.array_equal(got[k], other[k])
+                           for k in got):
+                        raise SystemExit("world (b): the ranks' gathered "
+                                         "scores differ")
+                gap, agree = score_gap(got, ref["lm"][1])
+                recs_file = top1_by_record(root / f"{name}_predictions.txt")
+                if sorted(recs_file) != sorted(ref_file) or len(
+                        recs_file) != 10 * n_val:
+                    raise SystemExit(f"world ({name}): the predictions "
+                                     "file is not every record once")
+                file_agree = float(np.mean([recs_file[k] == ref_file[k]
+                                            for k in ref_file]))
+                m_ref = ref["lm"][0]["metrics"]
+                d_m = {k: max(abs(r0["metrics"][k] - m_ref[k]),
+                              abs(r1["metrics"][k] - m_ref[k]))
+                       for k in ("r@1", "r@5", "r@10", "mean", "mrr",
+                                 "ndcg")}
+                row.update(max_abs_d_ll_sum=gap, top1_agreement=agree,
+                           file_top1_agreement=file_agree,
+                           max_abs_d_metrics=d_m,
+                           records=len(recs_file))
+                if min(agree, file_agree) < MIN_TOP1_AGREEMENT:
+                    raise SystemExit(f"world ({name}): top-1 agreement "
+                                     f"{agree} / {file_agree}")
+            else:
+                if r0["weights_sha256"] != r1["weights_sha256"]:
+                    raise SystemExit(f"world ({name}): the ranks' weights "
+                                     "differ")
+                want = ref["train" if name == "c" else "dense"][0]
+                if len(r0["parts"]) != len(want["parts"]):
+                    raise SystemExit(f"world ({name}): {len(r0['parts'])} "
+                                     f"steps, one rank {len(want['parts'])}")
+                # every loss part of every step (the overflow count equal)
+                gaps = [{k: (abs(g[k] - w[k]) / abs(w[k]) if w[k] else
+                             abs(g[k])) for k in w}
+                        for g, w in zip(r0["parts"], want["parts"])]
+                # the step's ms beside its gradient all-reduce's (the
+                # largest call; the loss counts' are a few bytes)
+                row.update(step_ms=[r["ms_per_step_after_first"]
+                                    for r in (r0, r1)],
+                           grad_allreduce_ms=[grad_reduce_ms(r)
+                                              for r in (r0, r1)])
+                row.update(loss_rel_gap=gaps, loss_rtol=LOSS_RTOL,
+                           ref_parts=want["parts"],
+                           ref_ms_per_step=want["ms_per_step_after_first"],
+                           ref_peak_gib=want["peak_gib"])
+                if r0["parts"] != r1["parts"] or max(
+                        v for gap in gaps for v in gap.values()) > LOSS_RTOL:
+                    raise SystemExit(f"world ({name}): losses {r0['parts']}"
+                                     f" vs one rank's {want['parts']}")
+            res[name] = row
+            print(json.dumps({"world": name, **row, "card": card}),
+                  flush=True)
+        # (e): one rank under nccl, each run bit-equal to it without a world
+        one = ["-num_train_samples", "12"]
+        plan = [{"name": "e_train_none", "entry": "train", "world": False,
+                 "argv": fit + one + ["-save_name", "e0"]},
+                {"name": "e_lm_none", "entry": "val_lm", "world": False,
+                 "argv": lm + ["-save_name", "e1"]},
+                {"name": "e_train_world", "entry": "train",
+                 "argv": fit + one + ["-save_name", "e2"]},
+                {"name": "e_lm_world", "entry": "val_lm",
+                 "argv": lm + ["-save_name", "e3"]}]
+        recs, secs = spawn_world({"device": rank_device,
+                                  "backend": one_backend, "runs": plan},
+                                 out, 1)
+        res["nccl_s"] = secs
+        for name, want in (("e_train_none", train_want(1)),
+                           ("e_lm_none", gen_want(serve_batches)),
+                           ("e_train_world", train_want(1)),
+                           ("e_lm_world", gen_want(serve_batches))):
+            expect(f"world ({name})", recs[(name, 0)]["launches"], want)
+            runs[f"dist_{name}"] = recs[(name, 0)]["launches"]
+        t0_, t1_ = recs[("e_train_none", 0)], recs[("e_train_world", 0)]
+        l0_, l1_ = recs[("e_lm_none", 0)], recs[("e_lm_world", 0)]
+        s0, s1 = (load_scores(out / f"{n}_0.npz")
+                  for n in ("e_lm_none", "e_lm_world"))
+        same = {
+            "train_weights": t0_["weights_sha256"] == t1_["weights_sha256"],
+            "train_losses": t0_["parts"] == t1_["parts"],
+            "lm_scores": sorted(s0) == sorted(s1) and all(
+                np.array_equal(s0[k], s1[k]) for k in s0),
+            "lm_metrics": l0_["metrics"] == l1_["metrics"],
+            "lm_file": (root / "e1_predictions.txt").read_bytes()
+            == (root / "e3_predictions.txt").read_bytes()}
+        res["e"] = {"bit_equal": same, "ranks": [t1_, l1_]}
+        print(json.dumps({"world": "e", **res["e"], "card": card}),
+              flush=True)
+        if not all(same.values()):
+            raise SystemExit(f"world (e): not bit-equal to no world: {same}")
+    print(json.dumps({"world_phase": {k: res[k] for k in (
+        "setup_s", "world_s", "nccl_s")}, "parameter_tensors": n_params,
+        "card": card}), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def grad_reduce_ms(r):
+    """The ms of a training run's gradient all-reduces: its largest
+    ``allreduce_sum_`` calls, one an update."""
+    big = max(a["mib"] for a in r["allreduce"])
+    return [a["ms"] for a in r["allreduce"] if a["mib"] == big]
+
+
+def top1_by_record(path):
+    """{(image_id, round_id): the option ranked first} of a predictions
+    file."""
+    with open(path) as f:
+        return {(r["image_id"], r["round_id"]): r["ranks"].index(1)
+                for r in json.load(f)}
+
+
 @contextlib.contextmanager
 def phase(name):
     """Print the phase's seconds when it ends."""
@@ -2908,6 +3379,18 @@ def main_train_gates(dev, card, seeds):
     return 0 if ok_a and ok_d else 1
 
 
+def main_world(dev, card):
+    """``--world``: the build and phase 13 alone."""
+    from unimm_torch.ops import _build
+
+    with phase("2 build"):
+        _build.library()
+    with phase("13 data-parallel world"):
+        phase_dist(dev, card, {})
+    print(card, flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2921,6 +3404,10 @@ def main():
     dev = torch.device("cuda", 0)
     if sys.argv[1:2] == ["--train-gates"]:
         return main_train_gates(dev, card, tuple(map(int, sys.argv[2:])))
+    if sys.argv[1:2] == ["--world-rank"]:
+        return main_world_rank(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--world"]:
+        return main_world(dev, card)
 
     from unimm_torch.config import VilbertConfig
     from unimm_torch.eval.evaluator import (RankingEvaluator, _merge_batches,
@@ -3115,6 +3602,9 @@ def main():
 
     with phase("12 training CLIs"):
         phase_train_cli(dev, card, runs, train_b)
+
+    with phase("13 data-parallel world"):
+        phase_dist(dev, card, runs)
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -180,12 +180,52 @@ def test_options_parse_to_jax_s_dict(extra):
     assert got == want
 
 
+# what each multi-device flag does alone: tensor parallelism is not ported
+# and names its ROADMAP item; -n_gpus 2 and a coordinator without a world
+# size name the flags that launch a world of one process per card;
+# -eval_data_sharded without a world changes nothing (the JAX package's
+# rule: it shards only across processes)
+FLAG_REFUSALS = {
+    "-n_gpus": (ValueError, "-coordinator_address host:port "
+                            "-num_processes N -process_id r"),
+    "-mesh_mp": (NotImplementedError, "queue A item 9"),
+    "-eval_data_sharded": None,
+    "-coordinator_address": (ValueError, "-num_processes >= 1"),
+}
+
+
 @pytest.mark.parametrize("flag", [
     ["-n_gpus", "2"], ["-mesh_mp", "2"], ["-eval_data_sharded", "1"],
     ["-coordinator_address", "localhost:1234"]])
 def test_unported_flags_name_their_item(flag):
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        t_options.read_command_line(flag + ["-save_name", "x"])
+    argv = flag + ["-save_name", "x"]
+    refusal = FLAG_REFUSALS[flag[0]]
+    if refusal is None:
+        assert t_options.read_command_line(argv) == \
+            j_options.read_command_line(argv)
+        return
+    with pytest.raises(refusal[0], match=refusal[1]):
+        t_options.read_command_line(argv)
+
+
+@pytest.mark.parametrize("world", [
+    ["-n_gpus", "2", "-coordinator_address", "127.0.0.1:1",
+     "-num_processes", "3", "-process_id", "0"],
+    ["-n_gpus", "1", "-coordinator_address", "127.0.0.1:1",
+     "-num_processes", "2", "-process_id", "1"],
+    ["-n_gpus", "3"]])
+def test_n_gpus_other_than_the_world_raises(world):
+    """-n_gpus is 0 or the world's size: one process drives one card."""
+    with pytest.raises(ValueError, match="one process drives one card"):
+        t_options.read_command_line(world + ["-save_name", "x"])
+
+
+def test_world_flags_parse_to_jax_s_dict():
+    argv = ["-n_gpus", "2", "-coordinator_address", "127.0.0.1:1",
+            "-num_processes", "2", "-process_id", "1",
+            "-eval_data_sharded", "1", "-save_name", "x"]
+    assert t_options.read_command_line(argv) == \
+        j_options.read_command_line(argv)
 
 
 def test_cli_without_a_card_raises(world):

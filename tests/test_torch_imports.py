@@ -43,7 +43,9 @@ _CLI_MODULES = {
     # the training command line: its CLIs, logger and dense losses
     "unimm_torch.utils.logging", "unimm_torch.cli.train",
     "unimm_torch.cli.dense_finetune", "unimm_torch.ops.rank_loss",
-    "unimm_torch.ops.focal_losses"}
+    "unimm_torch.ops.focal_losses",
+    # the data-parallel world across processes
+    "unimm_torch.parallel", "unimm_torch.parallel.dist"}
 
 
 def test_imports_with_jax_blocked():

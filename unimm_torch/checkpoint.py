@@ -34,6 +34,11 @@ The port's ``VilbertModel`` carries the reference ``state_dict`` names, so:
   ``step_<n>`` behind. The JAX package writes Orbax directories there;
   the two formats do not read each other;
 * ``latest_reference_ckpt`` finds a run's newest reference ``.ckpt``;
+* in a data-parallel world (``parallel/dist.py``; every rank holds the
+  same state) only rank 0 writes a checkpoint and every rank then passes
+  a barrier, so none reads before the file is complete; ``latest_native``
+  and ``latest_reference_ckpt`` raise unless every rank finds the same
+  step;
 * ``language_param_set`` / ``group_label`` give each parameter its
   optimizer group (train/optim.py), as the reference train.py groups them.
 """
@@ -47,6 +52,8 @@ from typing import Any, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
+
+from unimm_torch.parallel import dist
 
 # Embedding tables whose reference '.weight' is not transposed.
 _EMBEDDING_LEAVES = {
@@ -299,7 +306,15 @@ def save_reference_ckpt(path: str, model: torch.nn.Module, iter_id: int = 0,
     ``bert_pretrained.<name>``, fp32, in the JAX package's order, then the
     tied decoder) and ``iter_id``; with ``opt`` also the torch AdamW
     ``optimizer_state_dict`` (one param group per parameter, each state
-    holding the Adam count as ``step``) and a ``scheduler_state_dict``."""
+    holding the Adam count as ``step``) and a ``scheduler_state_dict``.
+    Rank 0 writes; every rank passes a barrier after it."""
+    if dist.rank() == 0:
+        torch.save(_reference_blob(model, iter_id, opt, lang_set, lr,
+                                   image_lr), path)
+    dist.barrier()
+
+
+def _reference_blob(model, iter_id, opt, lang_set, lr, image_lr) -> dict:
     params = dict(model.named_parameters())
     order = _jax_order(params)
     sd = OrderedDict((PREFIX + n, _fp32_cpu(params[n])) for n in order)
@@ -326,12 +341,27 @@ def save_reference_ckpt(path: str, model: torch.nn.Module, iter_id: int = 0,
             "base_lrs": [g["lr"] for g in groups],
             "warmup_steps": 10000, "t_total": 200000,
         }
-    torch.save(blob, path)
+    return blob
+
+
+def _agreed(found):
+    """``found`` ((path, step) or None), checked to be every rank's."""
+    steps = dist.allgather_np(np.asarray(
+        [-1 if found is None else found[1]], np.int64))
+    if len({int(s[0]) for s in steps}) > 1:
+        raise RuntimeError("the ranks find different latest checkpoints "
+                           f"(steps {[int(s[0]) for s in steps]}, -1: none)")
+    return found
 
 
 def latest_reference_ckpt(directory: str):
     """(path, iter_id) of the highest-numbered
-    ``visdial_dialog_encoder_<iter>.ckpt`` under ``directory``, or None."""
+    ``visdial_dialog_encoder_<iter>.ckpt`` under ``directory``, or None
+    (the same on every rank, or it raises)."""
+    return _agreed(_latest_reference_ckpt(directory))
+
+
+def _latest_reference_ckpt(directory: str):
     if not os.path.isdir(directory):
         return None
     best = None
@@ -368,10 +398,18 @@ def save_native(directory: str, state: dict, step: int) -> str:
     """Write ``state`` (``train.step.init_state``'s dict: model, opt, step,
     seed) as ``<directory>/step_<step>/state.pt``, replacing an existing
     one. The file is written into a hidden temporary directory that is
-    then renamed, so ``latest_native`` never sees a half-written step."""
+    then renamed, so ``latest_native`` never sees a half-written step.
+    Rank 0 writes; every rank passes a barrier after it."""
     directory = os.path.abspath(directory)
-    os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step}")
+    if dist.rank() == 0:
+        _write_native(directory, final, state, step)
+    dist.barrier()
+    return final
+
+
+def _write_native(directory: str, final: str, state: dict, step: int):
+    os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f".tmp_step_{step}_{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -387,7 +425,6 @@ def save_native(directory: str, state: dict, step: int) -> str:
         shutil.rmtree(old, ignore_errors=True)
     else:
         os.rename(tmp, final)
-    return final
 
 
 @torch.no_grad()
@@ -409,7 +446,12 @@ def restore_native(path: str, state: dict) -> dict:
 
 def latest_native(directory: str):
     """(path, step) of the highest ``step_<n>`` under ``directory``, or
-    None (temporary names are not ``step_<n>``)."""
+    None (temporary names are not ``step_<n>``); the same on every rank,
+    or it raises."""
+    return _agreed(_latest_native(directory))
+
+
+def _latest_native(directory: str):
     if not os.path.isdir(directory):
         return None
     steps = []

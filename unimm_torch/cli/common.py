@@ -3,12 +3,15 @@
 The port's counterpart of the JAX package's ``cli/common.py``. Its
 ``setup_jax`` (compile cache, ``jax.distributed``) has no counterpart:
 ``setup_torch`` resolves the device (a CUDA device without a card raises),
-turns TF32 off (fp32 parity, ROADMAP.md invariants) and seeds. The mesh
-helpers wait for ROADMAP.md queue A item 7 (the flags that would reach them
-raise in ``options.check_ported``); an eval entry point builds a
-one-process ``DataLoader`` and puts the model on the device.
-``StepProfiler`` traces a window of training steps with ``torch.profiler``
-where the JAX package uses ``jax.profiler``.
+joins the data-parallel world of ``-coordinator_address`` (one process
+per card, ``parallel/dist.py``), turns TF32 off (fp32 parity, ROADMAP.md
+invariants) and seeds. An eval entry point's loader is this rank's
+disjoint shard of the split under ``-eval_data_sharded`` in a world
+(``eval_sharded``; the metrics are merged by the evaluator's
+``process_merge``), the whole split otherwise (in a world the ranks then
+split the rows of every scoring dispatch). ``StepProfiler`` traces a window
+of training steps with ``torch.profiler`` where the JAX package uses
+``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -24,12 +27,18 @@ from unimm_torch.data import features
 from unimm_torch.data.loader import DataLoader
 from unimm_torch.data.tokenizer import WordPieceTokenizer
 from unimm_torch.models import vilbert
+from unimm_torch.parallel import dist
 
 
-def setup_torch(params: dict, device="cuda") -> torch.device:
+def setup_torch(params: dict, device=None, backend=None) -> torch.device:
     """The device the entry point runs on (raises when a CUDA device is
-    asked for and there is no card); TF32 off; the torch seed."""
-    dev = vilbert.resolve_device(device)
+    asked for and there is no card): ``device``, else
+    ``dist.default_device`` (``cuda``, or ``cuda:<process_id>`` in a world
+    that fits the host's cards); joins the world of the flags on it
+    (``backend``: nccl on a card, gloo on the CPU by default); TF32 off;
+    the torch seed."""
+    dev = vilbert.resolve_device(device or dist.default_device(params))
+    dist.init_world(params, dev, backend)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(params.get("seed", 0))
@@ -44,11 +53,22 @@ def build_config(params: dict) -> VilbertConfig:
                        remat=bool(params.get("remat", 0)))
 
 
+def eval_sharded(params: dict) -> bool:
+    """Whether this rank scores a disjoint shard of the split
+    (``-eval_data_sharded`` in a world of several processes)."""
+    return dist.world_size() > 1 and bool(params["eval_data_sharded"])
+
+
 def eval_loader(params: dict, dataset, batch_size: int) -> DataLoader:
-    """The eval entry points' loader: one process, the whole split in
-    order."""
+    """The eval entry points' loader, in order: this rank's shard of every
+    global batch of ``batch_size`` dialogs when ``eval_sharded`` (a tail
+    that the world does not divide is padded and masked by ``valid``),
+    the whole split otherwise."""
+    sharded = eval_sharded(params)
     return DataLoader(dataset, batch_size, shuffle=False,
-                      num_workers=params["num_workers"])
+                      num_workers=params["num_workers"],
+                      process_index=dist.rank() if sharded else 0,
+                      process_count=dist.world_size() if sharded else 1)
 
 
 class StepProfiler:

@@ -13,8 +13,16 @@ the update on B7 under -fused_adamw 1, the val ranking on B4 and K2.
 
 Usage: python -m unimm_torch.cli.dense_finetune -batch_multiply 16 ... (on
 the card; ``main(argv, device="cpu")`` runs the plain versions on the
-CPU). One process: the slate is never padded (the JAX package pads it to
-its mesh's data-parallel width; ROADMAP.md queue A item 7).
+CPU). Data parallel across processes, one per card (the flags of
+``cli/train.py``): every rank loads the same dialog and option order, the
+slate is padded from 100 rows to the next multiple of the world with
+neutralised copies of the GT row (lm_weight 0, labels -1), and each rank
+takes its contiguous block of it (the JAX package's dp-sharded slate, the
+reference's 100 -> 25/25/25/25 scatter). The NSP logits are gathered over
+the ranks with their gradient (``dist.gather_rows``) and cut to the 100
+real rows before the NSP and the listwise ranking losses, which every rank
+then computes on the whole slate; the LM loss is each rank's sum over the
+slate's label count. Rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from unimm_torch.ops import focal_losses as FL
 from unimm_torch.ops import losses as L
 from unimm_torch.ops import masks
 from unimm_torch.ops import rank_loss as RL
+from unimm_torch.parallel import dist
 from unimm_torch.train import step as tstep
 from unimm_torch.utils.logging import MetricsLogger
 
@@ -49,22 +58,30 @@ _SLATE_KEYS = ("tokens", "segments", "positions", "sep_indices",
 
 
 def _dense_parts(view, cfg, batch, gt_relevance, *, rng, nsp_coeff, dtype,
-                 decoder_bias):
+                 decoder_bias, n_real):
     t_seq, v_seq, pt, pv = unimm.encode(view, cfg, batch, dtype=dtype,
                                         train=True, rng=rng)
     lm, _, nsp_logits = unimm.lm_loss_and_heads(
         view, cfg, t_seq, v_seq, pt, pv, batch, train=True, rng=rng,
         decoder_bias=decoder_bias)
-    nsp = L.nsp_loss(nsp_logits, batch["next_sentence_label"])
+    # the whole slate's logits on every rank, the padding rows cut away
+    nsp_logits = dist.gather_rows(nsp_logits)[:n_real]
+    nsp = L.nsp_loss(nsp_logits, dist.gather_rows(
+        batch["next_sentence_label"])[:n_real])
     nsp_probs = torch.softmax(nsp_logits.float(), dim=-1)[:, 0]
     rank = RL.neuralNDCG_transposed(nsp_probs[None, :], gt_relevance[None, :])
     # the reference drops the lm term when it is NaN (:291-294); the
     # masked-sum loss cannot make one, so this only keeps the value rule
-    lm_term = torch.where(torch.isnan(lm), torch.zeros_like(lm), lm)
-    total = rank + lm_term + nsp_coeff * nsp
-    # logging-only quantities (dense_annotation_finetuning.py:275-280)
+    def objective(lm):
+        lm_term = torch.where(torch.isnan(lm), torch.zeros_like(lm), lm)
+        return rank + lm_term + nsp_coeff * nsp
+
+    total = objective(lm)
+    # logged: the world's lm loss (this rank's share summed over the
+    # ranks) and the logging-only quantities (:275-280)
+    lm_world = tstep.world_metrics({"lm": lm.detach()})["lm"]
     slate = nsp_logits.detach().float()[None, :, :]
-    return total, {"loss": total.detach(), "lm_loss": lm.detach(),
+    return total, {"loss": objective(lm_world).detach(), "lm_loss": lm_world,
                    "nsp_loss": nsp.detach(), "rank_loss": rank.detach(),
                    "ce_loss": FL.dense_ce_log(slate, gt_relevance[None, :]),
                    "qfocal_loss": FL.dense_qfocal_log(
@@ -72,23 +89,28 @@ def _dense_parts(view, cfg, batch, gt_relevance, *, rng, nsp_coeff, dtype,
 
 
 def make_dense_step(cfg: VilbertConfig, *, nsp_coeff=1.0,
-                    dtype=torch.bfloat16):
+                    dtype=torch.bfloat16, n_real: int = N_SLATE):
     """Returns ``step(state, batch, gt_relevance) -> (state, parts)``: one
     forward over the slate (a flat [100, ...] batch of tensors on the
     model's device, GT first) in ``dtype``, the rank + lm + nsp_coeff * nsp
     loss, its backward and one optimizer call (state: ``train.step.
     init_state``'s dict). ``parts``: device scalars loss, lm_loss,
-    nsp_loss, rank_loss and the logging-only ce_loss and qfocal_loss."""
+    nsp_loss, rank_loss and the logging-only ce_loss and qfocal_loss. In a
+    world of several processes ``batch`` is this rank's block of the
+    ``n_real``-row slate padded by ``slate_block``; the parts are the
+    world's."""
 
     def step(state, batch, gt_relevance):
         model = state["model"]
         rng = vilbert.DropoutRng(tstep.step_seed(state["seed"],
-                                                 state["step"]),
+                                                 state["step"],
+                                                 tstep.world_rank()),
                                  batch["tokens"].device)
+        batch = tstep.world_norms(batch)
         total, parts = vilbert.call_in_dtype(
             model, dtype, _dense_parts, cfg, batch, gt_relevance, rng=rng,
             nsp_coeff=nsp_coeff, dtype=dtype,
-            decoder_bias=model.cls.predictions.bias)
+            decoder_bias=model.cls.predictions.bias, n_real=n_real)
         for p in model.parameters():
             p.grad = None
         total.backward()
@@ -124,11 +146,30 @@ def bucket_slate(flat: dict, cfg: VilbertConfig, length_buckets: int):
     return flat
 
 
-def main(argv=None, device="cuda"):
+def slate_block(flat: dict, n_real: int = N_SLATE) -> dict:
+    """This rank's contiguous block of the ``n_real``-row slate padded to
+    the next multiple of the world with copies of the GT row whose LM term
+    is neutralised (lm_weight 0, labels -1; their NSP rows are cut away
+    after the gather); the slate itself in a world of one process."""
+    world = dist.world_size()
+    pad = -n_real % world
+    if world == 1:
+        return flat
+    flat = {k: np.concatenate([v, np.repeat(v[:1], pad, axis=0)])
+            for k, v in flat.items()}
+    if "lm_weight" in flat:
+        flat["lm_weight"][n_real:] = 0
+    flat["mlm_labels"][n_real:] = -1
+    rows = dist.row_block(n_real + pad)
+    return {k: v[rows] for k, v in flat.items()}
+
+
+def main(argv=None, device=None, backend=None):
     params = options.read_command_line(argv)
-    dev = common.setup_torch(params, device)
+    dev = common.setup_torch(params, device, backend)
     os.makedirs(params["save_path"], exist_ok=True)
-    viz = MetricsLogger(os.path.join(params["save_path"], "logs"))
+    viz = MetricsLogger(os.path.join(params["save_path"], "logs"),
+                        enable=dist.rank() == 0)
     cfg = common.build_config(params)
     tokenizer = common.load_tokenizer(params)
     reader = common.open_reader(params)
@@ -214,6 +255,7 @@ def main(argv=None, device="cuda"):
         gt_rel = np.asarray(batch["gt_relevance"][0])[order]
         if params["length_buckets"]:
             flat = bucket_slate(flat, cfg, params["length_buckets"])
+        flat = slate_block(flat)
         with torch.enable_grad():
             state, parts = dense_step(
                 state, to_device(flat, dev),
@@ -248,7 +290,7 @@ def main(argv=None, device="cuda"):
                     mets = evaluator.evaluate_split(
                         model, cfg, eval_loader, mode="nsp",
                         chunk_size=params["eval_chunk"], dtype=dtype,
-                        device=dev)
+                        split_rows=True, device=dev)
                 for name, value in mets.items():
                     print(f"{name}: {value}")
     if params["auto_resume"] and not params["overfit"]:

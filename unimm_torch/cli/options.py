@@ -6,11 +6,14 @@ argv parses to the dict the JAX package's parser gives it
 (tests/test_torch_cli.py); no flag is added or dropped.
 
 Flags kept for CLI compatibility but without effect are accepted and noted
-in their help strings (visdom server flags). Flags whose feature the port
-does not have yet raise ``NotImplementedError`` naming their ROADMAP.md
-item (``check_ported``): ``-n_gpus`` > 1, ``-mesh_mp`` > 1,
-``-eval_data_sharded`` and ``-coordinator_address`` (queue A item 7, the
-multi-process and multi-card paths).
+in their help strings (visdom server flags). ``-mesh_mp`` above 1 (tensor
+parallelism, not ported) raises ``NotImplementedError`` naming its
+ROADMAP.md item (``check_ported``). The data-parallel world is joined
+through ``-coordinator_address host:port -num_processes N -process_id r``,
+one process per card (``parallel/dist.py``); ``check_world`` refuses flags
+that name no such world, and ``-n_gpus`` other than 0 or the world's size
+(the JAX package's ``-n_gpus`` may pick some of one process's devices; a
+port process drives one card).
 """
 
 from __future__ import annotations
@@ -102,7 +105,7 @@ def read_command_line(argv=None) -> dict:
                         default='config/language_weights.json')
     parser.add_argument('-coordinator_address', default='',
                         help='multi-process: the process group '
-                             'coordinator (host:port); not ported yet')
+                             'coordinator (host:port)')
     parser.add_argument('-num_processes', default=0, type=int)
     parser.add_argument('-process_id', default=-1, type=int)
     parser.add_argument('-remat', default=1, type=int,
@@ -218,20 +221,38 @@ def read_command_line(argv=None) -> dict:
                          'save_path is timestamped per launch, so a relaunch '
                          'would never resolve the previous run)')
     check_ported(parsed)
+    check_world(parsed)
     return parsed
 
 
-_MULTI = ("the multi-process and multi-card paths are not ported yet "
-          "(ROADMAP.md queue A item 7)")
+_TENSOR_PARALLEL = ("tensor parallelism is not ported (ROADMAP.md queue A "
+                    "item 9)")
 
 
 def check_ported(parsed: dict):
     """Raise ``NotImplementedError`` for a flag whose feature the port does
-    not have yet, naming its ROADMAP.md item."""
-    for flag, on in (("-n_gpus", parsed["n_gpus"] > 1),
-                     ("-mesh_mp", parsed["mesh_mp"] > 1),
-                     ("-eval_data_sharded", bool(parsed["eval_data_sharded"])),
-                     ("-coordinator_address",
-                      bool(parsed["coordinator_address"]))):
-        if on:
-            raise NotImplementedError(f"{flag}: {_MULTI}")
+    not have yet, naming its ROADMAP.md item: ``-mesh_mp`` above 1."""
+    if parsed["mesh_mp"] > 1:
+        raise NotImplementedError(f"-mesh_mp {parsed['mesh_mp']}: "
+                                  f"{_TENSOR_PARALLEL}")
+
+
+def check_world(parsed: dict):
+    """Raise ``ValueError`` for world flags that name no data-parallel
+    world of one process per card: ``-coordinator_address`` without
+    ``-num_processes`` >= 1 and ``0 <= -process_id < -num_processes``, or
+    ``-n_gpus`` other than 0 (the world as launched) or the world's size
+    (``-num_processes`` under ``-coordinator_address``, else 1)."""
+    n = parsed["num_processes"] if parsed["coordinator_address"] else 1
+    if parsed["coordinator_address"] and not (
+            n >= 1 and 0 <= parsed["process_id"] < n):
+        raise ValueError(
+            f"-coordinator_address {parsed['coordinator_address']} needs "
+            "-num_processes >= 1 and 0 <= -process_id < -num_processes "
+            f"(got {parsed['num_processes']}, {parsed['process_id']})")
+    if parsed["n_gpus"] > 0 and parsed["n_gpus"] != n:
+        raise ValueError(
+            f"-n_gpus {parsed['n_gpus']} in a world of {n} process(es): "
+            "one process drives one card, so -n_gpus is 0 or the world's "
+            "size; launch one process per card with -coordinator_address "
+            "host:port -num_processes N -process_id r")

@@ -12,7 +12,16 @@ under -fused_adamw 1, the update on B7), a checkpoint every
 
 Usage: python -m unimm_torch.cli.train -batch_size 240 -lr 2e-5 ... (on
 the card; ``main(argv, device="cpu")`` runs the plain versions on the
-CPU). One process: the multi-process paths are ROADMAP.md queue A item 7.
+CPU). Data parallel across processes, one per card: add
+``-coordinator_address host:port -num_processes N -process_id r`` to each
+rank's command. Every rank computes the same global shuffle and loads its
+slice of each global batch (``-batch_size`` stays global: each rank
+subsamples ``batch_size // N`` sequences from its images, with its own
+generator), the losses take the world's denominators and the gradients
+are summed over the ranks (``train/step.py``); length-bucketed morsels
+agree on their bucket lengths and normalisers across the ranks; rank 0
+writes the checkpoints and the logs, and every rank restores the same
+file; the val ranking splits every chunk's rows over the ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from unimm_torch.data.dataset import (VisdialDataset, flatten_for_forward,
                                       length_bucket_morsels)
 from unimm_torch.data.loader import DataLoader
 from unimm_torch.eval import evaluator
+from unimm_torch.parallel import dist
 from unimm_torch.train import optim, step as tstep
 from unimm_torch.utils.logging import MetricsLogger
 
@@ -76,11 +86,13 @@ def load_lang(params: dict):
     return None
 
 
-def main(argv=None, device="cuda"):
+def main(argv=None, device=None, backend=None):
     params = options.read_command_line(argv)
-    dev = common.setup_torch(params, device)
+    dev = common.setup_torch(params, device, backend)
+    nproc, rank = dist.world_size(), dist.rank()
     os.makedirs(params["save_path"], exist_ok=True)
-    viz = MetricsLogger(os.path.join(params["save_path"], "logs"))
+    viz = MetricsLogger(os.path.join(params["save_path"], "logs"),
+                        enable=rank == 0)
     print({k: v for k, v in sorted(params.items())})
 
     cfg = common.build_config(params)
@@ -94,7 +106,8 @@ def main(argv=None, device="cuda"):
     images_per_batch = min(images_per_batch, max(1, len(dataset)))
     loader = DataLoader(dataset, images_per_batch, shuffle=True,
                         drop_last=True, num_workers=params["num_workers"],
-                        seed=params["seed"])
+                        seed=params["seed"], process_index=rank,
+                        process_count=nproc)
     num_iter_epoch = max(len(loader), 1)
     print(f"\n{len(dataset)} train data.")
     print(f"\n{num_iter_epoch} iter per epoch.")
@@ -157,15 +170,21 @@ def main(argv=None, device="cuda"):
     nsp_weight = torch.tensor([float(params["num_negative_samples"]), 1.0],
                               device=dev)
 
-    sample_size = 48 if params["overfit"] else params["batch_size"]
-    host_rng = np.random.default_rng(params["seed"])
+    # this rank's share of the global sequence batch, drawn from its own
+    # images with its own generator
+    sample_size = (48 if params["overfit"] else params["batch_size"]) // nproc
+    host_rng = np.random.default_rng(
+        params["seed"] if nproc == 1 else (params["seed"], rank))
 
     # length-bucketed accumulation: buffer batch_multiply flats, sort all
     # their sequences by attended extent and run the accumulation
-    # micro-steps at per-morsel quarter-length buckets
+    # micro-steps at per-morsel quarter-length buckets; the ranks agree on
+    # each morsel's bucket and on the group normalisers
     k_buckets = (params["batch_multiply"]
                  if params["length_buckets"] and
                  params["batch_multiply"] > 1 else 1)
+    morsel_sync = ((lambda stats: np.stack(dist.allgather_np(stats)))
+                   if nproc > 1 else None)
     bucket_div = (params["length_buckets"]
                   if params["length_buckets"] >= 2 else 4)
     flat_buffer = []
@@ -226,7 +245,8 @@ def main(argv=None, device="cuda"):
                     continue
                 morsels = length_bucket_morsels(flat_buffer,
                                                 cfg.max_seq_len, k_buckets,
-                                                div=bucket_div)
+                                                div=bucket_div,
+                                                sync=morsel_sync)
                 flat_buffer = []
             else:
                 morsels = [flat]
@@ -239,7 +259,8 @@ def main(argv=None, device="cuda"):
             # dropped
             run_morsels(length_bucket_morsels(flat_buffer, cfg.max_seq_len,
                                               len(flat_buffer),
-                                              div=bucket_div))
+                                              div=bucket_div,
+                                              sync=morsel_sync))
             flat_buffer = []
 
         if epoch_id % params["save_every_epochs"] == 0:
@@ -254,7 +275,8 @@ def main(argv=None, device="cuda"):
                 all_metrics = evaluator.evaluate_split(
                     model, cfg, eval_loader, mode="nsp",
                     chunk_size=params["eval_chunk"], dtype=dtype,
-                    pipeline_depth=params["eval_pipeline"], device=dev)
+                    split_rows=True, pipeline_depth=params["eval_pipeline"],
+                    device=dev)
             for name, value in all_metrics.items():
                 print(f"{name}: {value}")
                 key = ("Retrieval Round Val Metrics" if "round" in name

@@ -7,8 +7,8 @@ import sys
 from unimm_torch.cli import val_lm
 
 
-def main(argv=None, device="cuda"):
-    return val_lm.main(argv, mode="ll_mean", device=device)
+def main(argv=None, device=None, backend=None):
+    return val_lm.main(argv, mode="ll_mean", device=device, backend=backend)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,12 @@ dumps a predictions JSON.
 
 Usage: python -m unimm_torch.cli.val_lm -val_dis 0 -start_path model.ckpt ...
 (on the card; ``main(argv, device="cpu")`` runs the plain versions on the
-CPU).
+CPU). One process per card in a data-parallel world: add
+``-coordinator_address host:port -num_processes N -process_id r`` to each
+rank's command; the ranks then split every prefix group's slates, or, with
+``-eval_data_sharded 1``, each scores a disjoint shard of the split and
+the metrics and predictions are merged. Rank 0 writes the predictions
+file and reports.
 """
 
 from __future__ import annotations
@@ -19,11 +24,12 @@ import sys
 from unimm_torch.cli import common, options
 from unimm_torch.data.dataset import VisdialDataset
 from unimm_torch.eval import evaluator
+from unimm_torch.parallel import dist
 
 
-def main(argv=None, mode: str = "ll_sum", device="cuda"):
+def main(argv=None, mode: str = "ll_sum", device=None, backend=None):
     params = options.read_command_line(argv)
-    dev = common.setup_torch(params, device)
+    dev = common.setup_torch(params, device, backend)
     cfg = common.build_config(params)
     tokenizer = common.load_tokenizer(params)
     reader = common.open_reader(params)
@@ -32,6 +38,7 @@ def main(argv=None, mode: str = "ll_sum", device="cuda"):
     dataset.split = "val"
     eval_batch_size = 5 if params["overfit"] else 2
     loader = common.eval_loader(params, dataset, eval_batch_size)
+    sharded = common.eval_sharded(params)
     print("len_dataloader_eval:", len(loader))
 
     model = common.init_model(params, cfg, dev)
@@ -43,12 +50,16 @@ def main(argv=None, mode: str = "ll_sum", device="cuda"):
         gen_prefix=bool(params["gen_prefix"]),
         prefix_group=params["prefix_group"],
         prefix_packed=bool(params["prefix_packed"]),
-        prefix_rowblock=params["prefix_rowblock"],
-        pipeline_depth=params["eval_pipeline"],
+        prefix_rowblock=params["prefix_rowblock"], process_merge=sharded,
+        split_rows=not sharded, pipeline_depth=params["eval_pipeline"],
         coalesce=params["eval_coalesce"], device=dev)
     name = params["save_name"] or "val_lm"
-    evaluator.dump_ranks(ranks, name + "_predictions.txt")
-    common.print_metrics(metrics)
+    if sharded:
+        evaluator.dump_ranks_merged(ranks, name + "_predictions.txt")
+    else:
+        evaluator.dump_ranks(ranks, name + "_predictions.txt")
+    if dist.rank() == 0:
+        common.print_metrics(metrics)
     return metrics
 
 

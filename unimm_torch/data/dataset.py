@@ -464,9 +464,10 @@ def flatten_for_forward(batch: dict, sample_size: Optional[int] = None,
 
 
 
-def length_bucket_morsels(flats, max_len: int, k: int, div: int = 4):
+def length_bucket_morsels(flats, max_len: int, k: int, div: int = 4,
+                          sync=None):
     """Regroup ``k`` flat training batches into ``k`` length-bucketed
-    accumulation morsels (one process).
+    accumulation morsels.
 
     All sequences are sorted by their attended extent
     (``masks.attended_extent``: every row past it is fully masked), split
@@ -479,7 +480,14 @@ def length_bucket_morsels(flats, max_len: int, k: int, div: int = 4):
     ``nsp_norm_counts`` = (NSP class counts of the group) / k, so the
     summed micro-gradients equal those of any other grouping of the same
     rows. The inputs must hold expanded per-sequence image arrays (no
-    ``img_index``)."""
+    ``img_index``).
+
+    In a data-parallel world (``sync``) each rank sorts its own rows, and
+    ``sync(stats)`` gathers every rank's float64 stats vector as a
+    [ranks, k + 4] stack (``dist.allgather_np``): morsel j's bucket covers
+    the largest extent over the ranks and the normalisers count the whole
+    world's rows, so the ranks' summed gradients equal the unsorted global
+    grouping's."""
     if len(flats) != k or k < 1:
         raise ValueError(f"{len(flats)} batches for {k} morsels")
     if "img_index" in flats[0]:
@@ -493,22 +501,35 @@ def length_bucket_morsels(flats, max_len: int, k: int, div: int = 4):
     order = np.argsort(ext, kind="stable")
     parts = [order[j * m:(j + 1) * m] if j < k - 1 else order[(k - 1) * m:]
              for j in range(k)]
-    lm_norm = img_norm = nsp_norm = None
-    if "lm_weight" in cat:
-        lm_norm = np.float32(max(float((cat["lm_weight"] != 0).sum()), 1.0)
-                             / k)
-    if "image_label" in cat:
-        img_norm = np.float32(float((cat["image_label"] == 1).sum()) / k)
-    if "next_sentence_label" in cat:
-        nsp_norm = np.asarray(
-            [float((cat["next_sentence_label"] == c).sum()) for c in (0, 1)],
-            np.float64) / k
-        nsp_norm = nsp_norm.astype(np.float32)
+    labels = (float((cat["lm_weight"] != 0).sum())
+              if "lm_weight" in cat else -1.0)
+    img_sel = (float((cat["image_label"] == 1).sum())
+               if "image_label" in cat else -1.0)
+    nsp_counts = (np.asarray([float((cat["next_sentence_label"] == c).sum())
+                              for c in (0, 1)], np.float64)
+                  if "next_sentence_label" in cat
+                  else np.asarray([-1.0, -1.0]))
+    morsel_ext = np.asarray([ext[idx].max(initial=1) for idx in parts],
+                            np.float64)
+    if sync is not None:
+        g = np.asarray(sync(np.concatenate(
+            [morsel_ext, [labels, img_sel], nsp_counts])))
+        if g.ndim != 2 or g.shape[1] != k + 4:
+            raise ValueError(f"sync gave a {g.shape} stack, want "
+                             f"[ranks, {k + 4}]")
+        morsel_ext = g[:, :k].max(axis=0)
+        labels = float(g[:, k].sum()) if labels >= 0 else -1.0
+        img_sel = float(g[:, k + 1].sum()) if img_sel >= 0 else -1.0
+        if nsp_counts[0] >= 0:
+            nsp_counts = g[:, k + 2:k + 4].sum(axis=0)
+    lm_norm = np.float32(max(labels, 1.0) / k) if labels >= 0 else None
+    img_norm = np.float32(img_sel / k) if img_sel >= 0 else None
+    nsp_norm = (np.asarray(nsp_counts / k, np.float32)
+                if nsp_counts[0] >= 0 else None)
     morsels = []
-    for idx in parts:
+    for idx, e in zip(parts, morsel_ext):
         morsel = {key: v[idx] for key, v in cat.items()}
-        Lb = masks.quarter_bucket(int(ext[idx].max(initial=1)), max_len,
-                                  div=div)
+        Lb = masks.quarter_bucket(int(e), max_len, div=div)
         if Lb < max_len:
             # per-token arrays only; 'sep_indices' lists SEP positions
             for key in ("tokens", "segments", "positions", "mlm_labels",

@@ -14,8 +14,14 @@ the slates it cannot take through the flat scorer. ``evaluate_split`` and
 ``evaluate_ensemble`` coalesce loader batches, keep ``pipeline_depth`` of
 them in flight, and accumulate R@k / MRR / mean rank and NDCG.
 
-Not in this slice: the mesh / multi-process arguments (``mesh``,
-``process_merge``, multi-process ``dump_ranks_merged``).
+In a data-parallel world of several processes (``parallel/dist.py``) the
+evaluators serve in one of the JAX package's two modes: ``split_rows``
+(every rank iterates the same batches, stages every dispatch whole, scores
+its contiguous share of the rows, a flat chunk's or a prefix group's, and
+the score vectors are all-gathered; the counterpart of a dp mesh spanning
+processes) or ``process_merge`` (each rank scores its own shard of the
+split and the metric statistics are merged at the end).
+``dump_ranks_merged`` writes one predictions file from the ranks' shards.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from unimm_torch.eval.prefix import PrefixScorer
 from unimm_torch.models import unimm, vilbert
 from unimm_torch.ops import masks as M_masks
 from unimm_torch.ops import metrics as M
+from unimm_torch.parallel import dist
 
 # per-chunk sequence arrays; position ids are always regenerated from the
 # descriptor on the device
@@ -46,7 +53,7 @@ class RankingEvaluator:
                  length_buckets=True, bucket_div: int = 8,
                  gen_prefix=True, prefix_group: int = 40,
                  prefix_packed=True, prefix_rowblock: int = 0,
-                 device="cuda"):
+                 split_rows=False, device="cuda"):
         """``length_buckets``: score sequences sorted by their attended
         extent (``masks.attended_extent``), each chunk sliced to the
         smallest covering multiple of L / ``bucket_div``; exact, since rows
@@ -59,6 +66,12 @@ class RankingEvaluator:
         ``prefix_packed`` / ``prefix_rowblock``: the prefix scorer's
         ``packed`` and ``row_block``.
 
+        ``split_rows``: in a world of several processes every rank is
+        given the same batches and scores rows ``dist.row_block`` of each
+        padded chunk (and of each prefix group); ``chunk_size`` must divide
+        over the world. The scores are all-gathered when a batch is
+        fetched, so every rank returns all of them.
+
         The compute-dtype copy of each model is made once and reused while
         its parameters are unchanged (``vilbert.ComputeModels``), one per
         ensemble member."""
@@ -69,6 +82,7 @@ class RankingEvaluator:
         self._bucket_div = bucket_div
         self._need_lm = need_lm
         self._need_nsp = need_nsp
+        self._split = split_rows and dist.world_size() > 1
         self.device = vilbert.resolve_device(device)
         self._compute_model = vilbert.ComputeModels(dtype)
         self._prefix = None
@@ -77,7 +91,8 @@ class RankingEvaluator:
             self._prefix = PrefixScorer(
                 cfg, dtype=dtype, group=prefix_group, bucket_div=bucket_div,
                 packed=prefix_packed, row_block=prefix_rowblock,
-                compute_models=self._compute_model, device=self.device)
+                compute_models=self._compute_model, split_rows=split_rows,
+                device=self.device)
 
     def _fwd(self, cast, d_bias, chunk, pmax):
         out = unimm.forward_eval(cast, self.cfg, chunk, dtype=self.dtype,
@@ -153,6 +168,8 @@ class RankingEvaluator:
         imgs = ({k: self._put(flat[k]) for k in _IMG_KEYS if k in flat}
                 if compact else {})
         chunk_keys = list(_SEQ_KEYS) + ([] if compact else list(_IMG_KEYS))
+        # under split_rows this rank's block of every padded chunk
+        rows = dist.row_block(self.chunk) if self._split else slice(None)
         outs = []
         for s in range(0, N, self.chunk):
             e = min(s + self.chunk, N)
@@ -170,13 +187,18 @@ class RankingEvaluator:
                     for k in ("tokens", "segments", "mlm_labels"):
                         if k in chunk:
                             chunk[k] = chunk[k][:, :Lb]
-            chunk = {k: self._put(v) for k, v in chunk.items()}
+            chunk = {k: self._put(v[rows]) for k, v in chunk.items()}
             chunk.update(imgs)
             outs.append((e - s, self._fwd(cast, d_bias, chunk, pmax)))
 
         def finalize():
-            fetched = [{k: v[:n].cpu().numpy() for k, v in res.items()}
-                       for n, res in outs]
+            keys = sorted(outs[0][1])
+            local = np.stack([[res[k].cpu().numpy() for k in keys]
+                              for _, res in outs])      # [chunks, keys, rows]
+            if self._split:
+                local = np.concatenate(dist.allgather_np(local), axis=2)
+            fetched = [dict(zip(keys, v[:, :n])) for (n, _), v in
+                       zip(outs, local)]
             scores = {k: np.concatenate([o[k] for o in fetched])
                       for k in fetched[0]}
             if order is not None:
@@ -301,12 +323,20 @@ def _valid(batch, B):
             else np.ones(B, bool))
 
 
+def _fit_chunk(chunk_size: int, split_rows: bool) -> int:
+    """The chunk rounded down to a multiple of the world under
+    ``split_rows`` (at least one row a rank)."""
+    n = dist.world_size() if split_rows else 1
+    return max(n, chunk_size // n * n)
+
+
 def evaluate_split(model, cfg: VilbertConfig, loader, *, mode: str,
                    chunk_size: int = 256, dtype=torch.bfloat16,
                    ranks_out: Optional[list] = None,
                    progress_every: int = 10, log=print,
                    gen_prefix: bool = True, prefix_group: int = 40,
                    prefix_packed: bool = True, prefix_rowblock: int = 0,
+                   process_merge: bool = False, split_rows: bool = False,
                    pipeline_depth: int = 1,
                    coalesce: int = 2, device="cuda") -> dict:
     """Run ranking eval over a loader of [B, R, O] val batches.
@@ -315,13 +345,23 @@ def evaluate_split(model, cfg: VilbertConfig, loader, *, mode: str,
     'll_mean' (val_avg_lm; both through the prefix scorer with the flat
     fallback). Batches carry gt_option_inds [B, R], round_id [B],
     gt_relevance [B, O], image_id [B] when ``ranks_out`` is given, and
-    optionally a boolean ``valid`` [B] mask of rows to observe. Returns the
-    metric dict (R@k / mean / MRR, per round, and NDCG).
+    optionally a boolean ``valid`` [B] mask of rows to observe (the
+    process-sharded loader's tail padding: scored, never observed). Returns
+    the metric dict (R@k / mean / MRR, per round, and NDCG).
+
+    In a world of several processes: ``split_rows`` (every rank iterates
+    the same loader; see ``RankingEvaluator``) or ``process_merge`` (each
+    rank's loader holds a disjoint shard; the ranks' metric statistics
+    are merged at the end, so every rank returns the metrics of the whole
+    split).
     """
-    ev, key = _evaluator(cfg, mode, chunk_size=chunk_size, dtype=dtype,
-                         gen_prefix=gen_prefix, prefix_group=prefix_group,
+    ev, key = _evaluator(cfg, mode,
+                         chunk_size=_fit_chunk(chunk_size, split_rows),
+                         dtype=dtype, gen_prefix=gen_prefix,
+                         prefix_group=prefix_group,
                          prefix_packed=prefix_packed,
-                         prefix_rowblock=prefix_rowblock, device=device)
+                         prefix_rowblock=prefix_rowblock,
+                         split_rows=split_rows, device=device)
     sparse = M.SparseGTMetrics()
     ndcg = M.NDCG()
     logged = 0
@@ -360,6 +400,8 @@ def evaluate_split(model, cfg: VilbertConfig, loader, *, mode: str,
 
     _serving_loop(loader, dispatch, consume,
                   pipeline_depth=pipeline_depth, coalesce=coalesce)
+    if process_merge and dist.world_size() > 1:
+        return M.allreduce_metrics(sparse, ndcg)
     return {**sparse.retrieve(), **ndcg.retrieve()}
 
 
@@ -376,6 +418,7 @@ def evaluate_ensemble(models: Sequence, cfg: VilbertConfig, loader, *,
                       test_split: bool = False, log=print,
                       gen_prefix: bool = True, prefix_group: int = 40,
                       prefix_packed: bool = True, prefix_rowblock: int = 0,
+                      process_merge: bool = False, split_rows: bool = False,
                       pipeline_depth: int = 1,
                       coalesce: int = 1, progress_every: int = 10,
                       device="cuda") -> dict:
@@ -383,13 +426,17 @@ def evaluate_ensemble(models: Sequence, cfg: VilbertConfig, loader, *,
     per slate and summed (val.py:151-164 / evaluate.py:108-132). With
     ``test_split`` the loader yields [B, 1, 100] slates and ranks_out
     records the EvalAI format (round_id from the data); no metrics are
-    computed (the test split has no ground truth). Pipelining, coalescing
-    and the ``valid`` mask as in ``evaluate_split``; every member's chunks
-    of a group are launched before the previous group is fetched."""
-    ev, key = _evaluator(cfg, mode, chunk_size=chunk_size, dtype=dtype,
-                         gen_prefix=gen_prefix, prefix_group=prefix_group,
+    computed (the test split has no ground truth). Pipelining, coalescing,
+    the ``valid`` mask, ``split_rows`` and ``process_merge`` as in
+    ``evaluate_split``; every member's chunks of a group are launched
+    before the previous group is fetched."""
+    ev, key = _evaluator(cfg, mode,
+                         chunk_size=_fit_chunk(chunk_size, split_rows),
+                         dtype=dtype, gen_prefix=gen_prefix,
+                         prefix_group=prefix_group,
                          prefix_packed=prefix_packed,
-                         prefix_rowblock=prefix_rowblock, device=device)
+                         prefix_rowblock=prefix_rowblock,
+                         split_rows=split_rows, device=device)
     sparse = M.SparseGTMetrics()
     ndcg = M.NDCG()
     logged = 0
@@ -437,21 +484,32 @@ def evaluate_ensemble(models: Sequence, cfg: VilbertConfig, loader, *,
                   pipeline_depth=pipeline_depth, coalesce=coalesce)
     if test_split:
         return {}
+    if process_merge and dist.world_size() > 1:
+        return M.allreduce_metrics(sparse, ndcg)
     return {**sparse.retrieve(), **ndcg.retrieve()}
 
 
-def dump_ranks(ranks: list, path: str):
-    """Write the ranks list as JSON (one process)."""
+def dump_ranks(ranks: list, path: str, all_processes: bool = False):
+    """Write the ranks list as JSON. In a world of several processes only
+    rank 0 writes (split-rows serving gives every rank the same ranks);
+    ``all_processes``: every rank writes its own, the caller putting the
+    rank in ``path``."""
+    if not all_processes and dist.rank() != 0:
+        return
     with open(path, "w") as f:
         json.dump(ranks, f)
 
 
 def dump_ranks_merged(ranks: list, path: str) -> int:
     """Write one predictions file sorted by (image_id, round_id), as the
-    reference's single save_name file (val_lm.py:186-190); returns the
-    record count. One process only: the data-sharded multi-process merge
-    is not in this slice."""
-    ranks = sorted(ranks, key=lambda e: (e["image_id"], e["round_id"]))
-    with open(path, "w") as f:
-        json.dump(ranks, f)
-    return len(ranks)
+    reference's single save_name file (val_lm.py:186-190), from the ranks'
+    disjoint shards of data-sharded eval: every rank's records are
+    gathered and rank 0 writes them. Returns the record count of the whole
+    file on every rank."""
+    merged = sorted((e for part in dist.allgather_objects(ranks)
+                     for e in part),
+                    key=lambda e: (e["image_id"], e["round_id"]))
+    if dist.rank() == 0:
+        with open(path, "w") as f:
+            json.dump(merged, f)
+    return len(merged)

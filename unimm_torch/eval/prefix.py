@@ -30,8 +30,11 @@ Exact up to float rounding: masked columns add exp(-1e4) = 0 to the fp32
 softmax, so the scores equal the flat full-forward scores
 (``models/unimm.forward_eval``).
 
-Not ported: the mesh / multi-process arguments (ROADMAP.md queue A, item
-7).
+In a data-parallel world of several processes (``split_rows``) every rank
+stages the same global grouping from the same batch, scores its
+contiguous share of each group's slates (the prefill and the answer pass,
+so K1, K2 and K3 run on each rank's share) and the [G, O] scores are
+all-gathered: the JAX package's multi-process prefix serving.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from unimm_torch.ops.answer_block import (answer_block, answer_block_plain,
                                           pick_o_blk)
 from unimm_torch.ops.ffn_block import ffn_block, ffn_block_plain
 from unimm_torch.ops.xent_head import xent_head, xent_head_plain
+from unimm_torch.parallel import dist
 
 
 def slate_eligibility(batch) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -179,14 +183,17 @@ class PrefixScorer:
     ``compute_models``: the ``vilbert.ComputeModels`` cache of
     compute-dtype copies to use (one of its own by default; the evaluator
     shares its cache). Ineligible slates are left to the caller
-    (``last_ok`` after ``score_async``).
+    (``last_ok`` after ``score_async``). ``split_rows``: in a world of
+    several processes, group sizes are rounded up to a multiple of the
+    world and each rank scores block ``dist.row_block`` of every group.
     """
 
     _IMG_KEYS = ("image_feat", "image_loc", "image_mask")
 
     def __init__(self, cfg: VilbertConfig, *, dtype=torch.bfloat16,
                  group: int = 40, bucket_div: int = 8, packed: bool = True,
-                 row_block: int = 0, compute_models=None, device="cuda"):
+                 row_block: int = 0, compute_models=None, split_rows=False,
+                 device="cuda"):
         if cfg.in_batch_pairs or cfg.fast_mode:
             raise ValueError("prefix scoring needs in_batch_pairs and "
                              "fast_mode off")
@@ -196,6 +203,7 @@ class PrefixScorer:
         self._bucket_div = bucket_div
         self.packed = packed
         self._rb = row_block
+        self._world = dist.world_size() if split_rows else 1
         self.device = vilbert.resolve_device(device)
         self._ctx_cfg = cfg.replace(attention_impl="xla")
         self._compute_model = (compute_models if compute_models is not None
@@ -227,8 +235,10 @@ class PrefixScorer:
             return fn(h, p_inter, p_out, act=cfg.hidden_act)
         return ffn
 
-    def _put(self, arrays):
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+    def _put(self, arrays, rows=slice(None)):
+        """Host arrays on the device, each cut to ``rows`` of its first
+        axis."""
+        return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(
             self.device, non_blocking=True) for k, v in arrays.items()}
 
     # ------------------------------------------------------------------
@@ -407,10 +417,12 @@ class PrefixScorer:
     # host orchestration
     # ------------------------------------------------------------------
 
-    def _pack_rows(self, g, n, rb, O, toks, segs, labs, lc, al, image_mask):
+    def _pack_rows(self, g, n, rb, O, toks, segs, labs, lc, al, image_mask,
+                   rows):
         """Stage group ``g``'s answer rows in the packed layout: ``n`` [gs,
         O] rows per option, bin-packed into ``rb``-row blocks
-        (``pack_option_rows``); the dict ``_answer_impl_packed`` takes."""
+        (``pack_option_rows``, over the whole group); the dict
+        ``_answer_impl_packed`` takes, cut to the slates ``rows``."""
         gs = g.size
         starts, P = pack_option_rows(n, rb)
         reps = n.ravel()
@@ -435,7 +447,7 @@ class PrefixScorer:
         return self._put(dict(
             tokens=tokens_p, segments=segs_p, mlm_labels=labs_p,
             opt_id=opt_p, r_in=rin_p, lc=lc[g], ans_len=al[g],
-            image_mask=image_mask))
+            image_mask=image_mask), rows)
 
     def score(self, model, batch) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
         """Score the eligible slates of a [B, R, O] batch.
@@ -476,10 +488,13 @@ class PrefixScorer:
         T_all = np.minimum(ce + al, Lx)
         n_all = np.clip(T_all - lc[:, None], 0, Lx).astype(np.int64)
 
-        # sort by context length, balance groups to one size per call
+        # sort by context length, balance groups to one size per call;
+        # under split_rows a multiple of the world, each rank's block
         sel = sel[np.argsort(lc[sel], kind="stable")]
         n_groups = max(1, -(-sel.size // self.group))
         gsize = -(-sel.size // n_groups)
+        gsize = -(-gsize // self._world) * self._world
+        mine = dist.row_block(gsize) if self._world > 1 else slice(None)
 
         outs = []
         for gi in range(n_groups):
@@ -495,7 +510,7 @@ class PrefixScorer:
                 tokens=toks[g, 0, :Lcb], segments=segs[g, 0, :Lcb],
                 mode=np.ones(g.size, np.int32), ctx_end=lc[g],
                 ans_len=np.zeros(g.size, np.int32),
-                img_index=img_of_slate[g]))
+                img_index=img_of_slate[g]), mine)
             ctx_batch.update(imgs)
             caches = self._context_impl(cast, ctx_batch)
             g_out = g[:g.size - pad] if pad else g
@@ -504,7 +519,8 @@ class PrefixScorer:
             rb = self._rb_for(Lcb, need)
             if self.packed and need <= rb:
                 rows = self._pack_rows(g, n_all[g], rb, O, toks, segs, labs,
-                                       lc, al, imask_h[img_of_slate[g]])
+                                       lc, al, imask_h[img_of_slate[g]],
+                                       mine)
                 outs.append((g_out, pad, self._answer_impl_packed(
                     cast, d_bias, caches, rows, rb)))
                 continue
@@ -528,15 +544,19 @@ class PrefixScorer:
             rows = self._put(dict(
                 tokens=_rows(toks, 0), segments=_rows(segs, 0),
                 mlm_labels=_rows(labs, -1), lc=lc[g], ans_len=al[g],
-                ctx_end=ce[g], image_mask=imask_h[img_of_slate[g]]))
+                ctx_end=ce[g], image_mask=imask_h[img_of_slate[g]]), mine)
             outs.append((g_out, pad, self._answer_impl(cast, d_bias, caches,
                                                        rows)))
 
         def finalize():
-            for g, pad, res in outs:
-                for k in scores:
-                    v = res[k].cpu().numpy()
-                    scores[k][g] = v[:g.size] if pad else v
+            keys = sorted(scores)
+            local = np.stack([[res[k].cpu().numpy() for k in keys]
+                              for _, _, res in outs])   # [groups, keys, gs, O]
+            if self._world > 1:
+                local = np.concatenate(dist.allgather_np(local), axis=2)
+            for (g, pad, _), v in zip(outs, local):
+                for k, vk in zip(keys, v):
+                    scores[k][g] = vk[:g.size] if pad else vk
             return scores, ok
 
         return finalize

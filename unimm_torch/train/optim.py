@@ -17,7 +17,14 @@ reference train.py:322-348 and utils/optim_utils.py:8-26 with optax):
 * the warmup-linear-to-floor schedule;
 * gradient accumulation with optax.MultiSteps semantics
   (``batch_multiply``): the running mean of k gradients, one update every
-  k calls.
+  k calls;
+* in a data-parallel world (``parallel/dist.py``) the gradients an update
+  applies are summed over the ranks first, once an update (under
+  accumulation: the running mean, at the k-th call), in flat buckets
+  (``dist.allreduce_sum_``); every rank then applies the same bits. Each
+  rank's loss is its local sum over the world's denominators
+  (``train.step.world_norms``), so the sum is the gradient of the global
+  batch.
 
 Two counters, as optax keeps them in ``ScaleByAdamState.count`` and
 ``ScaleByScheduleState.count``: ``count`` sets the bias correction and
@@ -47,6 +54,7 @@ import torch
 
 from unimm_torch import checkpoint as ckpt
 from unimm_torch.ops.adamw import adamw_update_leaf, adamw_update_leaf_plain
+from unimm_torch.parallel import dist
 
 B1, B2 = 0.9, 0.999
 
@@ -180,6 +188,7 @@ class GroupedAdamW:
             if self.mini_step < k:
                 return False
             grads, self.acc, self.mini_step = self.acc, None, 0
+        dist.allreduce_sum_(grads)
         self._update(grads)
         return True
 

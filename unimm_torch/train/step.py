@@ -6,6 +6,17 @@ iteration, train.py:445-463, without its GradScaler: bf16 needs no loss
 scaling). PyTorch runs eagerly, so there is no jit: ``make_train_step``
 returns a function that takes one step on a state dict and updates the
 model and the optimizer in place (the JAX step donates its state).
+
+In a data-parallel world of several processes (``parallel/dist.py``) each
+rank holds its share of the rows of the global batch. The JAX package
+computes each loss once over the global batch, so its denominators (the
+label-token count, the NSP class counts, the masked-region count) are the
+global batch's: the step all-reduces the local counts first and passes
+them through the losses' overrides (``world_norms``), so each rank's loss
+is its local sum over the global denominator; the optimizer sums the
+gradients over the ranks (``train.optim``), and the logged loss parts are
+summed too. Each rank draws its own dropout masks (the rank enters the
+seed, ``step_seed``), as JAX draws one mask over the global batch.
 """
 
 from __future__ import annotations
@@ -19,13 +30,49 @@ import torch
 from unimm_torch.config import VilbertConfig
 from unimm_torch.models import unimm, vilbert
 from unimm_torch.ops import losses as L
+from unimm_torch.parallel import dist
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, rank=None) -> int:
     """The dropout seed of step ``step`` of a run seeded with ``seed``:
-    one stream per (seed, step), as ``jax.random.fold_in(rng, step)``."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(
-        1, np.uint64)[0])
+    one stream per (seed, step), as ``jax.random.fold_in(rng, step)``; a
+    ``rank`` of a world of several processes enters the seed too, so no
+    two ranks share a mask (None: the one-process stream)."""
+    key = [seed, step] if rank is None else [seed, step, rank]
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
+
+
+def world_rank():
+    """This process's rank for ``step_seed``: None outside a world of
+    several processes."""
+    return dist.rank() if dist.world_size() > 1 else None
+
+
+def world_norms(batch: dict) -> dict:
+    """``batch`` with the loss denominators of the world's whole batch
+    (``lm_norm``: tokens with lm_weight != 0; ``img_norm``: the sequences'
+    regions with image_label 1, compact image arrays expanded first; ``nsp_norm_counts``: the NSP label counts; those whose
+    keys the batch holds), summed over the ranks in one all-reduce. A
+    batch that carries them already (length-bucketed morsels, whose group
+    normalisers are synced across the ranks) and a world of one process
+    are returned as they are."""
+    if dist.world_size() == 1 or "lm_norm" in batch:
+        return batch
+    batch = unimm.expand_images(batch)     # image_label a sequence
+    counts = {"lm_norm": (batch["lm_weight"] != 0).sum()[None]}
+    if "image_label" in batch:
+        counts["img_norm"] = (batch["image_label"] == 1).sum()[None]
+    if "next_sentence_label" in batch:
+        nsl = batch["next_sentence_label"]
+        counts["nsp_norm_counts"] = torch.stack([(nsl == 0).sum(),
+                                                 (nsl == 1).sum()])
+    flat = torch.cat(list(counts.values())).float()
+    dist.allreduce_sum_([flat])
+    out = dict(batch)
+    for (k, v), x in zip(counts.items(),
+                         flat.split([v.numel() for v in counts.values()])):
+        out[k] = x if k == "nsp_norm_counts" else x[0]
+    return out
 
 
 def init_state(model: torch.nn.Module, opt, seed: int = 0) -> Dict[str, Any]:
@@ -43,13 +90,15 @@ def make_train_step(cfg: VilbertConfig, *, lm_coeff=1.0, nsp_coeff=1.0,
     metrics are device scalars: loss, lm_loss, nsp_loss, img_loss and
     label_budget_overflow, the sequences whose label count exceeds
     ``cfg.max_train_label_positions`` (their tail labels are dropped on the
-    gathered path)."""
+    gathered path). In a world of several processes the loss parts and
+    the overflow count are the world's (summed over the ranks)."""
 
     def train_step(state, batch, nsp_weight=None):
         model = state["model"]
-        rng = vilbert.DropoutRng(step_seed(state["seed"], state["step"]),
+        rng = vilbert.DropoutRng(step_seed(state["seed"], state["step"],
+                                           world_rank()),
                                  batch["tokens"].device)
-        parts = unimm.forward_train(model, cfg, batch, rng=rng,
+        parts = unimm.forward_train(model, cfg, world_norms(batch), rng=rng,
                                     nsp_weight=nsp_weight, dtype=dtype)
         loss = L.combine_losses(parts["lm"], parts["img"], parts["nsp"],
                                 lm_coeff, nsp_coeff, img_coeff)
@@ -64,9 +113,21 @@ def make_train_step(cfg: VilbertConfig, *, lm_coeff=1.0, nsp_coeff=1.0,
                    "img_loss": parts["img"].detach(),
                    "label_budget_overflow": (
                        n_lab > cfg.max_train_label_positions).sum()}
-        return state, metrics
+        return state, world_metrics(metrics)
 
     return train_step
+
+
+def world_metrics(metrics: dict) -> dict:
+    """Device scalars summed over the ranks of a world of several
+    processes (one all-reduce); as they are otherwise."""
+    if dist.world_size() == 1:
+        return metrics
+    keys = sorted(metrics)
+    v = torch.cat([metrics[k].double().reshape(1) for k in keys])
+    dist.allreduce_sum_([v])
+    return {k: x.reshape(metrics[k].shape).to(metrics[k].dtype)
+            for k, x in zip(keys, v)}
 
 
 def make_train_step_with_fallback(cfg: VilbertConfig, *,
@@ -83,6 +144,9 @@ def make_train_step_with_fallback(cfg: VilbertConfig, *,
                 mlm_loss_impl='dense' (the exact full-logits path);
       'error' - raise ValueError instead;
       'allow' - keep the gathered step (the metric still counts them).
+
+    In a world of several processes the ranks vote: any rank's overflow
+    sends every rank down the same branch.
     """
     if policy not in ("dense", "error", "allow"):
         raise ValueError(f"policy {policy!r}")
@@ -98,7 +162,8 @@ def make_train_step_with_fallback(cfg: VilbertConfig, *,
         labels = (host_mlm_labels if host_mlm_labels is not None
                   else batch["mlm_labels"].cpu().numpy())
         n = (np.asarray(labels) != -1).sum(axis=-1)
-        if n.max(initial=0) > cfg.max_train_label_positions:
+        over = n.max(initial=0) > cfg.max_train_label_positions
+        if any(dist.allgather_np(np.asarray([over]))):
             if policy == "error":
                 raise ValueError(
                     "gathered-MLM label budget overflow: a sequence carries "
