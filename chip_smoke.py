@@ -5,9 +5,11 @@ the serving paths end to end and check that they went through the kernels.
     python3 chip_smoke.py
     python3 chip_smoke.py --train-gates [SEED ...]
     python3 chip_smoke.py --world
+    python3 chip_smoke.py --mp
 
-``--world`` runs phase 1, the build and phase 13 alone (``--world-rank
-SPEC RANK`` is one of its rank processes). ``--train-gates`` runs phase 1,
+``--world`` runs phase 1, the build and phase 13 alone, ``--mp`` phase 1,
+the build and phase 14 alone (``--world-rank SPEC RANK`` is one of their
+rank processes). ``--train-gates`` runs phase 1,
 the build and phase 8 (a)'s two gates alone, on the batches of the given
 seeds (default GATE_SEEDS), printing
 both results and each batch's single-batch margins, and exits 1 if a gate
@@ -150,6 +152,21 @@ prints its seconds):
      dense_finetune, 2 steps, the slate split 50 / 50, as (c); (e) one
      rank under NCCL: one train step and a data-sharded val_lm, each
      bit-equal to the same command without the flags.
+ 14. the -mesh_mp axis at full width: rank processes on the one card under
+     gloo, each model sharded over its mp group by the JAX package's rules
+     (``unimm_torch/parallel/mesh.py``), on phase 13's tree at the default
+     dropouts, against runs of the same commands in this process: (a)
+     train, dp 1 x mp 2, 2 steps, -fused_adamw 1, a save: the gathered
+     weights and both moments bit-equal to one process's, the replicated
+     tensors bit-equal across the ranks; (b) val_lm serving, dp 1 x mp 2:
+     the predictions file byte-equal; (c) dense_finetune, dp 1 x mp 2, 2
+     slates: bit-equal; (d) train, dp 2 x mp 2, 2 steps: bit-equal to a dp
+     2 x mp 1 world; (e) (a)'s save resumed at mp 1 for one step, bit-equal
+     to the one-process save resumed. Launches a rank as one process's;
+     each rank's fp32 state bytes, peak memory since sharding, ms a step,
+     mp gather and dp all-reduce MiB and ms (the card synchronized around
+     each). Phase 3 also holds B7 at the word embeddings' mp 2 slice,
+     [15261, 768].
 The last lines are the kernels JSON, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -1511,11 +1528,13 @@ def phase_kernels(dev):
           check_attention_block_train(dev, gen, 64, 256, tail_desc)]
     cases["attention_block_train_fwd"] = [f for f, _ in b5]
     cases["attention_block_train_bwd"] = [b for _, b in b5]
-    # the largest parameter tensor (the tied word embeddings), a bias, and
-    # a length that leaves a tail past the float4 loads
+    # the largest parameter tensor (the tied word embeddings), a bias, a
+    # length that leaves a tail past the float4 loads, and the word
+    # embeddings' slice at -mesh_mp 2 (odd rows)
     cases["adamw_update_leaf"] = [check_adamw(dev, gen, (30522, 768)),
-                      check_adamw(dev, gen, (768,)),
-                      check_adamw(dev, gen, (1001,))]
+                                  check_adamw(dev, gen, (768,)),
+                                  check_adamw(dev, gen, (1001,)),
+                                  check_adamw(dev, gen, (15261, 768))]
     cases.update(heads_cases(dev, gen))
     check_v2_equals_fwd(dev, gen)
     cases.update(probe_cases(dev, gen))
@@ -2949,50 +2968,131 @@ class ScoreRecorder:
         return run
 
 
-def params_sha256(model):
-    """One SHA-256 over every parameter's bytes, in order."""
+def state_sha256(model, opt=None):
+    """SHA-256s of a training state's whole tensors (a sharded model's
+    gathered over the mp group, a bucket at a time to the host: a
+    collective): ``digests``, each tensor's own (``w/<name>``, and with
+    ``opt`` ``mu/<name>`` and ``nu/<name>``), to name the tensors where
+    two states differ, and over them, in order, ``weights_sha256`` and
+    with ``opt`` ``moments_sha256``; on a sharded model also
+    ``replicated_sha256``, over the parameters this rank holds whole."""
     import hashlib
-    h = hashlib.sha256()
-    for _, p in model.named_parameters():
-        h.update(p.detach().float().cpu().numpy().tobytes())
-    return h.hexdigest()
+
+    from unimm_torch.parallel import mesh
+
+    each = {}
+
+    def digest(tag, items):
+        h = hashlib.sha256()
+        for n, a in mesh.whole(model, items, lambda t: t.detach().float()
+                               .cpu().numpy()):
+            d = hashlib.sha256(a).hexdigest()
+            each[f"{tag}/{n}"] = d
+            h.update(d.encode())
+        return h.hexdigest()
+
+    out = {"weights_sha256": digest("w", model.named_parameters())}
+    lay = mesh.layout(model)
+    if lay is not None:
+        out["replicated_sha256"] = hashlib.sha256("".join(
+            each[f"w/{n}"] for n, _ in model.named_parameters()
+            if n not in lay.dims).encode()).hexdigest()
+    if opt is not None:
+        out["moments_sha256"] = hashlib.sha256((
+            digest("mu", zip(opt.names, opt.mu))
+            + digest("nu", zip(opt.names, opt.nu))).encode()).hexdigest()
+    out["digests"] = each
+    return out
 
 
-def dist_run(entry, argv, dev, backend=None):
+def state_bytes(model, opt) -> int:
+    """The bytes of the training state a rank holds: its parameters (each
+    counted once more for its gradient) and its moments."""
+    n = sum(p.numel() * p.element_size() * 2 for p in model.parameters())
+    return n + sum(t.numel() * t.element_size() for t in opt.mu + opt.nu)
+
+
+def shown(obj):
+    """``obj`` without the runs' per-tensor ``digests``, for a printed
+    line."""
+    if isinstance(obj, dict):
+        return {k: shown(v) for k, v in obj.items() if k != "digests"}
+    if isinstance(obj, list):
+        return [shown(v) for v in obj]
+    return obj
+
+
+def differ(a, b):
+    """The names whose digests differ between two runs' records."""
+    return sorted(k for k in a["digests"] if a["digests"][k] !=
+                  b["digests"].get(k))
+
+
+def dist_run(entry, argv, dev, backend=None, moments=False):
     """One CLI run through ``main(argv)``, counted, with its scores (gen
-    runs), its steps (training runs), its peak memory, each all-reduce in
-    a world (``dist.allreduce_sum_``: the card waits before and after it;
-    its MiB and ms) and, for a training run, the SHA-256 of its weights.
+    runs), its steps (training runs), its peak memory (over the run, and
+    since ``mesh.shard_model``), each collective in a world
+    (``dist.allreduce_sum_``, ``dist.broadcast_`` and the mp gather
+    ``mesh.gather_whole``: the card waits before and after each; its MiB
+    and ms) and, for a training run, the bytes of the fp32 state it holds
+    and the SHA-256s of its whole weights (and under ``moments`` its
+    moments; ``state_sha256``).
     Returns a JSON-able record and the scores by image id."""
     from unimm_torch.cli import dense_finetune, train, val_lm
     from unimm_torch.eval import evaluator
-    from unimm_torch.parallel import dist
+    from unimm_torch.parallel import dist, mesh
     from unimm_torch.train import step as tstep
 
     mod = {"val_lm": val_lm, "train": train,
            "dense_finetune": dense_finetune}[entry]
-    scores, rec, reduces = ScoreRecorder(), StepRecorder(), []
+    scores, rec, colls, peaks = ScoreRecorder(), StepRecorder(), [], []
     real = (evaluator.RankingEvaluator.score_slates_async,
             tstep.make_train_step_with_fallback,
-            dense_finetune.make_dense_step, dist.allreduce_sum_)
+            dense_finetune.make_dense_step, dist.allreduce_sum_,
+            dist.broadcast_, mesh.gather_whole, mesh.shard_model)
 
-    def timed_reduce(tensors):
-        if not dist.active():
-            return real[3](tensors)
+    def timed(name, fn, mib, axis):
+        def run(*a, **kw):
+            if not dist.active() or dist.axis_size(
+                    kw.get("over", axis)) == 1:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            colls.append({"op": name, "mib": mib(*a, **kw) / 2**20,
+                          "ms": (time.perf_counter() - t) * 1e3})
+            return out
+        return run
+
+    def nbytes(tensors, **kw):
+        return sum(x.numel() * x.element_size() for x in tensors)
+
+    def gathered(model, tensors):
+        # the bytes this rank receives: the sharded tensors' other slices
+        lay = mesh.layout(model)
+        if lay is None:
+            return 0
+        return nbytes(t for n, t in tensors.items()
+                      if n in lay.dims) * (lay.size - 1)
+
+    def shard(model):
+        model = real[6](model)
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        real[3](tensors)
-        torch.cuda.synchronize()
-        reduces.append({"mib": sum(x.numel() * x.element_size()
-                                   for x in tensors) / 2**20,
-                        "ms": (time.perf_counter() - t) * 1e3})
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        return model
 
     evaluator.RankingEvaluator.score_slates_async = scores.wrap(real[0])
     tstep.make_train_step_with_fallback = (
         lambda *a, **kw: rec.wrap(real[1](*a, **kw)))
     dense_finetune.make_dense_step = lambda *a, **kw: rec.wrap(
         real[2](*a, **kw))
-    dist.allreduce_sum_ = timed_reduce
+    dist.allreduce_sum_ = timed("allreduce_sum_", real[3], nbytes,
+                                dist.WORLD)
+    dist.broadcast_ = timed("broadcast_", real[4], nbytes, dist.MP)
+    mesh.gather_whole = timed("gather_whole", real[5], gathered, dist.MP)
+    mesh.shard_model = shard
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     try:
@@ -3001,25 +3101,32 @@ def dist_run(entry, argv, dev, backend=None):
     finally:
         (evaluator.RankingEvaluator.score_slates_async,
          tstep.make_train_step_with_fallback,
-         dense_finetune.make_dense_step, dist.allreduce_sum_) = real
+         dense_finetune.make_dense_step, dist.allreduce_sum_,
+         dist.broadcast_, mesh.gather_whole, mesh.shard_model) = real
+    after = torch.cuda.max_memory_allocated(dev)
     r = dict(entry=entry, launches=launches, main_s=secs,
-             peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
-             allreduce=reduces)
+             peak_gib=max(peaks + [after]) / 2**30,
+             peak_after_shard_gib=after / 2**30 if peaks else None,
+             collectives=colls, grid=[dist.dp_rank(), dist.dp_size(),
+                                      dist.mp_rank(), dist.mp_size()])
     if entry == "val_lm":
         r["metrics"] = out
     else:
         r.update(rec.summary(), step=out["step"],
-                 weights_sha256=params_sha256(out["model"]),
+                 state_gib=state_bytes(out["model"], out["opt"]) / 2**30,
                  parts=[{k: float(v) for k, v in p.items()}
-                        for p in rec.parts])
+                        for p in rec.parts],
+                 **state_sha256(out["model"],
+                                out["opt"] if moments else None))
     return r, scores.scores
 
 
 def main_world_rank(spec_path, rank):
-    """``--world-rank SPEC RANK``: one rank process of phase 13. Runs the
-    spec's CLI runs in order (each joining the world through the flags
-    unless the run says ``"world": false``), prints one JSON line a run and
-    writes each gen run's scores to ``<out>/<run>_<rank>.npz``."""
+    """``--world-rank SPEC RANK``: one rank process of phase 13 or 14. Runs
+    the spec's CLI runs in order (each joining the world through the flags
+    unless the run says ``"world": false``; ``"moments": true`` hashes the
+    Adam moments too), prints one JSON line a run and writes each gen
+    run's scores to ``<out>/<run>_<rank>.npz``."""
     with open(spec_path) as f:
         spec = json.load(f)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3032,7 +3139,7 @@ def main_world_rank(spec_path, rank):
         argv = run["argv"] + (flags if run.get("world", True) else [])
         r, scores = dist_run(run["entry"], argv, dev,
                              spec["backend"] if run.get("world", True)
-                             else None)
+                             else None, run.get("moments", False))
         if scores:
             np.savez(os.path.join(spec["out"], f"{run['name']}_{rank}.npz"),
                      **{str(k): v for k, v in scores.items()})
@@ -3043,35 +3150,44 @@ def main_world_rank(spec_path, rank):
 
 def spawn_world(spec, out, n):
     """Start ``n`` rank processes of ``spec`` (this script with
-    --world-rank) and wait for them; a rank that fails or outlives
-    DIST_TIMEOUT_S fails the phase with its output. Returns {(run, rank):
-    record} and each rank's seconds from start to exit."""
+    --world-rank), each writing its output to a file under ``out`` (a
+    pipe would block a rank whose output outgrew it while another rank's
+    was being read, and its peers with it in their next collective), and
+    wait for them; a rank that fails, or a world that outlives
+    DIST_TIMEOUT_S, fails the phase with the ranks' output. Returns
+    {(run, rank): record} and the world's seconds from start to exit."""
     import socket
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
+    name = spec.get("name", spec["backend"])
     spec = dict(spec, port=s.getsockname()[1], world=n, out=str(out))
     s.close()
-    path = out / f"spec_{spec['backend']}.json"
+    path = out / f"spec_{name}.json"
     path.write_text(json.dumps(spec))
+    logs = [out / f"{name}_rank{r}.log" for r in range(n)]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, "--world-rank", str(path), str(r)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(n)]
-    outs = []
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--world-rank", str(path), str(r)],
+                stdout=f, stderr=subprocess.STDOUT))
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+            p.wait(timeout=max(0.0, t0 + DIST_TIMEOUT_S - time.perf_counter()))
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
-            p.communicate()
-        raise SystemExit(f"world ({spec['backend']}): a rank outlived "
-                         f"{DIST_TIMEOUT_S} s")
+            p.wait()
+        tails = "\n".join(f"rank {r}: ...{log.read_text()[-3000:]}"
+                          for r, log in enumerate(logs))
+        raise SystemExit(f"world ({name}): outlived {DIST_TIMEOUT_S} s\n"
+                         f"{tails}")
     secs = time.perf_counter() - t0
+    outs = [log.read_text() for log in logs]
     for r, (p, o) in enumerate(zip(procs, outs)):
         if p.returncode:
-            raise SystemExit(f"world ({spec['backend']}) rank {r} exited "
+            raise SystemExit(f"world ({name}) rank {r} exited "
                              f"{p.returncode}:\n{o[-6000:]}")
     recs = {}
     for o in outs:
@@ -3098,31 +3214,15 @@ def score_gap(got, want):
             float((g.argmax(-1) == w.argmax(-1)).mean()))
 
 
-def phase_dist(dev, card, runs, config=None, max_seq_len=256,
-               rank_device="cuda:0", one_backend="nccl"):
-    """The data-parallel world on the card at full width, through the
-    entry points a user runs in each rank (``main(argv)`` with
-    ``-coordinator_address -num_processes -process_id``): two rank
-    processes on the one card (``device="cuda:0"`` on both; backend gloo,
-    passed explicitly: NCCL takes one rank a device), against one-process
-    runs of the same commands in this process. (a) val_lm
-    -eval_data_sharded 1 over 9 val dialogs (rank 1's last batch is tail
-    padding): every record once in the merged file, each dialog's scores
-    and the metrics against the one-process run (top-1 agreement >=
-    MIN_TOP1_AGREEMENT); (b) val_lm serving (each rank scores half of
-    every prefix group): the same checks, K1 / K2 / K3 launches a rank;
-    (c) train, 2 ranks x 120 sequences against 1 rank x 240 (the same
-    global batches: every sequence of 12 images a step), dropout 0, 2
-    steps from one start .ckpt, -fused_adamw 1: the ranks' weights
-    bit-equal, every loss part within LOSS_RTOL of the one-rank run's,
-    12 + 12 B5 and 534 B7 a rank and step, each rank's peak memory and ms
-    a step beside its gradient all-reduce's ms; (d) dense_finetune, 2 steps, the 100-option slate split 50 /
-    50: as (c). (e) one rank under NCCL (the backend's default on a card):
-    one train step and a data-sharded val_lm, each bit-equal to the same
-    command without the flags. ``config`` / ``max_seq_len`` /
-    ``rank_device`` / ``one_backend`` rehearse it on the CPU at TINY size
-    (with ``torch.cuda``'s calls and ``expect`` stubbed in every
-    process)."""
+def world_tree(name, dev, config=None, max_seq_len=256):
+    """Phases 13 and 14's setting under build/unimm_torch/<name>/: the
+    fixture tree of DIST_DIALOGS at the config's widths (its features in a
+    native-read LMDB), a second tree of DIST_DENSE dense dialogs, the
+    config (the default file unless ``config``) and its zero-dropout copy,
+    a seeded start .ckpt, the CLIs' common argv (-batch_size 240
+    -sequences_per_image 20) and val_lm's data-sharded argv, and the
+    launch counts of a training run of n steps (``train_want``) and of
+    val_lm over loader batches of given dialog counts (``gen_want``)."""
     import shutil
     from pathlib import Path
 
@@ -3133,7 +3233,7 @@ def phase_dist(dev, card, runs, config=None, max_seq_len=256,
     from unimm_torch.tools import fixture_tree
 
     here = Path(__file__).resolve().parent
-    root = here / "build" / "unimm_torch" / "phase13"
+    root = here / "build" / "unimm_torch" / name
     shutil.rmtree(root, ignore_errors=True)
     out = root / "out"
     out.mkdir(parents=True)
@@ -3174,9 +3274,6 @@ def phase_dist(dev, card, runs, config=None, max_seq_len=256,
         "-save_path", str(root / "ckpt")]
     lm = base + ["-model_config", str(config), "-val_dis", "0",
                  "-start_path", start, "-eval_data_sharded", "1"]
-    fit = base + ["-model_config", str(nodrop), "-num_epochs", "1",
-                  "-save_every_epochs", "2", "-eval_every_epochs", "2",
-                  "-fused_adamw", "1", "-start_path", start]
     b5 = {"attention_block_train_fwd": n_t, "attention_block_train_bwd": n_t}
 
     def train_want(steps):
@@ -3192,10 +3289,49 @@ def phase_dist(dev, card, runs, config=None, max_seq_len=256,
         return {"answer_block": n_t * g, "ffn_block": (n_t + n_c) * g,
                 "xent_head": g}
 
+    return SimpleNamespace(root=root, out=out, config=config, nodrop=nodrop,
+                           n_params=n_params, start=start, base=base, lm=lm,
+                           setup_s=setup_s, train_want=train_want,
+                           gen_want=gen_want)
+
+
+def phase_dist(dev, card, runs, config=None, max_seq_len=256,
+               rank_device="cuda:0", one_backend="nccl"):
+    """The data-parallel world on the card at full width, through the
+    entry points a user runs in each rank (``main(argv)`` with
+    ``-coordinator_address -num_processes -process_id``): two rank
+    processes on the one card (``device="cuda:0"`` on both; backend gloo,
+    passed explicitly: NCCL takes one rank a device), against one-process
+    runs of the same commands in this process. (a) val_lm
+    -eval_data_sharded 1 over 9 val dialogs (rank 1's last batch is tail
+    padding): every record once in the merged file, each dialog's scores
+    and the metrics against the one-process run (top-1 agreement >=
+    MIN_TOP1_AGREEMENT); (b) val_lm serving (each rank scores half of
+    every prefix group): the same checks, K1 / K2 / K3 launches a rank;
+    (c) train, 2 ranks x 120 sequences against 1 rank x 240 (the same
+    global batches: every sequence of 12 images a step), dropout 0, 2
+    steps from one start .ckpt, -fused_adamw 1: the ranks' weights
+    bit-equal, every loss part within LOSS_RTOL of the one-rank run's,
+    12 + 12 B5 and 534 B7 a rank and step, each rank's peak memory and ms
+    a step beside its gradient all-reduce's ms; (d) dense_finetune, 2
+    steps, the 100-option slate split 50 / 50: as (c). (e) one rank under NCCL (the backend's default on a card):
+    one train step and a data-sharded val_lm, each bit-equal to the same
+    command without the flags. ``config`` / ``max_seq_len`` /
+    ``rank_device`` / ``one_backend`` rehearse it on the CPU at TINY size
+    (with ``torch.cuda``'s calls and ``expect`` stubbed in every
+    process)."""
+    import shutil
+
+    t = world_tree("phase13", dev, config, max_seq_len)
+    root, out, config, n_params = t.root, t.out, t.config, t.n_params
+    start, lm, train_want, gen_want = t.start, t.lm, t.train_want, t.gen_want
+    fit = t.base + ["-model_config", str(t.nodrop), "-num_epochs", "1",
+                    "-save_every_epochs", "2", "-eval_every_epochs", "2",
+                    "-fused_adamw", "1", "-start_path", start]
     n_val = DIST_DIALOGS["n_val"]
     serve_batches = [min(2, n_val - i) for i in range(0, n_val, 2)]
     shard_batches = [1] * len(serve_batches)       # one dialog a rank each
-    res = {"setup_s": setup_s, "card": card}
+    res = {"setup_s": t.setup_s, "card": card}
     with contextlib.chdir(root):
         # the one-process runs
         ref = {}
@@ -3210,7 +3346,7 @@ def phase_dist(dev, card, runs, config=None, max_seq_len=256,
             expect(f"world one-process {name}", r["launches"], want)
             runs[f"dist_ref_{name}"] = r["launches"]
             ref[name] = (r, scores)
-            print(json.dumps({"world_ref": name, **r, "card": card}),
+            print(json.dumps(shown({"world_ref": name, **r, "card": card})),
                   flush=True)
         torch.cuda.empty_cache()
         # (a)-(d): two ranks on the one card under gloo
@@ -3294,7 +3430,7 @@ def phase_dist(dev, card, runs, config=None, max_seq_len=256,
                     raise SystemExit(f"world ({name}): losses {r0['parts']}"
                                      f" vs one rank's {want['parts']}")
             res[name] = row
-            print(json.dumps({"world": name, **row, "card": card}),
+            print(json.dumps(shown({"world": name, **row, "card": card})),
                   flush=True)
         # (e): one rank under nccl, each run bit-equal to it without a world
         one = ["-num_train_samples", "12"]
@@ -3329,7 +3465,7 @@ def phase_dist(dev, card, runs, config=None, max_seq_len=256,
             "lm_file": (root / "e1_predictions.txt").read_bytes()
             == (root / "e3_predictions.txt").read_bytes()}
         res["e"] = {"bit_equal": same, "ranks": [t1_, l1_]}
-        print(json.dumps({"world": "e", **res["e"], "card": card}),
+        print(json.dumps(shown({"world": "e", **res["e"], "card": card})),
               flush=True)
         if not all(same.values()):
             raise SystemExit(f"world (e): not bit-equal to no world: {same}")
@@ -3340,11 +3476,213 @@ def phase_dist(dev, card, runs, config=None, max_seq_len=256,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the mp axis (ranks on the one card, the model sharded over them)
+# ---------------------------------------------------------------------------
+
+def phase_mp(dev, card, runs, config=None, max_seq_len=256,
+             rank_device="cuda:0"):
+    """The -mesh_mp axis on the card at full width, through the entry
+    points a user runs in each rank (``main(argv)`` with the world flags
+    and ``-mesh_mp``), the ranks on the one card under gloo (NCCL takes
+    one rank a device), on phase 13's fixture tree and a seeded start
+    .ckpt, against runs of the same commands in this process: (a) train,
+    2 ranks (dp 1 x mp 2), 2 steps of 12 images x 20 sequences at the
+    default dropouts, -fused_adamw 1, a save at the end: the gathered
+    weights and both moments bit-equal to one process's, each replicated
+    tensor bit-equal across the ranks; (b) val_lm serving, 2 ranks (dp 1
+    x mp 2), over the 9 val dialogs: the predictions file byte-equal to
+    one process's; (c) dense_finetune, 2 ranks (dp 1 x mp 2), 2 slates:
+    the weights bit-equal to one process's; (d) train, 4 ranks (dp 2 x mp
+    2), 2 steps: the weights bit-equal to a (dp 2 x mp 1) world's, run by
+    the two processes of (a)-(c) regridded by the flags; (e) (a)'s native
+    save resumed in one process (mp 1) for one step, weights and moments
+    bit-equal to the one-process run resumed from its own save (on a
+    mismatch: the tensors named, the two saves compared, and the
+    one-process resume run again as the control).
+    Each rank prints the bytes of the fp32 state it holds against one
+    process's, its peak memory (since sharding), its ms a step, its mp
+    gathers' and dp gradient all-reduce's MiB and ms (the card synchronized
+    around each) and its launches, which must be one process's: 12 + 12
+    B5 a step and 534 B7 an update (on the slices), 12 K1 / 18 K2 / 1 K3 a
+    prefix group. ``config`` / ``max_seq_len`` / ``rank_device`` rehearse
+    it on the CPU at TINY size (with ``torch.cuda``'s calls and ``expect``
+    stubbed in every process)."""
+    import shutil
+
+    t = world_tree("phase14", dev, config, max_seq_len)
+    root, out, n_val = t.root, t.out, DIST_DIALOGS["n_val"]
+    serve = t.gen_want([min(2, n_val - i) for i in range(0, n_val, 2)])
+    fit = t.base + ["-model_config", str(t.config), "-num_epochs", "1",
+                    "-eval_every_epochs", "2", "-fused_adamw", "1"]
+    start = ["-start_path", t.start]
+    save = ["-save_every_epochs", "1"]
+    nosave = ["-save_every_epochs", "2"]
+    lm = t.lm[:-2]                               # serving
+    mp2 = ["-mesh_mp", "2"]
+    res = {"setup_s": t.setup_s, "card": card}
+    with contextlib.chdir(root):
+        t0 = time.perf_counter()
+        ref = {}
+        for name, entry, argv, want in (
+                ("a", "train", fit + start + save, t.train_want(2)),
+                ("b", "val_lm", lm, serve),
+                ("c", "dense_finetune", fit + start + nosave,
+                 t.train_want(DIST_DENSE))):
+            r, _ = dist_run(entry, argv + ["-save_name", f"ref_{name}"], dev,
+                            moments=name == "a")
+            expect(f"mp one-process {name}", r["launches"], want)
+            runs[f"mp_ref_{name}"] = r["launches"]
+            ref[name] = r
+            print(json.dumps(shown({"mp_ref": name, **r, "card": card})),
+                  flush=True)
+        res["one_process_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        # two processes as dp 1 x mp 2 for (a)-(c), then, rearranged by
+        # the flags (no -mesh_mp), as dp 2 x mp 1 for (d)'s reference
+        worlds = (
+            ("dp1mp2", 2, [
+                {"name": "a", "entry": "train", "moments": True,
+                 "argv": fit + start + save + mp2 + ["-save_name", "a"]},
+                {"name": "b", "entry": "val_lm",
+                 "argv": lm + mp2 + ["-save_name", "b"]},
+                {"name": "c", "entry": "dense_finetune",
+                 "argv": fit + start + nosave + mp2 + ["-save_name", "c"]},
+                {"name": "d_ref", "entry": "train",
+                 "argv": fit + start + nosave + ["-save_name", "d_ref"]}]),
+            ("dp2mp2", 4, [
+                {"name": "d", "entry": "train",
+                 "argv": fit + start + nosave + mp2 + ["-save_name", "d"]}]))
+        recs = {}
+        for wname, n, plan in worlds:
+            got, secs = spawn_world({"device": rank_device, "name": wname,
+                                     "backend": "gloo", "runs": plan}, out, n)
+            recs.update(got)
+            res[f"{wname}_s"] = secs
+        wants = {"a": t.train_want(2), "b": serve,
+                 "c": t.train_want(DIST_DENSE), "d": t.train_want(2),
+                 "d_ref": t.train_want(2)}
+        for (name, rank), r in sorted(recs.items()):
+            expect(f"mp ({name}) rank {rank}", r["launches"], wants[name])
+            runs[f"mp_{name}_rank{rank}"] = r["launches"]
+        failed = []
+
+        def same(what, got, want):
+            if got != want:
+                failed.append(what)
+            return got == want
+
+        for name in "abcd":
+            ranks = sorted(k[1] for k in recs if k[0] == name)
+            rows = [recs[(name, k)] for k in ranks]
+            row = {"ranks": rows,
+                   "launches": [{k: v for k, v in r["launches"].items()
+                                 if v} for r in rows],
+                   "gather": [collective_ms(r, "gather_whole")
+                              for r in rows]}
+            if name == "b":
+                row["file_byte_equal"] = same(
+                    "(b) predictions file",
+                    (root / "b_predictions.txt").read_bytes(),
+                    (root / "ref_b_predictions.txt").read_bytes())
+            else:
+                want = (ref[name] if name != "d"
+                        else recs[("d_ref", 0)])
+                keys = ["weights_sha256"] + (["moments_sha256"]
+                                             if name == "a" else [])
+                row["bit_equal"] = {k: same(f"({name}) {k}", [
+                    r[k] for r in rows], [want[k]] * len(rows)) for k in keys}
+                if not all(row["bit_equal"].values()):
+                    row["differ"] = [differ(r, want) for r in rows]
+                groups = [rows[i:i + 2] for i in range(0, len(rows), 2)]
+                row["replicated_bit_equal"] = same(
+                    f"({name}) replicated tensors across an mp group",
+                    [g[0]["replicated_sha256"] for g in groups],
+                    [g[1]["replicated_sha256"] for g in groups])
+                row.update(
+                    state_gib=[r["state_gib"] for r in rows],
+                    ref_state_gib=want["state_gib"],
+                    peak_after_shard_gib=[r["peak_after_shard_gib"]
+                                          for r in rows],
+                    ref_peak_gib=want["peak_after_shard_gib"],
+                    step_ms=[r["ms_per_step_after_first"] for r in rows],
+                    ref_step_ms=want["ms_per_step_after_first"],
+                    grad_allreduce=[collective_ms(r, "allreduce_sum_")
+                                    for r in rows],
+                    replicated_broadcast=[collective_ms(r, "broadcast_")
+                                          for r in rows])
+            res[name] = row
+            print(json.dumps({"mp": name, **{k: v for k, v in row.items()
+                                              if k != "ranks"},
+                              "card": card}), flush=True)
+        # (e): (a)'s mp-2 save and the one-process save, each resumed in
+        # one process for one step; where they differ, which tensors, and
+        # the one-process resume run again as the control (a kernel whose
+        # sums change from run to run differs there too)
+        t0 = time.perf_counter()
+        one = ["-num_train_samples", "12"]
+        e = {}
+
+        def resume(name, src):
+            native = str(root / "ckpt" / src / "native")
+            r, _ = dist_run("train", fit + one + nosave + [
+                "-continue", "-start_path", native, "-save_name", name], dev,
+                moments=True)
+            expect(f"mp ({name})", r["launches"], t.train_want(1))
+            runs[f"mp_{name}"] = r["launches"]
+            e[name] = r
+
+        resume("e", "a")
+        resume("e_ref", "ref_a")
+        res["e"] = {k: same(f"(e) {k}", e["e"][k], e["e_ref"][k])
+                    for k in ("weights_sha256", "moments_sha256", "step")}
+        res["e_differ"] = differ(e["e"], e["e_ref"])
+        if res["e_differ"]:
+            res["e_saves_differ"] = saves_differ(root / "ckpt" / "a",
+                                                 root / "ckpt" / "ref_a")
+            resume("e_control", "ref_a")
+            res["e_control_differ"] = differ(e["e_control"], e["e_ref"])
+        res["resume_s"] = time.perf_counter() - t0
+        print(json.dumps({"mp": "e", "bit_equal": res["e"], **{
+            k: res[k] for k in ("e_saves_differ", "e_differ",
+                                "e_control_differ") if k in res},
+            "card": card}), flush=True)
+        if failed:
+            raise SystemExit(f"mp: not bit-equal: {failed}")
+    print(json.dumps({"mp_phase": {k: res[k] for k in (
+        "setup_s", "one_process_s", "dp1mp2_s", "dp2mp2_s", "resume_s")},
+        "card": card}), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def saves_differ(a, b):
+    """The tensors (``<name>``, ``mu/<name>``, ``nu/<name>``) that differ
+    between the native saves of step 2 under two save directories."""
+    x, y = (torch.load(d / "native" / "step_2" / "state.pt",
+                       map_location="cpu", weights_only=False)
+            for d in (a, b))
+    return sorted(n for n, v in y["params"].items()
+                  if not torch.equal(v, x["params"][n])) + sorted(
+        f"{key}/{n}" for key in ("mu", "nu") for n, u, v in zip(
+            y["opt"]["names"], x["opt"][key], y["opt"][key])
+        if not torch.equal(u, v))
+
+
+def collective_ms(r, op):
+    """(MiB, [ms]) of a run's largest calls of collective ``op`` (for
+    ``allreduce_sum_`` the gradient's, one an update; the loss counts'
+    are a few bytes): ``(0, [])`` if it made none."""
+    calls = [c for c in r["collectives"] if c["op"] == op]
+    if not calls:
+        return 0, []
+    big = max(c["mib"] for c in calls)
+    return big, [c["ms"] for c in calls if c["mib"] == big]
+
+
 def grad_reduce_ms(r):
-    """The ms of a training run's gradient all-reduces: its largest
-    ``allreduce_sum_`` calls, one an update."""
-    big = max(a["mib"] for a in r["allreduce"])
-    return [a["ms"] for a in r["allreduce"] if a["mib"] == big]
+    """The ms of a training run's gradient all-reduces, one an update."""
+    return collective_ms(r, "allreduce_sum_")[1]
 
 
 def top1_by_record(path):
@@ -3391,6 +3729,18 @@ def main_world(dev, card):
     return 0
 
 
+def main_mp(dev, card):
+    """``--mp``: the build and phase 14 alone."""
+    from unimm_torch.ops import _build
+
+    with phase("2 build"):
+        _build.library()
+    with phase("14 mp axis"):
+        phase_mp(dev, card, {})
+    print(card, flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3408,6 +3758,8 @@ def main():
         return main_world_rank(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:2] == ["--world"]:
         return main_world(dev, card)
+    if sys.argv[1:2] == ["--mp"]:
+        return main_mp(dev, card)
 
     from unimm_torch.config import VilbertConfig
     from unimm_torch.eval.evaluator import (RankingEvaluator, _merge_batches,
@@ -3605,6 +3957,9 @@ def main():
 
     with phase("13 data-parallel world"):
         phase_dist(dev, card, runs)
+
+    with phase("14 mp axis"):
+        phase_mp(dev, card, runs)
 
     kernels = []
     for name, source, replaces in KERNELS:

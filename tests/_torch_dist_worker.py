@@ -1,20 +1,23 @@
-"""The rank processes of the port's data-parallel tests
-(``tests/test_torch_dist_*.py``).
+"""The rank processes of the port's tests across processes
+(``tests/test_torch_dist_*.py``, ``tests/test_torch_mp_*.py``).
 
 As a script, ``python tests/_torch_dist_worker.py JOB RANK WORLD PORT
-SPEC.json`` runs one rank of ``JOB`` on the CPU at two intra-op threads: it
-joins a gloo world at ``127.0.0.1:PORT`` through the CLI flags
-(``-coordinator_address -num_processes -process_id``), as a user launches
-a rank, and writes what it measured to ``<spec["out"]>/<JOB>_<RANK>.npz``
-and ``.json``. It imports no JAX: the tests hold the results against the
-JAX package's single-process runs on the same global batches.
+SPEC.json`` runs one rank of ``JOB`` on the CPU at ``THREADS`` intra-op
+threads: it joins a gloo world at ``127.0.0.1:PORT`` through the CLI
+flags (``-coordinator_address -num_processes -process_id``), as a user
+launches a rank, and writes what it measured to
+``<spec["out"]>/<JOB>_<RANK>.npz`` and ``.json``. It imports no JAX: the
+tests hold the results against the JAX package's single-process runs on
+the same global batches.
 
-As a module, ``launch(job, spec)`` starts the ranks and returns a
-``collect()`` that waits for them (a test computes its JAX oracle
-meanwhile), each ``communicate()`` with its own timeout; on expiry every
-rank is killed and the test fails, so a hang never eats the suite's time.
+As a module, ``launch(job, spec)`` starts the ranks (each writing its
+output to ``<spec["out"]>/<JOB>_<RANK>.log``) and returns a ``collect()``
+that waits for them (a test computes its JAX oracle meanwhile), each wait
+with its own timeout; on expiry every rank is killed and the test fails,
+so a hang never eats the suite's time.
 """
 
+import contextlib
 import json
 import os
 import socket
@@ -25,6 +28,10 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 120
+# a rank's intra-op threads; a one-process run held bit for bit against
+# the ranks uses as many (``rank_threads``): the CPU kernels' reduction
+# order follows the thread count
+THREADS = 2
 
 
 def _free_port():
@@ -35,10 +42,11 @@ def _free_port():
     return port
 
 
-def launch(job, spec, world=2):
-    """Start ``job``'s ranks; returns ``collect()``, which waits for them
-    and returns [(npz dict, json dict)] in rank order, failing with the
-    ranks' output if one exits nonzero or any outlives TIMEOUT_S."""
+def launch(job, spec, world=2, timeout=TIMEOUT_S):
+    """Start ``job``'s ``world`` ranks (2 or 4); returns ``collect()``,
+    which waits for them and returns [(npz dict, json dict)] in rank
+    order, failing with the ranks' output if one exits nonzero or any
+    outlives ``timeout`` seconds."""
     os.makedirs(spec["out"], exist_ok=True)
     path = os.path.join(spec["out"], f"{job}_spec.json")
     with open(path, "w") as f:
@@ -46,24 +54,33 @@ def launch(job, spec, world=2):
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), job, str(r), str(world),
-         str(port), path], cwd=REPO, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    return lambda: _collect(job, spec, procs)
+    # each rank's output goes to a file: a pipe would block a rank whose
+    # output outgrew it while another rank's was read, and its peers with
+    # it in their next collective
+    logs = [os.path.join(spec["out"], f"{job}_{r}.log") for r in range(world)]
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), job, str(r),
+                 str(world), str(port), path], cwd=REPO, env=env, stdout=f,
+                stderr=subprocess.STDOUT))
+    return lambda: _collect(job, spec, procs, logs, timeout)
 
 
-def _collect(job, spec, procs):
-    outs = []
+def _collect(job, spec, procs, logs, timeout):
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=TIMEOUT_S)[0])
+            p.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
-        for p in procs:
-            p.communicate()
-        raise AssertionError(f"{job}: a rank outlived {TIMEOUT_S} s")
+            p.wait()
+        raise AssertionError(f"{job}: a rank outlived {timeout} s")
+    outs = []
+    for log in logs:
+        with open(log) as f:
+            outs.append(f.read())
     failed = [f"{job} rank {r} (exit {p.returncode}):\n{out[-4000:]}"
               for r, (p, out) in enumerate(zip(procs, outs)) if p.returncode]
     assert not failed, "\n".join(failed)
@@ -75,6 +92,18 @@ def _collect(job, spec, procs):
         with open(base + ".json") as f:
             res.append((arrays, json.load(f)))
     return res
+
+
+@contextlib.contextmanager
+def rank_threads():
+    """Run the block at a rank's intra-op thread count."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def world_flags(rank, world, port):
@@ -325,13 +354,172 @@ def job_persist(spec, flags, arrays, info):
     del first
 
 
-JOBS = {"eval": job_eval, "train": job_train, "persist": job_persist}
+def _rank_of(flags):
+    return int(flags[flags.index("-process_id") + 1])
+
+
+def _global_flat(data, dps):
+    """The rows of dp indices ``dps`` (each two flats, as ``job_train``'s)
+    joined, one image row a flat (``img_index``)."""
+    flats = [{k[len(f"r{d}f{j}_"):]: v for k, v in data.items()
+              if k.startswith(f"r{d}f{j}_")} for d in dps for j in range(2)]
+    joined = {k: np.concatenate([f[k] for f in flats]) for k in flats[0]}
+    n = flats[0]["tokens"].shape[0]
+    out = dict(joined, img_index=np.repeat(np.arange(len(flats)), n))
+    for k in ("image_feat", "image_loc", "image_mask", "image_target",
+              "image_label"):
+        out[k] = joined[k][::n]
+    return out
+
+
+def mp_steps(spec, cfg_path, batch, steps, dev):
+    """``steps`` training steps (fp32, plain AdamW at lr 1e-3) of the
+    spec's weights, sharded over the current grid's mp group, on the
+    host ``batch``. Returns (model, optimizer, the gradients each update
+    applied: this rank's tensors, summed over the dp group)."""
+    import torch
+
+    from unimm_torch.parallel import mesh
+    from unimm_torch.train import optim, step as tstep
+
+    cfg, model = _model(spec, cfg_path, dev)
+    mesh.shard_model(model)
+    opt = optim.make_optimizer(model, optim.OptimConfig(
+        lr=1e-3, image_lr=1e-3, warmup_steps=1, t_total=100))
+    applied = _applied(opt)
+    state = tstep.init_state(model, opt, seed=0)
+    step = tstep.make_train_step(cfg, dtype=torch.float32)
+    tens = {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()}
+    nw = torch.tensor(spec["nsp_weight"])
+    with torch.enable_grad():
+        for _ in range(steps):
+            state, _ = step(state, tens, nw)
+    return model, opt, applied
+
+
+def _whole_np(model, items, prefix, arrays):
+    """Each (name, this rank's tensor) gathered whole over the mp group,
+    into ``arrays`` as ``<prefix>/<name>``."""
+    from unimm_torch.parallel import mesh
+    for n, t in mesh.whole(model, items, lambda t: t.detach().clone()):
+        arrays[f"{prefix}/{n}"] = t.numpy()
+
+
+def _replicated_sha(model):
+    """SHA-256 over the bytes of the parameters this rank holds whole."""
+    import hashlib
+
+    from unimm_torch.parallel import mesh
+    lay = mesh.layout(model)
+    h = hashlib.sha256()
+    for n, p in model.named_parameters():
+        if lay is None or n not in lay.dims:
+            h.update(p.detach().numpy().tobytes())
+    return h.hexdigest()
+
+
+def job_mp(spec, flags, arrays, info):
+    """The mp axis: in a world of 4 at -mesh_mp 2 (dp 2 x mp 2) one step
+    on each dp index's rows (its gradients gathered whole), the same step
+    with the losses and gradients summed over the world instead of the dp
+    group (the wrong port), 2 steps at dropout 0.1, and the train CLI;
+    then ranks 0-1 and 2-3 form two worlds of 2: (dp 2, mp 1) takes the
+    same 2 steps, (dp 1, mp 2) takes them on the whole batch (and again
+    with dropout seeded by the world rank: the wrong port), and runs
+    val_lm, val and evaluate serving, dense_finetune and train (a save,
+    and a resume from the one-process run's save) at -mesh_mp 2."""
+    from unimm_torch.cli import common, dense_finetune, evaluate, options
+    from unimm_torch.cli import train, val, val_lm
+    from unimm_torch.parallel import dist
+    from unimm_torch.train import step as tstep
+
+    r = _rank_of(flags)
+    params = options.read_command_line(flags + ["-mesh_mp", "2",
+                                                "-save_name", "mp"])
+    dev = common.setup_torch(params, "cpu")
+    with np.load(spec["batches"]) as z:
+        data = dict(z)
+    mine = _global_flat(data, [dist.dp_rank()])
+    info["grid"] = [dist.dp_rank(), dist.dp_size(), dist.mp_rank(),
+                    dist.mp_size()]
+
+    # (1) the step on the dp index's rows; the layout's bytes
+    model, opt, applied = mp_steps(spec, spec["cfg"], mine, 1, dev)
+    _whole_np(model, zip(opt.names, applied[0]), "mp_grad", arrays)
+    info["param_bytes"] = sum(p.numel() * p.element_size()
+                              for p in model.parameters())
+    info["storage_bytes"] = sum(p.untyped_storage().nbytes()
+                                for p in model.parameters())
+    info["moments_like_params"] = all(
+        m.shape == p.shape for m, p in zip(opt.mu + opt.nu,
+                                           opt.params + opt.params))
+    # (2) the wrong port: every collective of the step over the world
+    dp_axis = dist.DP
+    dist.DP = dist.WORLD
+    try:
+        model, opt, applied = mp_steps(spec, spec["cfg"], mine, 1, dev)
+    finally:
+        dist.DP = dp_axis
+    _whole_np(model, zip(opt.names, applied[0]), "world_sum_grad", arrays)
+    # (3) dropout 0.1, 2 steps
+    model, _, _ = mp_steps(spec, spec["drop_cfg"], mine, 2, dev)
+    _whole_np(model, model.named_parameters(), "dp2mp2", arrays)
+    info["replicated_sha"] = _replicated_sha(model)
+    # (4) the train CLI at -mesh_mp 2 in the world of 4
+    os.chdir(spec["root"])
+    train.main(spec["argv"] + flags + ["-n_gpus", "4", "-mesh_mp", "2"]
+               + spec["train"] + ["-save_name", "mp_dp2mp2"], device="cpu")
+
+    # two worlds of 2: ranks 0-1 at mp 1, ranks 2-3 at mp 2
+    dist.close_world()
+    mp = 1 if r < 2 else 2
+    sub = world_flags(r % 2, 2, spec["ports"][r // 2]) + [
+        "-n_gpus", "2", "-mesh_mp", str(mp)]
+    common.setup_torch(options.read_command_line(sub + ["-save_name", "x"]),
+                       "cpu")
+    info["sub_grid"] = [dist.dp_rank(), dist.dp_size(), dist.mp_rank(),
+                        dist.mp_size()]
+    if mp == 1:
+        model, _, _ = mp_steps(spec, spec["drop_cfg"],
+                               _global_flat(data, [dist.dp_rank()]), 2, dev)
+        _whole_np(model, model.named_parameters(), "dp2mp1", arrays)
+        return
+    both = _global_flat(data, [0, 1])
+    model, _, _ = mp_steps(spec, spec["drop_cfg"], both, 2, dev)
+    _whole_np(model, model.named_parameters(), "dp1mp2", arrays)
+    info["sub_replicated_sha"] = _replicated_sha(model)
+    world_rank = tstep.world_rank
+    tstep.world_rank = dist.rank          # the wrong port
+    try:
+        model, _, _ = mp_steps(spec, spec["drop_cfg"], both, 2, dev)
+    finally:
+        tstep.world_rank = world_rank
+    _whole_np(model, model.named_parameters(), "rank_seed", arrays)
+
+    base = spec["argv"] + sub
+    val_lm.main(base + spec["val_lm"] + ["-save_name", "mp_lm"],
+                device="cpu")
+    val.main(base + spec["ensemble"] + ["-save_name", "mp_val"],
+             device="cpu")
+    evaluate.main(base + spec["ensemble"] + ["-save_name", "mp_ev"],
+                  device="cpu")
+    dense_finetune.main(base + spec["dense"] + ["-save_name", "mp_dense"],
+                        device="cpu")
+    train.main(base + spec["train"] + ["-save_name", "mp_save"],
+               device="cpu")
+    train.main(base + spec["train"] + spec["resume_one"]
+               + ["-save_name", "mp_from_one"], device="cpu")
+
+
+JOBS = {"eval": job_eval, "train": job_train, "persist": job_persist,
+        "mp": job_mp}
 
 
 def main(argv):
     job, rank, world, port, spec_path = argv
     import torch
-    torch.set_num_threads(2)
+    torch.set_num_threads(THREADS)
     with open(spec_path) as f:
         spec = json.load(f)
     arrays, info = {}, {}

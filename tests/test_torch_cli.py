@@ -180,15 +180,17 @@ def test_options_parse_to_jax_s_dict(extra):
     assert got == want
 
 
-# what each multi-device flag does alone: tensor parallelism is not ported
-# and names its ROADMAP item; -n_gpus 2 and a coordinator without a world
-# size name the flags that launch a world of one process per card;
-# -eval_data_sharded without a world changes nothing (the JAX package's
-# rule: it shards only across processes)
+# what each multi-device flag does alone: -n_gpus 2 and -mesh_mp 2 (an mp
+# axis is mp processes) and a coordinator without a world size name the
+# flags that launch a world of one process per card; -eval_data_sharded
+# without a world changes nothing (the JAX package's rule: it shards only
+# across processes)
 FLAG_REFUSALS = {
     "-n_gpus": (ValueError, "-coordinator_address host:port "
                             "-num_processes N -process_id r"),
-    "-mesh_mp": (NotImplementedError, "queue A item 9"),
+    "-mesh_mp": (ValueError, "-mesh_mp 2 without a world.*"
+                             "-coordinator_address host:port "
+                             "-num_processes N -process_id r"),
     "-eval_data_sharded": None,
     "-coordinator_address": (ValueError, "-num_processes >= 1"),
 }

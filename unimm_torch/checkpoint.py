@@ -34,11 +34,16 @@ The port's ``VilbertModel`` carries the reference ``state_dict`` names, so:
   ``step_<n>`` behind. The JAX package writes Orbax directories there;
   the two formats do not read each other;
 * ``latest_reference_ckpt`` finds a run's newest reference ``.ckpt``;
-* in a data-parallel world (``parallel/dist.py``; every rank holds the
-  same state) only rank 0 writes a checkpoint and every rank then passes
-  a barrier, so none reads before the file is complete; ``latest_native``
-  and ``latest_reference_ckpt`` raise unless every rank finds the same
-  step;
+* in a world of several processes (``parallel/dist.py``; the ranks of a
+  dp group hold the same state) only rank 0 writes a checkpoint and every
+  rank then passes a barrier, so none reads before the file is complete;
+  ``latest_native`` and ``latest_reference_ckpt`` raise unless every rank
+  finds the same step. A checkpoint holds whole tensors: on a model
+  sharded over an mp group (``parallel/mesh.py``) the parameters and both
+  moments are gathered over rank 0's mp group before the write
+  (``mesh.whole``), and a restore slices each whole tensor to this rank's
+  block (``mesh.local``), so a run saved at one mp size resumes at
+  another;
 * ``language_param_set`` / ``group_label`` give each parameter its
   optimizer group (train/optim.py), as the reference train.py groups them.
 """
@@ -53,7 +58,7 @@ from typing import Any, Dict, List, Tuple, Union
 import numpy as np
 import torch
 
-from unimm_torch.parallel import dist
+from unimm_torch.parallel import dist, mesh
 
 # Embedding tables whose reference '.weight' is not transposed.
 _EMBEDDING_LEAVES = {
@@ -155,11 +160,12 @@ def load_reference_state_dict_lenient(model: torch.nn.Module,
             continue
         value = (tensor if isinstance(tensor, torch.Tensor)
                  else torch.as_tensor(np.asarray(tensor))).float()
-        if tuple(value.shape) != tuple(params[key].shape):
+        want = mesh.whole_shape(model, key, params[key])
+        if tuple(value.shape) != want:
             raise ValueError(
                 f"shape mismatch for {key}: ckpt {tuple(value.shape)} vs "
-                f"model {tuple(params[key].shape)}")
-        updates.append((key, value))
+                f"model {want}")
+        updates.append((key, mesh.local(model, key, value)))
     for key, value in updates:        # the model changes only if all fit
         params[key].copy_(value)
     return model, len(updates), skipped
@@ -256,7 +262,8 @@ def load_reference_train_state(path: str, model: torch.nn.Module, opt,
     and the schedule count ``iter_id // batch_multiply`` (the reference
     ticks its scheduler every micro-batch; this optimizer counts updates).
     A moment in the file is [out, in] like the model's parameter, so
-    nothing is transposed. A file without optimizer state leaves ``opt``
+    nothing is transposed; a sharded model takes its slices of the
+    weights and moments. A file without optimizer state leaves ``opt``
     as it is. Returns (model, opt, iter_id, n_transferred)."""
     blob = torch.load(path, map_location="cpu", weights_only=False)
     if "model_state_dict" not in blob:
@@ -277,8 +284,11 @@ def load_reference_train_state(path: str, model: torch.nn.Module, opt,
         i = index.get(_normalize_key(names[int(idx)]))
         if i is None:
             continue
-        opt.mu[i].copy_(torch.as_tensor(pstate["exp_avg"]).float())
-        opt.nu[i].copy_(torch.as_tensor(pstate["exp_avg_sq"]).float())
+        name = opt.names[i]
+        opt.mu[i].copy_(mesh.local(model, name, torch.as_tensor(
+            pstate["exp_avg"]).float()))
+        opt.nu[i].copy_(mesh.local(model, name, torch.as_tensor(
+            pstate["exp_avg_sq"]).float()))
         step = max(step, int(np.asarray(pstate.get("step", 0))))
     opt.count = step
     opt.sched_count = iter_id // max(1, batch_multiply)
@@ -294,8 +304,19 @@ def extract_adam_moments(opt):
     return mu, nu, int(opt.count)
 
 
-def _fp32_cpu(t):
-    return t.detach().to(device="cpu", dtype=torch.float32, copy=True)
+def _whole_cpu(model, items, keep: bool):
+    """{name: whole CPU copy} of (name, this rank's tensor) items, dtypes
+    kept (``mesh.whole``: a collective over the mp group); {} where not
+    ``keep`` (a peer of the writer that only takes part in the gather)."""
+    got = mesh.whole(model, items, (lambda t: t.detach().to("cpu", copy=True))
+                     if keep else None)
+    return dict(got) if keep else {}
+
+
+def _writes() -> bool:
+    """Whether this rank takes part in writing a checkpoint: rank 0's mp
+    group (the dp index 0) gathers, rank 0 writes."""
+    return dist.dp_rank() == 0
 
 
 def save_reference_ckpt(path: str, model: torch.nn.Module, iter_id: int = 0,
@@ -307,27 +328,36 @@ def save_reference_ckpt(path: str, model: torch.nn.Module, iter_id: int = 0,
     tied decoder) and ``iter_id``; with ``opt`` also the torch AdamW
     ``optimizer_state_dict`` (one param group per parameter, each state
     holding the Adam count as ``step``) and a ``scheduler_state_dict``.
-    Rank 0 writes; every rank passes a barrier after it."""
-    if dist.rank() == 0:
-        torch.save(_reference_blob(model, iter_id, opt, lang_set, lr,
-                                   image_lr), path)
+    Whole tensors (gathered over rank 0's mp group); rank 0 writes; every
+    rank passes a barrier after it."""
+    if _writes():
+        blob = _reference_blob(model, iter_id, opt, lang_set, lr, image_lr,
+                               keep=dist.rank() == 0)
+        if dist.rank() == 0:
+            torch.save(blob, path)
     dist.barrier()
 
 
-def _reference_blob(model, iter_id, opt, lang_set, lr, image_lr) -> dict:
-    params = dict(model.named_parameters())
+def _reference_blob(model, iter_id, opt, lang_set, lr, image_lr,
+                    keep=True) -> dict:
+    params = _whole_cpu(model, model.named_parameters(), keep)
+    if opt is not None:
+        mu = _whole_cpu(model, zip(opt.names, opt.mu), keep)
+        nu = _whole_cpu(model, zip(opt.names, opt.nu), keep)
+    if not keep:
+        return {}
     order = _jax_order(params)
-    sd = OrderedDict((PREFIX + n, _fp32_cpu(params[n])) for n in order)
+    sd = OrderedDict((PREFIX + n, params[n].float()) for n in order)
     sd[PREFIX + TIED_DECODER] = sd[PREFIX + WORD_EMBEDDINGS].clone()
     blob = {"model_state_dict": sd, "iter_id": iter_id}
     if opt is not None:
-        mu, nu, count = extract_adam_moments(opt)
+        count = int(opt.count)
         lang_set = lang_set or set()
         state, groups = {}, []
         for i, name in enumerate(_index_names(list(sd))):
             key = _normalize_key(name)
-            state[i] = {"step": count, "exp_avg": mu[key],
-                        "exp_avg_sq": nu[key]}
+            state[i] = {"step": count, "exp_avg": mu[key].float(),
+                        "exp_avg_sq": nu[key].float()}
             base = lr if key in lang_set else image_lr
             nodecay = ("bias" in key) or ("LayerNorm.weight" in key)
             groups.append({"params": [i], "lr": base,
@@ -384,39 +414,39 @@ def _latest_reference_ckpt(directory: str):
 NATIVE_FILE = "state.pt"
 
 
-def _cpu(x):
-    if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True)
-    if isinstance(x, list):
-        return [_cpu(v) for v in x]
-    if isinstance(x, dict):
-        return {k: _cpu(v) for k, v in x.items()}
-    return x
-
-
 def save_native(directory: str, state: dict, step: int) -> str:
     """Write ``state`` (``train.step.init_state``'s dict: model, opt, step,
     seed) as ``<directory>/step_<step>/state.pt``, replacing an existing
     one. The file is written into a hidden temporary directory that is
     then renamed, so ``latest_native`` never sees a half-written step.
-    Rank 0 writes; every rank passes a barrier after it."""
+    Whole tensors (gathered over rank 0's mp group); rank 0 writes; every
+    rank passes a barrier after it."""
     directory = os.path.abspath(directory)
     final = os.path.join(directory, f"step_{step}")
-    if dist.rank() == 0:
-        _write_native(directory, final, state, step)
+    if _writes():
+        blob = _native_blob(state, keep=dist.rank() == 0)
+        if dist.rank() == 0:
+            _write_native(directory, final, blob, step)
     dist.barrier()
     return final
 
 
-def _write_native(directory: str, final: str, state: dict, step: int):
+def _native_blob(state: dict, keep: bool) -> dict:
+    model, sd = state["model"], state["opt"].state_dict()
+    params = _whole_cpu(model, model.named_parameters(), keep)
+    for key in ("mu", "nu", "acc"):
+        if sd[key] is not None:
+            got = _whole_cpu(model, zip(sd["names"], sd[key]), keep)
+            sd[key] = [got.get(n) for n in sd["names"]]
+    return {"params": params, "opt": sd, "step": int(state["step"]),
+            "seed": int(state["seed"])}
+
+
+def _write_native(directory: str, final: str, blob: dict, step: int):
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f".tmp_step_{step}_{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    blob = {"params": OrderedDict((n, _cpu(p)) for n, p in
-                                  state["model"].named_parameters()),
-            "opt": _cpu(state["opt"].state_dict()),
-            "step": int(state["step"]), "seed": int(state["seed"])}
     torch.save(blob, os.path.join(tmp, NATIVE_FILE))
     if os.path.exists(final):
         old = os.path.join(directory, f".old_step_{step}_{os.getpid()}")
@@ -430,16 +460,22 @@ def _write_native(directory: str, final: str, state: dict, step: int):
 @torch.no_grad()
 def restore_native(path: str, state: dict) -> dict:
     """Load ``<path>/state.pt`` into ``state``'s model and optimizer (in
-    place, on their device) and set its step and seed. Returns
-    ``state``."""
+    place, on their device; a sharded model takes its slices of the whole
+    tensors) and set its step and seed. Returns ``state``."""
     blob = torch.load(os.path.join(path, NATIVE_FILE), map_location="cpu",
                       weights_only=False)
-    params = dict(state["model"].named_parameters())
+    model = state["model"]
+    params = dict(model.named_parameters())
     if set(params) != set(blob["params"]):
         raise KeyError(f"{path}: the checkpoint holds other parameters")
     for name, value in blob["params"].items():
-        params[name].copy_(value)
-    state["opt"].load_state_dict(blob["opt"])
+        params[name].copy_(mesh.local(model, name, value))
+    sd = dict(blob["opt"])
+    for key in ("mu", "nu", "acc"):
+        if sd[key] is not None:
+            sd[key] = [mesh.local(model, n, t)
+                       for n, t in zip(sd["names"], sd[key])]
+    state["opt"].load_state_dict(sd)
     state["step"], state["seed"] = int(blob["step"]), int(blob["seed"])
     return state
 

@@ -3,15 +3,17 @@
 The port's counterpart of the JAX package's ``cli/common.py``. Its
 ``setup_jax`` (compile cache, ``jax.distributed``) has no counterpart:
 ``setup_torch`` resolves the device (a CUDA device without a card raises),
-joins the data-parallel world of ``-coordinator_address`` (one process
-per card, ``parallel/dist.py``), turns TF32 off (fp32 parity, ROADMAP.md
-invariants) and seeds. An eval entry point's loader is this rank's
-disjoint shard of the split under ``-eval_data_sharded`` in a world
-(``eval_sharded``; the metrics are merged by the evaluator's
-``process_merge``), the whole split otherwise (in a world the ranks then
-split the rows of every scoring dispatch). ``StepProfiler`` traces a window
-of training steps with ``torch.profiler`` where the JAX package uses
-``jax.profiler``.
+joins the world of ``-coordinator_address`` (one process per card,
+arranged as dp x ``-mesh_mp``, ``parallel/dist.py``), turns TF32 off (fp32
+parity, ROADMAP.md invariants) and seeds. An eval entry point's loader is
+this rank's disjoint shard of the split under ``-eval_data_sharded`` in a
+world (``eval_sharded``; the metrics are merged by the evaluator's
+``process_merge``; every rank holds its model whole and ``-mesh_mp`` has
+no effect, as the JAX package's ``local_mesh`` has mp 1), the whole split
+otherwise (serving: the dp groups split the rows of every scoring
+dispatch and each model is sharded over the mp group, ``serving_model``).
+``StepProfiler`` traces a window of training steps with ``torch.profiler``
+where the JAX package uses ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from unimm_torch.data import features
 from unimm_torch.data.loader import DataLoader
 from unimm_torch.data.tokenizer import WordPieceTokenizer
 from unimm_torch.models import vilbert
-from unimm_torch.parallel import dist
+from unimm_torch.parallel import dist, mesh
 
 
 def setup_torch(params: dict, device=None, backend=None) -> torch.device:
@@ -57,6 +59,12 @@ def eval_sharded(params: dict) -> bool:
     """Whether this rank scores a disjoint shard of the split
     (``-eval_data_sharded`` in a world of several processes)."""
     return dist.world_size() > 1 and bool(params["eval_data_sharded"])
+
+
+def serving_model(params: dict, model):
+    """An eval entry point's ``model`` as it serves: sharded over the mp
+    group (``mesh.shard_model``) unless ``eval_sharded``."""
+    return model if eval_sharded(params) else mesh.shard_model(model)
 
 
 def eval_loader(params: dict, dataset, batch_size: int) -> DataLoader:
@@ -148,14 +156,14 @@ def load_any_checkpoint(path: str, model):
 
 def load_ensemble(params: dict, cfg: VilbertConfig, device="cuda") -> List:
     """One model per ``-model_paths`` entry (else ``-start_path``), each a
-    seed-0 init with its checkpoint over it (the JAX package's template)."""
+    seed-0 init with its checkpoint over it (the JAX package's template),
+    as it serves (``serving_model``)."""
     paths = [p for p in params.get("model_paths", "").split(",") if p]
     if not paths and params.get("start_path"):
         paths = [params["start_path"]]
     assert paths, "provide -model_paths or -start_path"
-    return [load_any_checkpoint(p, vilbert.init_model(cfg, seed=0,
-                                                      device=device))
-            for p in paths]
+    return [serving_model(params, load_any_checkpoint(
+        p, vilbert.init_model(cfg, seed=0, device=device))) for p in paths]
 
 
 def print_metrics(metrics: dict):

@@ -13,16 +13,21 @@ the update on B7 under -fused_adamw 1, the val ranking on B4 and K2.
 
 Usage: python -m unimm_torch.cli.dense_finetune -batch_multiply 16 ... (on
 the card; ``main(argv, device="cpu")`` runs the plain versions on the
-CPU). Data parallel across processes, one per card (the flags of
-``cli/train.py``): every rank loads the same dialog and option order, the
-slate is padded from 100 rows to the next multiple of the world with
-neutralised copies of the GT row (lm_weight 0, labels -1), and each rank
-takes its contiguous block of it (the JAX package's dp-sharded slate, the
+CPU). Across processes, one per card (the flags of ``cli/train.py``,
+``-mesh_mp`` included: the parameters and moments sharded over each mp
+group): every rank loads the same dialog and option order, the slate is
+padded from 100 rows to the next multiple of the dp size with neutralised
+copies of the GT row (lm_weight 0, labels -1), and each dp index takes its
+contiguous block of it (the JAX package's dp-sharded slate, the
 reference's 100 -> 25/25/25/25 scatter). The NSP logits are gathered over
-the ranks with their gradient (``dist.gather_rows``) and cut to the 100
+the dp group with their gradient (``dist.gather_rows``) and cut to the 100
 real rows before the NSP and the listwise ranking losses, which every rank
 then computes on the whole slate; the LM loss is each rank's sum over the
-slate's label count. Rank 0 writes the checkpoints.
+slate's label count. Rank 0 writes the checkpoints. The JAX package
+refuses an mp axis that spans processes here (its dp blocks would not be
+contiguous in its device order); the port's mp axis is processes, so it
+runs dense finetuning under ``-mesh_mp`` as the JAX package does in one
+process.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from unimm_torch.ops import focal_losses as FL
 from unimm_torch.ops import losses as L
 from unimm_torch.ops import masks
 from unimm_torch.ops import rank_loss as RL
-from unimm_torch.parallel import dist
+from unimm_torch.parallel import dist, mesh
 from unimm_torch.train import step as tstep
 from unimm_torch.utils.logging import MetricsLogger
 
@@ -65,9 +70,9 @@ def _dense_parts(view, cfg, batch, gt_relevance, *, rng, nsp_coeff, dtype,
         view, cfg, t_seq, v_seq, pt, pv, batch, train=True, rng=rng,
         decoder_bias=decoder_bias)
     # the whole slate's logits on every rank, the padding rows cut away
-    nsp_logits = dist.gather_rows(nsp_logits)[:n_real]
+    nsp_logits = dist.gather_rows(nsp_logits, over=dist.DP)[:n_real]
     nsp = L.nsp_loss(nsp_logits, dist.gather_rows(
-        batch["next_sentence_label"])[:n_real])
+        batch["next_sentence_label"], over=dist.DP)[:n_real])
     nsp_probs = torch.softmax(nsp_logits.float(), dim=-1)[:, 0]
     rank = RL.neuralNDCG_transposed(nsp_probs[None, :], gt_relevance[None, :])
     # the reference drops the lm term when it is NaN (:291-294); the
@@ -77,8 +82,8 @@ def _dense_parts(view, cfg, batch, gt_relevance, *, rng, nsp_coeff, dtype,
         return rank + lm_term + nsp_coeff * nsp
 
     total = objective(lm)
-    # logged: the world's lm loss (this rank's share summed over the
-    # ranks) and the logging-only quantities (:275-280)
+    # logged: the world's lm loss (this rank's share summed over the dp
+    # group) and the logging-only quantities (:275-280)
     lm_world = tstep.world_metrics({"lm": lm.detach()})["lm"]
     slate = nsp_logits.detach().float()[None, :, :]
     return total, {"loss": objective(lm_world).detach(), "lm_loss": lm_world,
@@ -96,7 +101,7 @@ def make_dense_step(cfg: VilbertConfig, *, nsp_coeff=1.0,
     loss, its backward and one optimizer call (state: ``train.step.
     init_state``'s dict). ``parts``: device scalars loss, lm_loss,
     nsp_loss, rank_loss and the logging-only ce_loss and qfocal_loss. In a
-    world of several processes ``batch`` is this rank's block of the
+    world of several processes ``batch`` is this dp index's block of the
     ``n_real``-row slate padded by ``slate_block``; the parts are the
     world's."""
 
@@ -147,11 +152,11 @@ def bucket_slate(flat: dict, cfg: VilbertConfig, length_buckets: int):
 
 
 def slate_block(flat: dict, n_real: int = N_SLATE) -> dict:
-    """This rank's contiguous block of the ``n_real``-row slate padded to
-    the next multiple of the world with copies of the GT row whose LM term
-    is neutralised (lm_weight 0, labels -1; their NSP rows are cut away
-    after the gather); the slate itself in a world of one process."""
-    world = dist.world_size()
+    """This dp index's contiguous block of the ``n_real``-row slate padded
+    to the next multiple of the dp size with copies of the GT row whose LM
+    term is neutralised (lm_weight 0, labels -1; their NSP rows are cut
+    away after the gather); the slate itself on a dp axis of one index."""
+    world = dist.dp_size()
     pad = -n_real % world
     if world == 1:
         return flat
@@ -160,7 +165,7 @@ def slate_block(flat: dict, n_real: int = N_SLATE) -> dict:
     if "lm_weight" in flat:
         flat["lm_weight"][n_real:] = 0
     flat["mlm_labels"][n_real:] = -1
-    rows = dist.row_block(n_real + pad)
+    rows = dist.row_block(n_real + pad, over=dist.DP)
     return {k: v[rows] for k, v in flat.items()}
 
 
@@ -200,7 +205,7 @@ def main(argv=None, device=None, backend=None):
             resume_path = latest[0]
             auto_hit = True
     init_params_dict = dict(params, start_path="") if resume_path else params
-    model = common.init_model(init_params_dict, cfg, dev)
+    model = mesh.shard_model(common.init_model(init_params_dict, cfg, dev))
     model.train().requires_grad_(True)
     lang = load_lang(params)
     opt = make_optimizer(params, model, lang)

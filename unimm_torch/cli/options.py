@@ -6,14 +6,15 @@ argv parses to the dict the JAX package's parser gives it
 (tests/test_torch_cli.py); no flag is added or dropped.
 
 Flags kept for CLI compatibility but without effect are accepted and noted
-in their help strings (visdom server flags). ``-mesh_mp`` above 1 (tensor
-parallelism, not ported) raises ``NotImplementedError`` naming its
-ROADMAP.md item (``check_ported``). The data-parallel world is joined
-through ``-coordinator_address host:port -num_processes N -process_id r``,
-one process per card (``parallel/dist.py``); ``check_world`` refuses flags
-that name no such world, and ``-n_gpus`` other than 0 or the world's size
-(the JAX package's ``-n_gpus`` may pick some of one process's devices; a
-port process drives one card).
+in their help strings (visdom server flags). The world is joined through
+``-coordinator_address host:port -num_processes N -process_id r``, one
+process per card, and arranged as dp x ``-mesh_mp`` (``parallel/dist.py``);
+``check_world`` refuses flags that name no such world: ``-n_gpus`` other
+than 0 or the world's size (the JAX package's ``-n_gpus`` may pick some of
+one process's devices; a port process drives one card), a ``-mesh_mp``
+that does not divide the world's size (``make_mesh``'s assert), and
+``-mesh_mp`` above 1 without a world (the JAX package shards one
+process's devices; the port's mp axis is mp processes).
 """
 
 from __future__ import annotations
@@ -220,30 +221,24 @@ def read_command_line(argv=None) -> dict:
         raise SystemExit('-auto_resume requires -save_name (the default '
                          'save_path is timestamped per launch, so a relaunch '
                          'would never resolve the previous run)')
-    check_ported(parsed)
     check_world(parsed)
     return parsed
 
 
-_TENSOR_PARALLEL = ("tensor parallelism is not ported (ROADMAP.md queue A "
-                    "item 9)")
-
-
-def check_ported(parsed: dict):
-    """Raise ``NotImplementedError`` for a flag whose feature the port does
-    not have yet, naming its ROADMAP.md item: ``-mesh_mp`` above 1."""
-    if parsed["mesh_mp"] > 1:
-        raise NotImplementedError(f"-mesh_mp {parsed['mesh_mp']}: "
-                                  f"{_TENSOR_PARALLEL}")
+_LAUNCH = ("launch one process per card with -coordinator_address "
+           "host:port -num_processes N -process_id r")
 
 
 def check_world(parsed: dict):
-    """Raise ``ValueError`` for world flags that name no data-parallel
-    world of one process per card: ``-coordinator_address`` without
-    ``-num_processes`` >= 1 and ``0 <= -process_id < -num_processes``, or
-    ``-n_gpus`` other than 0 (the world as launched) or the world's size
-    (``-num_processes`` under ``-coordinator_address``, else 1)."""
+    """Raise ``ValueError`` for world flags that name no world of one
+    process per card: ``-coordinator_address`` without ``-num_processes``
+    >= 1 and ``0 <= -process_id < -num_processes``; ``-n_gpus`` other than
+    0 (the world as launched) or the world's size (``-num_processes``
+    under ``-coordinator_address``, else 1); ``-mesh_mp`` above 1 without
+    ``-coordinator_address``, or one that does not divide the world's
+    size."""
     n = parsed["num_processes"] if parsed["coordinator_address"] else 1
+    mp = parsed["mesh_mp"]
     if parsed["coordinator_address"] and not (
             n >= 1 and 0 <= parsed["process_id"] < n):
         raise ValueError(
@@ -254,5 +249,11 @@ def check_world(parsed: dict):
         raise ValueError(
             f"-n_gpus {parsed['n_gpus']} in a world of {n} process(es): "
             "one process drives one card, so -n_gpus is 0 or the world's "
-            "size; launch one process per card with -coordinator_address "
-            "host:port -num_processes N -process_id r")
+            f"size; {_LAUNCH}")
+    if mp > 1 and not parsed["coordinator_address"]:
+        raise ValueError(
+            f"-mesh_mp {mp} without a world: one process drives one card, "
+            f"so an mp axis of {mp} is {mp} processes; {_LAUNCH}")
+    if mp < 1 or n % mp:
+        raise ValueError(f"-mesh_mp {mp} does not divide the world's {n} "
+                         "processes")

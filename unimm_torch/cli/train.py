@@ -12,16 +12,20 @@ under -fused_adamw 1, the update on B7), a checkpoint every
 
 Usage: python -m unimm_torch.cli.train -batch_size 240 -lr 2e-5 ... (on
 the card; ``main(argv, device="cpu")`` runs the plain versions on the
-CPU). Data parallel across processes, one per card: add
-``-coordinator_address host:port -num_processes N -process_id r`` to each
-rank's command. Every rank computes the same global shuffle and loads its
-slice of each global batch (``-batch_size`` stays global: each rank
-subsamples ``batch_size // N`` sequences from its images, with its own
-generator), the losses take the world's denominators and the gradients
-are summed over the ranks (``train/step.py``); length-bucketed morsels
-agree on their bucket lengths and normalisers across the ranks; rank 0
-writes the checkpoints and the logs, and every rank restores the same
-file; the val ranking splits every chunk's rows over the ranks.
+CPU). Across processes, one per card: add ``-coordinator_address
+host:port -num_processes N -process_id r`` to each rank's command, and
+``-mesh_mp M`` to shard the parameters and the Adam moments over groups of
+M ranks (``parallel/mesh.py``; the world is dp x M, ``parallel/dist.py``).
+Every dp index computes the same global shuffle and loads its slice of
+each global batch (``-batch_size`` stays global: each dp index subsamples
+``batch_size // dp`` sequences from its images, with its own generator;
+the ranks of an mp group load the same rows), the losses take the dp
+group's denominators and the gradients are summed over it
+(``train/step.py``); length-bucketed morsels agree on their bucket
+lengths and normalisers across the dp group; rank 0 writes the
+checkpoints (whole tensors) and the logs, and every rank restores its
+slices of the same file; the val ranking splits every chunk's rows over
+the dp group.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from unimm_torch.data.dataset import (VisdialDataset, flatten_for_forward,
                                       length_bucket_morsels)
 from unimm_torch.data.loader import DataLoader
 from unimm_torch.eval import evaluator
-from unimm_torch.parallel import dist
+from unimm_torch.parallel import dist, mesh
 from unimm_torch.train import optim, step as tstep
 from unimm_torch.utils.logging import MetricsLogger
 
@@ -89,10 +93,11 @@ def load_lang(params: dict):
 def main(argv=None, device=None, backend=None):
     params = options.read_command_line(argv)
     dev = common.setup_torch(params, device, backend)
-    nproc, rank = dist.world_size(), dist.rank()
+    # the rows follow the dp axis: an mp group's ranks load the same ones
+    nproc, rank = dist.dp_size(), dist.dp_rank()
     os.makedirs(params["save_path"], exist_ok=True)
     viz = MetricsLogger(os.path.join(params["save_path"], "logs"),
-                        enable=rank == 0)
+                        enable=dist.rank() == 0)
     print({k: v for k, v in sorted(params.items())})
 
     cfg = common.build_config(params)
@@ -128,7 +133,9 @@ def main(argv=None, device=None, backend=None):
     # complete train state, not a weights-only load from start_path
     init_params_dict = (dict(params, start_path="")
                         if params["continue"] or auto_src else params)
-    model = common.init_model(init_params_dict, cfg, dev)
+    # the whole fp32 model, then this rank's slices, then the optimizer
+    # (its moments shaped like the slices)
+    model = mesh.shard_model(common.init_model(init_params_dict, cfg, dev))
     model.train().requires_grad_(True)
 
     lang = load_lang(params)
@@ -183,8 +190,8 @@ def main(argv=None, device=None, backend=None):
     k_buckets = (params["batch_multiply"]
                  if params["length_buckets"] and
                  params["batch_multiply"] > 1 else 1)
-    morsel_sync = ((lambda stats: np.stack(dist.allgather_np(stats)))
-                   if nproc > 1 else None)
+    morsel_sync = ((lambda stats: np.stack(dist.allgather_np(
+        stats, over=dist.DP))) if nproc > 1 else None)
     bucket_div = (params["length_buckets"]
                   if params["length_buckets"] >= 2 else 4)
     flat_buffer = []

@@ -11,10 +11,11 @@ Usage: python -m unimm_torch.cli.val_lm -val_dis 0 -start_path model.ckpt ...
 (on the card; ``main(argv, device="cpu")`` runs the plain versions on the
 CPU). One process per card in a data-parallel world: add
 ``-coordinator_address host:port -num_processes N -process_id r`` to each
-rank's command; the ranks then split every prefix group's slates, or, with
-``-eval_data_sharded 1``, each scores a disjoint shard of the split and
-the metrics and predictions are merged. Rank 0 writes the predictions
-file and reports.
+rank's command (and ``-mesh_mp M`` to shard the model over groups of M
+ranks); the dp groups then split every prefix group's slates, or, with
+``-eval_data_sharded 1``, each rank scores a disjoint shard of the split
+with its model whole and the metrics and predictions are merged. Rank 0
+writes the predictions file and reports.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def main(argv=None, mode: str = "ll_sum", device=None, backend=None):
     sharded = common.eval_sharded(params)
     print("len_dataloader_eval:", len(loader))
 
-    model = common.init_model(params, cfg, dev)
+    model = common.serving_model(params, common.init_model(params, cfg, dev))
     ranks = []
     metrics = evaluator.evaluate_split(
         model, cfg, loader, mode=mode,

@@ -32,7 +32,9 @@ class DataLoader:
         (process_count > 1) every process computes the identical global
         shuffle from the shared seed, then loads only its slice of each
         global batch — the per-process rows that the processes together
-        assemble into the global batch.
+        assemble into the global batch. In a world with an mp axis a
+        process passes its dp index and the dp size, so the ranks of one
+        mp group load the same rows.
 
         Multi-process + drop_last=False: a global batch whose size does not
         divide the process count is PADDED up to the next multiple by

@@ -14,13 +14,15 @@ the slates it cannot take through the flat scorer. ``evaluate_split`` and
 ``evaluate_ensemble`` coalesce loader batches, keep ``pipeline_depth`` of
 them in flight, and accumulate R@k / MRR / mean rank and NDCG.
 
-In a data-parallel world of several processes (``parallel/dist.py``) the
-evaluators serve in one of the JAX package's two modes: ``split_rows``
-(every rank iterates the same batches, stages every dispatch whole, scores
-its contiguous share of the rows, a flat chunk's or a prefix group's, and
-the score vectors are all-gathered; the counterpart of a dp mesh spanning
-processes) or ``process_merge`` (each rank scores its own shard of the
-split and the metric statistics are merged at the end).
+In a world of several processes (``parallel/dist.py``) the evaluators
+serve in one of the JAX package's two modes: ``split_rows`` (every rank
+iterates the same batches, stages every dispatch whole, scores its dp
+index's contiguous share of the rows, a flat chunk's or a prefix
+group's, and the score vectors are all-gathered over the dp group; the
+counterpart of a dp mesh spanning processes; the ranks of an mp group
+score the same rows, each model gathered whole from its slices,
+``parallel/mesh.py``) or ``process_merge`` (each rank scores its own
+shard of the split and the metric statistics are merged at the end).
 ``dump_ranks_merged`` writes one predictions file from the ranks' shards.
 """
 
@@ -67,10 +69,11 @@ class RankingEvaluator:
         ``packed`` and ``row_block``.
 
         ``split_rows``: in a world of several processes every rank is
-        given the same batches and scores rows ``dist.row_block`` of each
-        padded chunk (and of each prefix group); ``chunk_size`` must divide
-        over the world. The scores are all-gathered when a batch is
-        fetched, so every rank returns all of them.
+        given the same batches and scores its dp index's rows
+        ``dist.row_block`` of each padded chunk (and of each prefix group);
+        ``chunk_size`` must divide over the dp size. The scores are
+        all-gathered over the dp group when a batch is fetched, so every
+        rank returns all of them.
 
         The compute-dtype copy of each model is made once and reused while
         its parameters are unchanged (``vilbert.ComputeModels``), one per
@@ -82,7 +85,7 @@ class RankingEvaluator:
         self._bucket_div = bucket_div
         self._need_lm = need_lm
         self._need_nsp = need_nsp
-        self._split = split_rows and dist.world_size() > 1
+        self._split = split_rows and dist.dp_size() > 1
         self.device = vilbert.resolve_device(device)
         self._compute_model = vilbert.ComputeModels(dtype)
         self._prefix = None
@@ -168,8 +171,9 @@ class RankingEvaluator:
         imgs = ({k: self._put(flat[k]) for k in _IMG_KEYS if k in flat}
                 if compact else {})
         chunk_keys = list(_SEQ_KEYS) + ([] if compact else list(_IMG_KEYS))
-        # under split_rows this rank's block of every padded chunk
-        rows = dist.row_block(self.chunk) if self._split else slice(None)
+        # under split_rows this dp index's block of every padded chunk
+        rows = (dist.row_block(self.chunk, over=dist.DP) if self._split
+                else slice(None))
         outs = []
         for s in range(0, N, self.chunk):
             e = min(s + self.chunk, N)
@@ -196,7 +200,8 @@ class RankingEvaluator:
             local = np.stack([[res[k].cpu().numpy() for k in keys]
                               for _, res in outs])      # [chunks, keys, rows]
             if self._split:
-                local = np.concatenate(dist.allgather_np(local), axis=2)
+                local = np.concatenate(
+                    dist.allgather_np(local, over=dist.DP), axis=2)
             fetched = [dict(zip(keys, v[:, :n])) for (n, _), v in
                        zip(outs, local)]
             scores = {k: np.concatenate([o[k] for o in fetched])
@@ -324,9 +329,9 @@ def _valid(batch, B):
 
 
 def _fit_chunk(chunk_size: int, split_rows: bool) -> int:
-    """The chunk rounded down to a multiple of the world under
-    ``split_rows`` (at least one row a rank)."""
-    n = dist.world_size() if split_rows else 1
+    """The chunk rounded down to a multiple of the dp size under
+    ``split_rows`` (at least one row a dp index)."""
+    n = dist.dp_size() if split_rows else 1
     return max(n, chunk_size // n * n)
 
 

@@ -184,8 +184,9 @@ class PrefixScorer:
     compute-dtype copies to use (one of its own by default; the evaluator
     shares its cache). Ineligible slates are left to the caller
     (``last_ok`` after ``score_async``). ``split_rows``: in a world of
-    several processes, group sizes are rounded up to a multiple of the
-    world and each rank scores block ``dist.row_block`` of every group.
+    several processes, group sizes are rounded up to a multiple of the dp
+    size and each dp index scores block ``dist.row_block`` of every group
+    (the ranks of an mp group the same block).
     """
 
     _IMG_KEYS = ("image_feat", "image_loc", "image_mask")
@@ -203,7 +204,7 @@ class PrefixScorer:
         self._bucket_div = bucket_div
         self.packed = packed
         self._rb = row_block
-        self._world = dist.world_size() if split_rows else 1
+        self._world = dist.dp_size() if split_rows else 1
         self.device = vilbert.resolve_device(device)
         self._ctx_cfg = cfg.replace(attention_impl="xla")
         self._compute_model = (compute_models if compute_models is not None
@@ -494,7 +495,8 @@ class PrefixScorer:
         n_groups = max(1, -(-sel.size // self.group))
         gsize = -(-sel.size // n_groups)
         gsize = -(-gsize // self._world) * self._world
-        mine = dist.row_block(gsize) if self._world > 1 else slice(None)
+        mine = (dist.row_block(gsize, over=dist.DP) if self._world > 1
+                else slice(None))
 
         outs = []
         for gi in range(n_groups):
@@ -553,7 +555,8 @@ class PrefixScorer:
             local = np.stack([[res[k].cpu().numpy() for k in keys]
                               for _, _, res in outs])   # [groups, keys, gs, O]
             if self._world > 1:
-                local = np.concatenate(dist.allgather_np(local), axis=2)
+                local = np.concatenate(
+                    dist.allgather_np(local, over=dist.DP), axis=2)
             for (g, pad, _), v in zip(outs, local):
                 for k, vk in zip(keys, v):
                     scores[k][g] = vk[:g.size] if pad else vk

@@ -16,7 +16,11 @@ over those modules, as in the JAX package's ``models/vilbert.py``:
   connection layer's outputs and the embeddings; plus the NSP pooling
   head) draw from an explicit ``DropoutRng``, and ``call_in_dtype`` runs a
   function over a differentiable compute-dtype view of the fp32 master
-  weights, so bf16 compute feeds its gradients back to them.
+  weights, so bf16 compute feeds its gradients back to them;
+* a model sharded over an mp group (``parallel/mesh.py``) computes on
+  whole weights, as the JAX package's kernels receive them: every compute
+  view (``call_in_dtype``, ``cast_floating``) casts each slice to the
+  compute dtype and gathers it whole over the group.
 
 Layer order for the shipped 6-connection config is the reference
 interleave: t0..t5, [co0, v0, t6], ..., [co5, v5, t11].
@@ -35,6 +39,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from unimm_torch.config import VilbertConfig
+from unimm_torch.parallel import mesh
 
 
 # ---------------------------------------------------------------------------
@@ -191,16 +196,25 @@ def train_model(cfg: VilbertConfig, seed: int = 0,
 
 def cast_floating(model: nn.Module, dtype) -> nn.Module:
     """The model with floating parameters in the compute dtype: the model
-    itself when they already are, else a cast copy (the original, with its
-    fp32 decoder bias, is left as it is)."""
-    params = [p for p in model.parameters() if p.is_floating_point()]
-    if all(p.dtype == dtype for p in params):
+    itself when they already are and it is whole, else a cast copy (the
+    original, with its fp32 decoder bias, is left as it is), whose sharded
+    parameters are gathered whole over the mp group (a collective: every
+    rank of the group casts at the same point)."""
+    named = [(n, p) for n, p in model.named_parameters()
+             if p.is_floating_point()]
+    if mesh.layout(model) is None and all(p.dtype == dtype
+                                          for _, p in named):
         return model
+    with torch.no_grad():
+        cast = mesh.gather_whole(model, {n: p.detach().to(dtype)
+                                         for n, p in named})
     # deepcopy with the parameters pre-seeded in its memo: the module tree
     # is copied, the fp32 storage never is (one cast per parameter)
-    memo = {id(p): nn.Parameter(p.detach().to(dtype), requires_grad=False)
-            for p in params}
-    return copy.deepcopy(model, memo)
+    memo = {id(p): nn.Parameter(cast[n], requires_grad=False)
+            for n, p in named}
+    out = copy.deepcopy(model, memo)
+    out.__dict__.pop("_mp_layout", None)          # whole
+    return out
 
 
 class _Call(nn.Module):
@@ -221,11 +235,16 @@ def call_in_dtype(model: nn.Module, dtype, fn, /, *args, **kwargs):
     view (the JAX package casts inside the differentiated function), so the
     gradients of bf16 compute reach the fp32 master parameters. The tied
     decoder is the one cast word-embedding tensor, read by both the
-    embedding lookup and the output xent, so its two gradients add up."""
-    params = {"model." + n: (p.to(dtype) if p.is_floating_point() else p)
-              for n, p in model.named_parameters()}
-    return torch.func.functional_call(_Call(model), params, (fn,) + args,
-                                      kwargs)
+    embedding lookup and the output xent, so its two gradients add up.
+    A sharded model's slices are cast, then gathered whole over the mp
+    group (``mesh.gather_whole``: the same bits as gathering first, half
+    the bytes); each rank's gradient is its slice of the whole one."""
+    params = mesh.gather_whole(model, {
+        n: (p.to(dtype) if p.is_floating_point() else p)
+        for n, p in model.named_parameters()})
+    return torch.func.functional_call(
+        _Call(model), {"model." + n: t for n, t in params.items()},
+        (fn,) + args, kwargs)
 
 
 class ComputeModels:
@@ -461,12 +480,15 @@ def connection_layer(p, cfg: VilbertConfig, v_x, v_bias, t_x, co_bias, *,
 # ---------------------------------------------------------------------------
 
 class _FewRowEmbedding(torch.autograd.Function):
-    """``F.embedding`` over a table of few rows (the segment tables), whose
-    gradient is the same on every run: onehot(ids)^T grad, one matrix
-    product. PyTorch's embedding backward on CUDA sums each row's many hits
-    (half of a batch's tokens land on one row) in an order that changes
+    """``F.embedding`` over a table of few rows (the segment tables and the
+    position table), whose gradient is the same on every run: onehot(ids)^T
+    grad, one matrix product. PyTorch's embedding backward on CUDA sums
+    each row's many hits (half of a batch's tokens land on one segment
+    row, every sequence hits each position row) in an order that changes
     from run to run, which moved the segment table's gradient by one
-    rounding step between two runs of one training step."""
+    rounding step between two runs of one training step, and the position
+    table's between a rank of an mp group and one process on the same
+    batch."""
 
     @staticmethod
     def forward(ctx, ids, weight):
@@ -487,7 +509,8 @@ def text_embeddings(p, cfg: VilbertConfig, input_ids, token_type_ids,
     """BertEmbeddingsDialog without the dead sinusoid buffer; segment ids
     >= type_vocab_size route to the 10-entry extension table."""
     we = F.embedding(input_ids, p.word_embeddings.weight.to(dtype))
-    pe = F.embedding(position_ids, p.position_embeddings.weight.to(dtype))
+    pe = _FewRowEmbedding.apply(position_ids,
+                                p.position_embeddings.weight.to(dtype))
     ext = token_type_ids - cfg.type_vocab_size
     is_ext = ext >= 0
     zero = torch.zeros_like(token_type_ids)

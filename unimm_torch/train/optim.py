@@ -18,13 +18,19 @@ reference train.py:322-348 and utils/optim_utils.py:8-26 with optax):
 * gradient accumulation with optax.MultiSteps semantics
   (``batch_multiply``): the running mean of k gradients, one update every
   k calls;
-* in a data-parallel world (``parallel/dist.py``) the gradients an update
-  applies are summed over the ranks first, once an update (under
-  accumulation: the running mean, at the k-th call), in flat buckets
-  (``dist.allreduce_sum_``); every rank then applies the same bits. Each
-  rank's loss is its local sum over the world's denominators
-  (``train.step.world_norms``), so the sum is the gradient of the global
-  batch.
+* in a world of several processes (``parallel/dist.py``) the gradients
+  an update applies are summed over the rank's dp group first, once an
+  update (under accumulation: the running mean, at the k-th call), in
+  flat buckets (``dist.allreduce_sum_``). Each rank's loss is its local
+  sum over the dp group's denominators (``train.step.world_norms``), so
+  the sum is the gradient of the global batch. On a model sharded over an
+  mp group (``parallel/mesh.py``) a sharded parameter's gradient, and its
+  moments, are this rank's slice, and the update runs on the slices; a
+  replicated parameter's summed gradient is then broadcast from the mp
+  group's first rank (``dist.broadcast_``), so the group's copies of it
+  cannot drift apart, whatever the order of a sum on the way (the JAX
+  package's replicated tensor is one array). Every rank of a group then
+  applies the same bits.
 
 Two counters, as optax keeps them in ``ScaleByAdamState.count`` and
 ``ScaleByScheduleState.count``: ``count`` sets the bias correction and
@@ -54,7 +60,7 @@ import torch
 
 from unimm_torch import checkpoint as ckpt
 from unimm_torch.ops.adamw import adamw_update_leaf, adamw_update_leaf_plain
-from unimm_torch.parallel import dist
+from unimm_torch.parallel import dist, mesh
 
 B1, B2 = 0.9, 0.999
 
@@ -112,13 +118,18 @@ class GroupedAdamW:
     """The grouped two-LR AdamW over a model's parameters (see the module
     docstring). ``step()`` takes one optimizer call: with
     ``batch_multiply`` k it accumulates and updates on every k-th call,
-    returning whether it updated."""
+    returning whether it updated. Build it after ``mesh.shard_model``: its
+    moments take the parameters' shapes, the slices of a sharded model."""
 
     def __init__(self, model: torch.nn.Module, cfg: OptimConfig,
                  language_weights=None, fused: bool = False):
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        lay = mesh.layout(model)
+        # the parameters every rank of an mp group holds whole
+        self.replicated = ([i for i, n in enumerate(self.names)
+                            if n not in lay.dims] if lay is not None else [])
         self.cfg = cfg
         self.fused = fused
         labels = group_labels(self.names, language_weights)
@@ -169,6 +180,12 @@ class GroupedAdamW:
     def _grads(self, grads):
         if grads is None:
             grads = [p.grad for p in self.params]
+        for p, m in zip(self.params, self.mu):
+            if p.shape != m.shape:
+                raise ValueError(
+                    f"a parameter of shape {tuple(p.shape)} has moments of "
+                    f"{tuple(m.shape)}: build the optimizer after "
+                    "mesh.shard_model")
         return [torch.zeros_like(p, dtype=torch.float32) if g is None
                 else g.float() for p, g in zip(self.params, grads)]
 
@@ -188,7 +205,8 @@ class GroupedAdamW:
             if self.mini_step < k:
                 return False
             grads, self.acc, self.mini_step = self.acc, None, 0
-        dist.allreduce_sum_(grads)
+        dist.allreduce_sum_(grads, over=dist.DP)
+        dist.broadcast_([grads[i] for i in self.replicated], over=dist.MP)
         self._update(grads)
         return True
 

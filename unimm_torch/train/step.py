@@ -7,16 +7,21 @@ scaling). PyTorch runs eagerly, so there is no jit: ``make_train_step``
 returns a function that takes one step on a state dict and updates the
 model and the optimizer in place (the JAX step donates its state).
 
-In a data-parallel world of several processes (``parallel/dist.py``) each
-rank holds its share of the rows of the global batch. The JAX package
+In a world of several processes (``parallel/dist.py``) each dp index
+holds its share of the rows of the global batch; the ranks of one mp group
+hold the same rows (and one model, sharded over them). The JAX package
 computes each loss once over the global batch, so its denominators (the
 label-token count, the NSP class counts, the masked-region count) are the
-global batch's: the step all-reduces the local counts first and passes
-them through the losses' overrides (``world_norms``), so each rank's loss
-is its local sum over the global denominator; the optimizer sums the
-gradients over the ranks (``train.optim``), and the logged loss parts are
-summed too. Each rank draws its own dropout masks (the rank enters the
-seed, ``step_seed``), as JAX draws one mask over the global batch.
+global batch's: the step all-reduces the local counts over the dp group
+first and passes them through the losses' overrides (``world_norms``), so
+each rank's loss is its local sum over the global denominator; the
+optimizer sums the gradients over the dp group (``train.optim``), and the
+logged loss parts are summed over it too (over the world, every row would
+count once an mp rank). Each dp index draws its own dropout masks (its
+index enters the seed, ``step_seed``), as JAX draws one mask over the
+global batch and offsets its kernels' seed by the dp axis index only: the
+mp peers of a dp index draw the same masks, and a world of one dp index
+draws the one-process stream.
 """
 
 from __future__ import annotations
@@ -36,27 +41,28 @@ from unimm_torch.parallel import dist
 def step_seed(seed: int, step: int, rank=None) -> int:
     """The dropout seed of step ``step`` of a run seeded with ``seed``:
     one stream per (seed, step), as ``jax.random.fold_in(rng, step)``; a
-    ``rank`` of a world of several processes enters the seed too, so no
-    two ranks share a mask (None: the one-process stream)."""
+    ``rank`` (the dp index of a world of several) enters the seed too, so
+    no two dp indices share a mask (None: the one-process stream)."""
     key = [seed, step] if rank is None else [seed, step, rank]
     return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
 
 
 def world_rank():
-    """This process's rank for ``step_seed``: None outside a world of
-    several processes."""
-    return dist.rank() if dist.world_size() > 1 else None
+    """This process's dp index for ``step_seed``: None where the dp axis
+    has one index (no world, or every rank in one mp group)."""
+    return dist.dp_rank() if dist.dp_size() > 1 else None
 
 
 def world_norms(batch: dict) -> dict:
     """``batch`` with the loss denominators of the world's whole batch
     (``lm_norm``: tokens with lm_weight != 0; ``img_norm``: the sequences'
-    regions with image_label 1, compact image arrays expanded first; ``nsp_norm_counts``: the NSP label counts; those whose
-    keys the batch holds), summed over the ranks in one all-reduce. A
-    batch that carries them already (length-bucketed morsels, whose group
-    normalisers are synced across the ranks) and a world of one process
-    are returned as they are."""
-    if dist.world_size() == 1 or "lm_norm" in batch:
+    regions with image_label 1, compact image arrays expanded first;
+    ``nsp_norm_counts``: the NSP label counts; those whose keys the batch
+    holds), summed over the dp group in one all-reduce. A batch that
+    carries them already (length-bucketed morsels, whose group normalisers
+    are synced across the ranks) and a dp axis of one index are returned
+    as they are."""
+    if dist.dp_size() == 1 or "lm_norm" in batch:
         return batch
     batch = unimm.expand_images(batch)     # image_label a sequence
     counts = {"lm_norm": (batch["lm_weight"] != 0).sum()[None]}
@@ -67,7 +73,7 @@ def world_norms(batch: dict) -> dict:
         counts["nsp_norm_counts"] = torch.stack([(nsl == 0).sum(),
                                                  (nsl == 1).sum()])
     flat = torch.cat(list(counts.values())).float()
-    dist.allreduce_sum_([flat])
+    dist.allreduce_sum_([flat], over=dist.DP)
     out = dict(batch)
     for (k, v), x in zip(counts.items(),
                          flat.split([v.numel() for v in counts.values()])):
@@ -91,7 +97,7 @@ def make_train_step(cfg: VilbertConfig, *, lm_coeff=1.0, nsp_coeff=1.0,
     label_budget_overflow, the sequences whose label count exceeds
     ``cfg.max_train_label_positions`` (their tail labels are dropped on the
     gathered path). In a world of several processes the loss parts and
-    the overflow count are the world's (summed over the ranks)."""
+    the overflow count are the world's (summed over the dp group)."""
 
     def train_step(state, batch, nsp_weight=None):
         model = state["model"]
@@ -119,13 +125,13 @@ def make_train_step(cfg: VilbertConfig, *, lm_coeff=1.0, nsp_coeff=1.0,
 
 
 def world_metrics(metrics: dict) -> dict:
-    """Device scalars summed over the ranks of a world of several
-    processes (one all-reduce); as they are otherwise."""
-    if dist.world_size() == 1:
+    """Device scalars summed over the dp group (one all-reduce); as they
+    are on a dp axis of one index."""
+    if dist.dp_size() == 1:
         return metrics
     keys = sorted(metrics)
     v = torch.cat([metrics[k].double().reshape(1) for k in keys])
-    dist.allreduce_sum_([v])
+    dist.allreduce_sum_([v], over=dist.DP)
     return {k: x.reshape(metrics[k].shape).to(metrics[k].dtype)
             for k, x in zip(keys, v)}
 
