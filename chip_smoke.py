@@ -6,10 +6,12 @@ the serving paths end to end and check that they went through the kernels.
     python3 chip_smoke.py --train-gates [SEED ...]
     python3 chip_smoke.py --world
     python3 chip_smoke.py --mp
+    python3 chip_smoke.py --modes
 
 ``--world`` runs phase 1, the build and phase 13 alone, ``--mp`` phase 1,
 the build and phase 14 alone (``--world-rank SPEC RANK`` is one of their
-rank processes). ``--train-gates`` runs phase 1,
+rank processes), ``--modes`` phase 1, the build and phase 15 alone.
+``--train-gates`` runs phase 1,
 the build and phase 8 (a)'s two gates alone, on the batches of the given
 seeds (default GATE_SEEDS), printing
 both results and each batch's single-batch margins, and exits 1 if a gate
@@ -167,6 +169,42 @@ prints its seconds):
      mp gather and dp all-reduce MiB and ms (the card synchronized around
      each). Phase 3 also holds B7 at the word embeddings' mp 2 slice,
      [15261, 768].
+ 15. the encoder modes and the VL task heads at full width (the default
+     config, seeded weights, TF32 off), through ``unimm.encode`` and
+     ``vl_tasks.vl_tasks_forward``: (a) ``in_batch_pairs``, fp32, 8 text
+     rows (4 gen, 4 dis, ``workload``'s sequences) crossed with 8 images
+     (9-37 real regions) into 64 pairs, against the plain ``encode``
+     (``attention_impl="xla"``, the mode off) of the batch crossed on the
+     host (row p = text p // 8 with image p % 8), and its diagonal against
+     the unexpanded forward; (b) ``fast_mode``, fp32, one gen text row
+     over 64 images, against the plain forward of the row repeated 64
+     times. (a) and (b) launch no kernel (the JAX package's rule: the
+     modes run the plain text stream) and hold each of the four outputs
+     by two rules: run in fp64 (the model cast to float64), the mode's
+     forward and the plain one agree at every element within
+     MODES64_ATOL + MODES64_RTOL |plain|; run in fp32, the mode's forward
+     is no farther from the plain fp64 forward (max |d|) than MODES_SLACK
+     times the plain fp32 forward is, plus MODES_FLOOR (the two fp32
+     forwards differ only in the GEMMs' row counts, so in the order of
+     their sums). (c)
+     ``vl_tasks_forward`` in eval, bf16 (the evaluation CLIs' default), on
+     64 flat sequences (32 gen, 32 dis) over 8 images stored compact
+     (``img_index``), TASK_LABELS answer labels, at
+     ``attention_impl="pallas_block"`` at the default config and then
+     with ``fused_co``: 12 B4 and 18 K2 launches a forward, plus 6 B8
+     under ``fused_co``; the seven outputs against the same call under
+     "xla" on the card: the NSP margins (logit 0 - logit 1) by phase 5's
+     rule (max |d margin| <= 0.02 + 0.05 max |margin|); each other output
+     by max |d| <= TASK_REL_TOL max |plain| and, where it has a class
+     axis (vil_prediction over the labels, img_logits over the region
+     classes, mlm_logits over the vocabulary), argmax agreement >=
+     TASK_MIN_ARGMAX over its rows; mlm_logits and linguistic_logit are
+     compared at the positions inside each sequence's attended extent
+     (the rows past it attend nothing, and the kernels and the plain
+     softmax fill such rows differently; no row inside reads them), the
+     region outputs at the real regions; every padded region's
+     vision_logit below -5000. Each run prints its ms (the card
+     synchronized), launches and peak memory.
 The last lines are the kernels JSON, the card line, and
 {"ok": true, "device": {...}}.
 """
@@ -3693,6 +3731,264 @@ def top1_by_record(path):
                 for r in json.load(f)}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the encoder modes and the VL task heads
+# ---------------------------------------------------------------------------
+
+# (a) and (b) against the plain forward of the same rows: both run
+# PyTorch's plain encoder (the modes turn every text kernel off), so they
+# differ only where cuBLAS sums a GEMM of another row count in another
+# order. The first rule written here held every fp32 element within 1e-5 +
+# 1e-4 |plain|; on an H100 (700 W) (b) missed it at 6.3e-5 on t_seq, where
+# the plain fp32 forward itself is up to 5.2e-5 from its fp64 run (the
+# fp32 noise of 18 text layers at a scale of ~5), while the two fp64
+# forwards were bit-equal. So each fp32 forward is held against the plain
+# fp64 forward, the mode's no farther than MODES_SLACK times the plain
+# one's, and the two fp64 forwards elementwise, 50 times below the fp32
+# noise (the softmax stays fp32 in an fp64 run, so an fp32 ulp of a
+# probability may differ); a wrong pairing, bias or row moves an output
+# by its own size
+MODES_SLACK, MODES_FLOOR = 2.0, 1e-6
+MODES64_RTOL, MODES64_ATOL = 1e-6, 1e-6
+# (c): the VQA v2 answer set that ViLBERT's VQA head predicts
+TASK_LABELS = 3129
+# (c) in bf16, kernels against the plain path: they round at other points
+# (phase 5's note on NSP_MARGIN_TOL), a few bf16 steps carried through 18
+# text and 6 vision blocks, so an output moves by a few percent of its
+# scale at most, and an argmax over thousands of classes turns on
+# near-ties; a wrong mask, a dropped head or a wrong image row moves an
+# output by its own size and its argmax to chance (1 / 3129 at best)
+TASK_REL_TOL = 0.1
+TASK_MIN_ARGMAX = 0.8
+TEXT_KEYS = ("tokens", "segments", "mode", "ctx_end", "ans_len")
+
+
+def modes_text(cfg, rng, rounds, options, dis):
+    """rounds x options flat text rows (numpy) of ``workload``'s gen or dis
+    slates for one image: each round its own context, each option its own
+    answer; the context range scaled to ``cfg.max_seq_len``."""
+    from unimm_torch import workload
+    L = cfg.max_seq_len
+    make = workload.make_dis_batch if dis else workload.make_val_batch
+    b = make(rng, cfg, 1, rounds, options,
+             ctx_range=(max(2, L * 58 // 256), L * 192 // 256),
+             feat_dim=cfg.v_feature_size)
+    return {k: b[k].reshape(rounds * options, *b[k].shape[3:])
+            for k in TEXT_KEYS}
+
+
+def modes_images(cfg, rng, n):
+    """n images (numpy): image i has max(1, R - 4 (i % 8)) real regions,
+    the rest padded."""
+    R = cfg.max_regions
+    mask = np.zeros((n, R), np.float32)
+    for i in range(n):
+        mask[i, :max(1, R - 4 * (i % 8))] = 1.0
+    return {"image_feat": rng.normal(size=(n, R, cfg.v_feature_size)
+                                     ).astype(np.float32),
+            "image_loc": rng.normal(size=(n, R, 5)).astype(np.float32),
+            "image_mask": mask}
+
+
+def cat_rows(*parts):
+    """Interleave the rows of equal-length row dicts: row 0 of each, then
+    row 1 of each, ..."""
+    return {k: np.stack([p[k] for p in parts], 1).reshape(
+        -1, *parts[0][k].shape[1:]) for k in parts[0]}
+
+
+def modes_gate(got, ref, got64, ref64):
+    """Phase 15 (a) / (b)'s rules (the docstring) for the four encode
+    outputs of a mode (``got``, fp32; ``got64``, fp64) and of the plain
+    forward of the same rows (``ref``, ``ref64``): ([readings an output],
+    whether all hold)."""
+    out, ok = [], True
+    for name, g, r, g64, r64 in zip(("t_seq", "v_seq", "pooled_t",
+                                     "pooled_v"), got, ref, got64, ref64):
+        g, r, g64, r64 = (x.double() for x in (g, r, g64, r64))
+        e_mode = float((g - r64).abs().max())
+        e_plain = float((r - r64).abs().max())
+        d64 = (g64 - r64).abs()
+        ok64 = bool((d64 <= MODES64_ATOL + MODES64_RTOL * r64.abs()).all())
+        hold = ok64 and e_mode <= MODES_SLACK * e_plain + MODES_FLOOR
+        out.append(dict(output=name, fp32_vs_plain_fp32=float(
+            (g - r).abs().max()), fp32_vs_fp64=e_mode,
+            plain_fp32_vs_fp64=e_plain, fp64_vs_plain_fp64=float(d64.max()),
+            scale=float(r64.abs().max()), ok=hold))
+        ok = ok and hold
+    return out, ok
+
+
+def measured(fn, dev):
+    """``counted(fn)`` with the peak memory of the run:
+    (result, ms, launches, peak GiB)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, secs, launches = counted(fn)
+    return (out, secs * 1e3, launches,
+            torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+
+def compare_tasks(got, want, batch, cfg):
+    """Phase 15 (c)'s rules (the docstring) for the seven outputs of
+    ``vl_tasks_forward`` through the kernels (``got``) and the plain path
+    (``want``): {output: its readings}, and whether all hold."""
+    from unimm_torch.ops import masks
+    ext = masks.attended_extent(*(batch[k].cpu().numpy() for k in (
+        "mode", "ctx_end", "ans_len")), cfg.max_seq_len)
+    real = batch["image_mask"][batch["img_index"]].bool()
+    pos = torch.from_numpy(np.arange(cfg.max_seq_len)[None] < ext[:, None]
+                           ).to(real.device)
+    names = ("vil_prediction", "vil_logit", "nsp_logits", "img_logits",
+             "vision_logit", "mlm_logits", "linguistic_logit")
+    sel = {"img_logits": real, "vision_logit": real, "mlm_logits": pos,
+           "linguistic_logit": pos}
+    res, ok = {}, True
+    for name, g, w in zip(names, got, want):
+        g, w = g.float(), w.float()
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            res[name], ok = {"finite": False}, False
+            continue
+        if name == "nsp_logits":
+            mg, mw = g[:, 0] - g[:, 1], w[:, 0] - w[:, 1]
+            d, size = float((mg - mw).abs().max()), float(mw.abs().max())
+            atol, rtol = NSP_MARGIN_TOL
+            r = dict(max_abs_d_margin=d, max_abs_margin=size,
+                     ok=d <= atol + rtol * size)
+        else:
+            if name in sel:
+                g, w = g[sel[name]], w[sel[name]]
+            d, scale = float((g - w).abs().max()), float(w.abs().max())
+            r = dict(max_abs_d=d, scale=scale, rel=d / scale,
+                     ok=d <= TASK_REL_TOL * scale)
+            if name in ("vil_prediction", "img_logits", "mlm_logits"):
+                agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+                r.update(argmax_agreement=agree, rows=int(g.shape[0]),
+                         ok=r["ok"] and agree >= TASK_MIN_ARGMAX)
+        res[name] = r
+        ok = ok and r["ok"]
+    pad = got[4][~real]
+    res["padded_regions"] = dict(n=int(pad.numel()), max=float(
+        pad.max()) if pad.numel() else None)
+    if pad.numel() and float(pad.max()) >= -5000:
+        ok = False
+    return res, ok
+
+
+def phase_modes(dev, card, runs, config=None, n=8):
+    """Phase 15 (the module docstring has its rules): ``in_batch_pairs``
+    and ``fast_mode`` at full width against the host-crossed plain forward,
+    then ``vl_tasks_forward`` through the kernels against the plain path.
+    ``config`` rehearses it on the CPU at TINY size (with ``torch.cuda``'s
+    calls and ``expect`` stubbed)."""
+    from unimm_torch.config import VilbertConfig
+    from unimm_torch.models import unimm, vilbert, vl_tasks
+
+    cfg = config or VilbertConfig()
+    model = vilbert.init_model(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(15)
+    res, failed = {"card": card}, []
+
+    def fp32(c, b):
+        return unimm.encode(model, c, on_device(b, dev), dtype=torch.float32)
+
+    plain_cfg = cfg.replace(attention_impl="xla")
+    m64 = vilbert.cast_floating(model, torch.float64)
+
+    def fp64(c, b):
+        return unimm.encode(m64, c, on_device(b, dev), dtype=torch.float64)
+
+    def check(tag, mode_cfg, batch, ref_batch, rows):
+        """Run the mode and the plain forward of ``ref_batch`` (counted,
+        timed, after a warm-up each), both again in fp64; gate them."""
+        fp32(mode_cfg, batch)                       # warm-up, not counted
+        got, ms, launches, peak = measured(lambda: fp32(mode_cfg, batch),
+                                           dev)
+        fp32(plain_cfg, ref_batch)
+        ref, plain_ms, _, plain_peak = measured(
+            lambda: fp32(plain_cfg, ref_batch), dev)
+        outs, ok = modes_gate(got, ref, fp64(mode_cfg, batch),
+                              fp64(plain_cfg, ref_batch))
+        expect(tag, launches, {})
+        r = dict(rows=rows, ms=ms, launches=launches, peak_gib=peak,
+                 plain_ms=plain_ms, plain_peak_gib=plain_peak, outputs=outs,
+                 ok=ok)
+        return got, r
+
+    # (a) in_batch_pairs: 8 text rows x 8 images -> 64 pairs
+    text = cat_rows(modes_text(cfg, rng, n // 2, 1, False),
+                    modes_text(cfg, rng, n // 2, 1, True))
+    batch = {**text, **modes_images(cfg, rng, n)}
+    t_i, v_i = np.repeat(np.arange(n), n), np.tile(np.arange(n), n)
+    crossed = {k: v[t_i] if k in TEXT_KEYS else v[v_i]
+               for k, v in batch.items()}
+    got, res["a"] = check("in_batch_pairs", cfg.replace(in_batch_pairs=True),
+                          batch, crossed, n * n)
+    runs["modes_in_batch_pairs"] = res["a"]["launches"]
+    diag = np.arange(n) * (n + 1)
+    pairs64 = fp64(cfg.replace(in_batch_pairs=True), batch)
+    res["a"]["diagonal"], d_ok = modes_gate(
+        [o[diag] for o in got], fp32(plain_cfg, batch),
+        [o[diag] for o in pairs64], fp64(plain_cfg, batch))
+    print(json.dumps({"modes": "a in_batch_pairs", **res["a"],
+                      "card": card}), flush=True)
+    if not (res["a"]["ok"] and d_ok):
+        failed.append("(a) in_batch_pairs")
+
+    # (b) fast_mode: one gen text row over n * n images
+    one = modes_text(cfg, rng, 1, 1, False)
+    imgs = modes_images(cfg, rng, n * n)
+    rep = {**{k: np.repeat(v, n * n, 0) for k, v in one.items()}, **imgs}
+    _, res["b"] = check("fast_mode", cfg.replace(fast_mode=True),
+                        {**one, **imgs}, rep, n * n)
+    runs["modes_fast_mode"] = res["b"]["launches"]
+    print(json.dumps({"modes": "b fast_mode", **res["b"], "card": card}),
+          flush=True)
+    if not res["b"]["ok"]:
+        failed.append("(b) fast_mode")
+    del m64, pairs64
+
+    # (c) vl_tasks_forward in eval, bf16, through the kernels and plain
+    vl_tasks.add_task_heads(model, cfg, TASK_LABELS, seed=1)
+    mb = vilbert.cast_floating(model, torch.bfloat16)
+    del model
+    text = cat_rows(modes_text(cfg, rng, n, n // 2, False),
+                    modes_text(cfg, rng, n, n // 2, True))
+    rows = text["tokens"].shape[0]
+    batch = on_device({**text, **modes_images(cfg, rng, n),
+                       "img_index": np.arange(rows) % n}, dev)
+
+    def tasks(c):
+        return vl_tasks.vl_tasks_forward(mb, c, batch, dtype=torch.bfloat16)
+
+    tasks(plain_cfg)                                # warm-up, not counted
+    plain, plain_ms, _, plain_peak = measured(lambda: tasks(plain_cfg), dev)
+    n_t, n_c = cfg.num_hidden_layers, len(cfg.t_biattention_id)
+    res["c"] = {"rows": rows, "labels": TASK_LABELS, "plain_ms": plain_ms,
+                "plain_peak_gib": plain_peak}
+    for name, c, want in (
+            ("default", cfg, {"attention_block": n_t,
+                              "ffn_block": n_t + n_c}),
+            ("fused_co", cfg.replace(fused_co=True),
+             {"attention_block": n_t, "ffn_block": n_t + n_c,
+              "co_text_block": n_c})):
+        tasks(c)                                    # warm-up, not counted
+        got, ms, launches, peak = measured(lambda: tasks(c), dev)
+        expect(f"vl_tasks {name}", launches, want)
+        runs[f"vl_tasks_{name}"] = launches
+        cmp, ok = compare_tasks(got, plain, batch, cfg)
+        res["c"][name] = dict(ms=ms, launches=launches, peak_gib=peak,
+                              outputs=cmp, ok=ok)
+        print(json.dumps({"modes": f"c vl_tasks {name}", **res["c"][name],
+                          "plain_ms": plain_ms, "plain_peak_gib": plain_peak,
+                          "rows": rows, "card": card}), flush=True)
+        if not ok:
+            failed.append(f"(c) vl_tasks {name}")
+        del got
+    if failed:
+        raise SystemExit(f"modes: {failed}")
+    return res
+
+
 @contextlib.contextmanager
 def phase(name):
     """Print the phase's seconds when it ends."""
@@ -3741,6 +4037,18 @@ def main_mp(dev, card):
     return 0
 
 
+def main_modes(dev, card):
+    """``--modes``: the build and phase 15 alone."""
+    from unimm_torch.ops import _build
+
+    with phase("2 build"):
+        _build.library()
+    with phase("15 encoder modes and VL task heads"):
+        phase_modes(dev, card, {})
+    print(card, flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3760,6 +4068,8 @@ def main():
         return main_world(dev, card)
     if sys.argv[1:2] == ["--mp"]:
         return main_mp(dev, card)
+    if sys.argv[1:2] == ["--modes"]:
+        return main_modes(dev, card)
 
     from unimm_torch.config import VilbertConfig
     from unimm_torch.eval.evaluator import (RankingEvaluator, _merge_batches,
@@ -3960,6 +4270,9 @@ def main():
 
     with phase("14 mp axis"):
         phase_mp(dev, card, runs)
+
+    with phase("15 encoder modes and VL task heads"):
+        phase_modes(dev, card, runs)
 
     kernels = []
     for name, source, replaces in KERNELS:

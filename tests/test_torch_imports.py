@@ -45,7 +45,9 @@ _CLI_MODULES = {
     "unimm_torch.cli.dense_finetune", "unimm_torch.ops.rank_loss",
     "unimm_torch.ops.focal_losses",
     # the data-parallel world across processes
-    "unimm_torch.parallel", "unimm_torch.parallel.dist"}
+    "unimm_torch.parallel", "unimm_torch.parallel.dist",
+    # the VL task heads
+    "unimm_torch.models.vl_tasks"}
 
 
 def test_imports_with_jax_blocked():

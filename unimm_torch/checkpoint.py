@@ -5,7 +5,9 @@ The port's ``VilbertModel`` carries the reference ``state_dict`` names, so:
 * ``state_dict_from_jax(params)`` turns the JAX package's parameter pytree
   (nested dicts of numpy arrays) into a state dict the port's model loads
   with strict key matching: the pytree path joined with '.', a Linear
-  ``kernel`` [in, out] becomes ``weight`` [out, in];
+  ``kernel`` [in, out] becomes ``weight`` [out, in], every other leaf
+  keeps its layout (the task heads' ``weight_v`` [in, out] and 0-d
+  ``weight_g``, models/vl_tasks.py);
 * ``load_reference_state_dict(model, sd)`` loads a reference ``.ckpt``
   ``model_state_dict`` with strict key matching after stripping the
   ``module.`` / ``bert_pretrained.`` prefixes and the legacy gamma/beta
@@ -114,7 +116,10 @@ def state_dict_from_jax(params) -> "OrderedDict[str, torch.Tensor]":
         arr = np.asarray(leaf, dtype=np.float32)
         if path[-1] == "kernel":
             arr = arr.T
-        out[torch_name(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+        # ascontiguousarray makes a 0-d leaf (a weight norm's scalar
+        # ``weight_g``) 1-d; the reshape gives it its shape back
+        out[torch_name(path)] = torch.from_numpy(
+            np.ascontiguousarray(arr)).reshape(arr.shape)
     return out
 
 

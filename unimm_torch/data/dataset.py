@@ -6,9 +6,9 @@ The port's copy of the JAX package's ``data/dataset.py`` (numpy and the
 standard library only; held equal to it in tests/test_torch_data.py):
 ``VisdialDataset`` with its train, val and test items, ``collate``,
 ``flatten_for_forward`` with its training subsample, and
-``length_bucket_morsels`` (one process; the multi-process ``sync`` is
-ROADMAP.md queue A item 7), and ``VisdialDatasetDense``, dense
-finetuning's set.
+``length_bucket_morsels`` (in a data-parallel world its ``sync`` makes
+each morsel's bucket and normalisers cover every rank's rows), and
+``VisdialDatasetDense``, dense finetuning's set.
 
 The datasets reimplement the reference dataset semantics (the reference's
 dataloader/dataloader_visdial.py VisdialDataset) without building dense

@@ -1,8 +1,10 @@
 """Lightweight prefetching data loader.
 
 The port's copy of the JAX package's ``data/loader.py``, process-shard
-arguments included (the port's evaluation runs one process: ROADMAP.md
-queue A item 7 ports the multi-process one).
+arguments included: in a world of several processes each rank loads its
+slice of every global batch through ``process_index`` /
+``process_count`` (``cli/train.py`` by dp index, and
+``cli/common.eval_loader`` by rank under ``-eval_data_sharded``).
 
 Replaces the reference's torch DataLoader worker processes
 (the reference's train.py:309-316) with a thread pool building items ahead

@@ -11,7 +11,9 @@ differentiable attention block with its in-kernel probability dropout
 text layer's attention core on the per-head kernel (ops/text_attention.py,
 differentiable), in eval and in training at attention dropout 0; in
 training with attention dropout it takes the plain bias path, as the JAX
-package does (the kernel has no dropout site). "xla" runs the plain
+package does (the kernel has no dropout site). Under ``in_batch_pairs``
+or ``fast_mode`` every text kernel is off, as in the JAX package (the
+rows no longer match their descriptors). "xla" runs the plain
 PyTorch encoder over additive biases (what the prefix scorer's context
 prefill runs). ``forward_eval`` is the flat full-sequence scorer;
 ``forward_train`` returns the training losses. Answer NLL is taken at
@@ -77,17 +79,24 @@ def encode(model, cfg: VilbertConfig, batch, *, dtype=torch.float32,
     t_bias = text_fused_block = text_fused_ffn = text_fused_co = None
     text_fused_block_train = text_fused_attn = None
     impl = cfg.attention_impl
+    # the JAX package's rule (unimm_tpu/models/unimm.py:121): the text
+    # kernels read one descriptor per text row and the co-attention kernel
+    # one image mask per image, which no longer line up once
+    # in_batch_pairs crosses the rows or fast_mode broadcasts them, so
+    # under either mode the whole encoder runs its plain code
+    pairs_ok = not cfg.in_batch_pairs and not cfg.fast_mode
+    use_block = impl == "pallas_block" and pairs_ok
     # the JAX package's rule: the per-head kernel has no dropout site, so
     # it trains only at attention dropout 0
-    use_pallas = impl == "pallas" and not (
+    use_pallas = impl == "pallas" and pairs_ok and not (
         train and cfg.attention_probs_dropout_prob > 0)
-    if impl == "pallas_block" or use_pallas:
+    if use_block or use_pallas:
         desc = torch.stack([torch.as_tensor(mode), torch.as_tensor(ce),
                             torch.as_tensor(al)], -1).to(torch.int32)
     if use_pallas:
         def text_fused_attn(q, k, v):
             return text_attention(q, k, v, desc)
-    elif impl == "pallas_block":
+    elif use_block:
         if train:
             def text_fused_block_train(p_attn, x, r):
                 # the fp32 hidden-dropout mask, as the JAX package hands

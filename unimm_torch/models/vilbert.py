@@ -619,12 +619,25 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
     layer and every text layer is rematerialised (``remat``), as in the
     JAX package; with ``text_fused_block_train`` only each text layer's FFN
     is, since the block kernel's Function keeps just x and its context.
-    """
-    if cfg.in_batch_pairs or cfg.fast_mode:
-        raise NotImplementedError("in_batch_pairs / fast_mode are not "
-                                  "ported yet (ROADMAP Queue A item 5)")
+    Each layer takes the biases as arguments, so a recompute sees the
+    biases its layer ran with.
 
-    def t_fn(lp, x):
+    The reference's two modes change the rows after the text layers
+    before the first connection layer:
+
+    * ``cfg.in_batch_pairs`` crosses the B text rows with the B images:
+      B * B rows, pair p is text p // B with image p % B (the image index
+      varies fastest), so the text stream and its two biases repeat each
+      row B times and the image stream and its bias tile B times;
+    * ``cfg.fast_mode`` broadcasts one text row (and its bias) over the B
+      images; its co-attention bias keeps its leading 1 and broadcasts in
+      ``attention_core``.
+
+    Both need the additive ``t_bias``: the text kernels read one
+    descriptor per text row (``unimm.encode`` turns them off).
+    """
+
+    def t_fn(lp, x, t_bias):
         return encoder_layer(lp, x, t_bias, num_heads=cfg.num_attention_heads,
                              act=cfg.hidden_act, fused_block=text_fused_block,
                              fused_ffn=text_fused_ffn,
@@ -639,7 +652,7 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
                          hidden_drop=cfg.hidden_dropout_prob, train=train,
                          rng=rng)
 
-    def v_fn(lp, x):
+    def v_fn(lp, x, v_bias):
         return encoder_layer(lp, x, v_bias,
                              num_heads=cfg.v_num_attention_heads,
                              act=cfg.v_hidden_act,
@@ -647,7 +660,7 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
                              hidden_drop=cfg.v_hidden_dropout_prob,
                              train=train, rng=rng)
 
-    def c_fn(cp, vx, tx):
+    def c_fn(cp, vx, tx, v_bias, co_bias):
         return connection_layer(cp, cfg, vx, v_bias, tx, co_bias,
                                 fused_t_ffn=text_fused_ffn,
                                 fused_co_text=text_fused_co, train=train,
@@ -655,21 +668,21 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
 
     if cfg.remat and torch.is_grad_enabled():
         if text_fused_block_train is not None:
-            def t_layer(lp, x):
+            def t_layer(lp, x, t_bias):
                 h = self_attention_block(
                     lp.attention, x, None,
                     num_heads=cfg.num_attention_heads,
                     fused_block_train=text_fused_block_train, rng=rng)
                 return remat(t_ffn, lp, rng, h)
         else:
-            def t_layer(lp, x):
-                return remat(t_fn, lp, rng, x)
+            def t_layer(lp, x, t_bias):
+                return remat(t_fn, lp, rng, x, t_bias)
 
-        def v_layer(lp, x):
-            return remat(v_fn, lp, rng, x)
+        def v_layer(lp, x, v_bias):
+            return remat(v_fn, lp, rng, x, v_bias)
 
-        def c_layer(cp, vx, tx):
-            return remat(c_fn, cp, rng, vx, tx)
+        def c_layer(cp, vx, tx, v_bias, co_bias):
+            return remat(c_fn, cp, rng, vx, tx, v_bias, co_bias)
     else:
         t_layer, v_layer, c_layer = t_fn, v_fn, c_fn
 
@@ -677,26 +690,35 @@ def encoder(p, cfg: VilbertConfig, t_x, v_x, t_bias, v_bias, co_bias, *,
     for count, (v_end, t_end) in enumerate(
             zip(cfg.v_biattention_id, cfg.t_biattention_id)):
         for i in range(v_start, v_end):
-            v_x = v_layer(p.v_layer[i], v_x)
+            v_x = v_layer(p.v_layer[i], v_x, v_bias)
             if i < cfg.fixed_v_layer:
                 v_x = v_x.detach()
         for i in range(t_start, t_end):
             if tap is not None:
                 tap("t", i, t_x)
-            t_x = t_layer(p.layer[i], t_x)
+            t_x = t_layer(p.layer[i], t_x, t_bias)
             if i < cfg.fixed_t_layer:
                 t_x = t_x.detach()
+        if count == 0 and cfg.in_batch_pairs:
+            B = t_x.shape[0]
+            t_x, t_bias, co_bias = (a.repeat_interleave(B, 0)
+                                    for a in (t_x, t_bias, co_bias))
+            v_x, v_bias = (a.repeat(B, *(1,) * (a.dim() - 1))
+                           for a in (v_x, v_bias))
+        if count == 0 and cfg.fast_mode:
+            B = v_x.shape[0]
+            t_x, t_bias = (a.expand(B, *a.shape[1:]) for a in (t_x, t_bias))
         if cfg.with_coattention:
             if tap is not None:
                 tap("c_v", count, v_x)
-            v_x, t_x = c_layer(p.c_layer[count], v_x, t_x)
+            v_x, t_x = c_layer(p.c_layer[count], v_x, t_x, v_bias, co_bias)
         v_start, t_start = v_end, t_end
     for i in range(v_start, cfg.v_num_hidden_layers):
-        v_x = v_layer(p.v_layer[i], v_x)
+        v_x = v_layer(p.v_layer[i], v_x, v_bias)
     for i in range(t_start, cfg.num_hidden_layers):
         if tap is not None:
             tap("t", i, t_x)
-        t_x = t_layer(p.layer[i], t_x)
+        t_x = t_layer(p.layer[i], t_x, t_bias)
     return t_x, v_x
 
 
