@@ -25,12 +25,14 @@ prints its seconds):
      five instances (B6's forward, B9, B4, B5's forward with and without
      dropout) and the attention backward's two kernels (B6's and B5's
      backward) with their shared memory and CTAs an SM, the Hopper GEMM
-     core's instances (K1, K2, B8), K1's attention kernel (with its shared
-     memory and CTAs an SM) and K3's logits kernel (fails on a spill of
-     any), and whether each recorded attention-kernel, gemm_nt_kernel,
-     out_ln_kernel and gemm_nt_wg_kernel instance kept the SASS of the
-     parent commit's build (tools/sass_digest; fails on one that differs
-     under the same nvcc).
+     core's instances (K1, K2, B8, B4, B5), K1's attention kernel (with its
+     shared memory and CTAs an SM) and K3's logits kernel (fails on a
+     spill of any), whether each recorded attention-kernel,
+     gemm_nt_kernel, out_ln_kernel (B10 and B11 alone) and
+     gemm_nt_wg_kernel instance kept the SASS of SASS_RECORD's build
+     (tools/sass_digest; fails on one that differs under the same nvcc),
+     and that B4's and B5's Q/K/V and residual instances of the GEMM core
+     have K1's SASS.
   3. kernels: each kernel against its plain version on the same bf16
      inputs at full width, with the stated tolerance; kernel, plain and
      one-PyTorch-call (``library_ms``) times by CUDA events; the roofline
@@ -44,7 +46,10 @@ prints its seconds):
      per-head context too, bit-equal when rerun, the twin at lc - 1 and on
      options shifted by a row missing the context bound; K3 at M 25600
      and 1000, bit-equal when rerun, the twin on labels one column on and
-     without the last vocab tile missing its bound.
+     without the last vocab tile missing its bound. B4 and B5 bit-equal
+     when rerun, with each kernel's time a call at their main shapes
+     (fails on a launch of the first design's gemm_nt_kernel or
+     out_ln_kernel).
   4. generative path: ``evaluate_split(mode="ll_sum")`` (prefix-cache
      scorer) at the default config (12 text / 6 vision / 6 connection
      layers, hidden 768 / 1024, vocab 30522) from a seeded init over 4
@@ -213,6 +218,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -294,13 +300,14 @@ def seeded_module(make, gen, dev, std=0.02):
 
 # the SASS digests, taken with tools/sass_digest, of the instances of the
 # attention kernels (seq_attn_kernel, seq_attn_fwd_kernel, the backward's
-# seq_attn_bwd_*), of the mma.sync GEMM core gemm_nt_kernel, of
-# out_ln_kernel and of the wgmma + TMA core gemm_nt_wg_kernel in the parent
-# commit of K1's and K3's redesign (43b20da): the instances that stayed
-# (B4, B5, B6, B9, B10, B11, and K2's and B8's on gemm_wg.cuh) must keep
-# that machine code; with K1's and K3's instances since (answer_attn_kernel
-# for whole row blocks keeps the machine code it had before its 16-row-tail
-# instance was added)
+# seq_attn_bwd_*, K1's answer_attn_kernel), of the mma.sync GEMM core
+# gemm_nt_kernel and out_ln_kernel (the bench's probes B10 and B11 alone),
+# of the wgmma + TMA core gemm_nt_wg_kernel and of K3's xent_wg_kernel,
+# recorded when B4's and B5's products moved onto the wgmma core: every
+# instance that stayed has the machine code of the record before (the
+# parent of K1's and K3's redesign, 43b20da, and K1's and K3's instances
+# since), and B4's and B5's Q/K/V and residual instances have K1's
+# (shared_core_sass); the record's "sources" says so
 SASS_RECORD = "unimm_torch/tools/kernel_sass.json"
 
 
@@ -324,12 +331,14 @@ def report_kernels():
     forward at dropout 0 and above; dq and dk / dv for B6, B5 and B5 at
     dropout 0), their shared memory and CTAs an SM at L 256 (the
     runtime), the Hopper GEMM core's (gemm_wg.cuh: gemm_nt_wg_kernel,
-    2 instances each for K1, K2 and B8), K1's attention kernel's two
+    2 instances each for K1, K2, B8 and B4, 4 for B5), K1's attention
+    kernel's two
     instances (whole row blocks and 16-row tails, with their shared
     memory and CTAs an SM) and K3's logits kernel's, failing on a spill;
     then whether each recorded instance kept the SASS of
     SASS_RECORD's build, failing on one that differs under the same
-    nvcc."""
+    nvcc, and that B4's and B5's instances shared with K1 have its SASS
+    (shared_core_sass)."""
     from pathlib import Path
 
     from unimm_torch.ops import answer_block as k1
@@ -342,10 +351,11 @@ def report_kernels():
     report_spills("seq_attn_fwd_kernel", 5)
     report_spills("seq_attn_bwd_dq_kernel", 3)
     report_spills("seq_attn_bwd_dkdv_kernel", 3)
-    # 7: K1's, K2's and B8's two each, and the residual instance that
-    # xent_head.cu compiles with gemm_wg.cuh's launch_gemm_residual_ln and
-    # never launches
-    report_spills("gemm_nt_wg_kernel", 7)
+    # 13: K1's, K2's, B8's and B4's two each, B5's four (Q/K/V, the
+    # output with and without the hidden-dropout mask, dx), and the
+    # residual instance that xent_head.cu compiles with gemm_wg.cuh's
+    # launch_gemm_residual_ln and never launches
+    report_spills("gemm_nt_wg_kernel", 13)
     report_spills("answer_attn_kernel", 2)
     report_spills("xent_wg_kernel", 1)
     print(json.dumps({"answer_attn_kernel": {
@@ -372,6 +382,35 @@ def report_kernels():
     differ = [k for k, v in cmp.items() if v == "differs"]
     if differ and nvcc == recorded["nvcc"]:
         raise SystemExit(f"SASS differs from {SASS_RECORD}: {differ}")
+    shared_core_sass(current)
+
+
+# the GEMM core's instances that B4 and B5 share with K1: one kernel, one
+# epilogue, so one machine code whichever source compiles it
+SHARED_CORE = ("QkvEpi", "ResidualEpi")
+
+
+def shared_core_sass(current):
+    """Fail unless attention_block.cu's and attention_block_train.cu's
+    gemm_nt_wg_kernel instances of SHARED_CORE's epilogues have the SASS
+    digests of answer_block.cu's."""
+    def digest(src, epi):
+        found = [v for k, v in current.items()
+                 if k.startswith(f"{src}: ")
+                 and f"gemm_nt_wg_kernel<<unnamed>::{epi}>" in k]
+        if len(found) != 1:
+            raise SystemExit(f"{src}: {len(found)} gemm_nt_wg_kernel<{epi}> "
+                             f"instances")
+        return found[0]
+    same = {f"{src} {epi}": digest(src, epi) == digest("answer_block.cu",
+                                                       epi)
+            for src in ("attention_block.cu", "attention_block_train.cu")
+            for epi in SHARED_CORE}
+    print(json.dumps({"gemm_core_shared_with_answer_block": same}),
+          flush=True)
+    if not all(same.values()):
+        raise SystemExit(f"B4 / B5's GEMM core instances differ from K1's: "
+                         f"{same}")
 
 
 # ---------------------------------------------------------------------------
@@ -816,10 +855,31 @@ def library_block(attn, x, mask, H=12):
                         1e-12)
 
 
-def check_attention_block(dev, gen, L, desc_fn, B=256):
+# the first design's GEMM launches, which only the bench's probes (B10,
+# B11) keep
+FIRST_DESIGN = ("gemm_nt_kernel", "out_ln_kernel")
+
+
+def core_launches(name, fn):
+    """{kernel: mean device ms a call} of each kernel one ``fn()`` call
+    launches (tools/bench_bwd.sub_kernels: torch.profiler over 5 calls),
+    the names without their namespaces and arguments; fails if one is of
+    FIRST_DESIGN."""
+    from unimm_torch.tools.bench_bwd import sub_kernels
+    out = {}
+    for k, ms in sub_kernels(fn).items():
+        k = re.sub(r"^void |\(anonymous namespace\)::", "", k).split("(")[0]
+        out[k] = out.get(k, 0.0) + ms
+    if any(d in k for k in out for d in FIRST_DESIGN):
+        raise SystemExit(f"{name}: launches the first design's GEMM: {out}")
+    return out
+
+
+def check_attention_block(dev, gen, L, desc_fn, B=256, split=False):
     """B4 against its plain twin on the same bf16 inputs, weights at
-    WIDE_STD. The control, the twin on the flipped descriptors, must miss
-    the same bound."""
+    WIDE_STD, and bit-equal when rerun. The control, the twin on the
+    flipped descriptors, must miss the same bound. ``split``: each
+    kernel's time a call too (core_launches)."""
     from unimm_torch.models import vilbert
     from unimm_torch.ops.attention_block import (attention_block,
                                                  attention_block_plain)
@@ -843,6 +903,7 @@ def check_attention_block(dev, gen, L, desc_fn, B=256):
         return library_block(attn, x, mask, H)
 
     got, want = kern(), plain()
+    same = torch.equal(got, kern())
     torch.cuda.synchronize()
     err, rel, ok = within(got, want, *TOL["attention_block"])
     wrong = attention_block_plain(x, flip_mode(desc), attn, num_heads=H)
@@ -855,9 +916,12 @@ def check_attention_block(dev, gen, L, desc_fn, B=256):
     flops = 8 * M * Hd * Hd + 4 * B * L * L * Hd
     nbytes = 2 * M * Hd * 2 + B * 3 * 4 + (4 * (Hd * Hd + Hd) + 2 * Hd) * 2
     b_ms, b_by = bound(flops, nbytes)
+    extra = {"launch_ms": core_launches("attention_block", kern)} \
+        if split else {}
     return dict(shape=f"[{B}, {L}, {Hd}] {desc_fn.__name__}",
-                max_abs_err=err, max_rel_err=rel, ok=ok,
-                control_max_abs_err=c_err, ms=time_ms(kern, 10),
+                max_abs_err=err, max_rel_err=rel, ok=ok and same,
+                bit_equal=same, control_max_abs_err=c_err,
+                ms=time_ms(kern, 10), **extra,
                 plain_ms=time_ms(plain, 3, 1), bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(library, 10))
 
@@ -954,14 +1018,16 @@ def rel_err(got, want):
     return float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
 
 
-def check_attention_block_train(dev, gen, B, L, desc_fn, drop=0.1):
+def check_attention_block_train(dev, gen, B, L, desc_fn, drop=0.1,
+                                split=False):
     """B5's forward and backward kernels against their plain twins on the
     same bf16 inputs, Philox seed and hidden-dropout mask: two result
     dicts (forward, backward). The controls hold the kernels' outputs
     against the plain twins under another Philox seed: that must fail both
     forward bounds and the backward's bound for each output, or the check
-    could not see a wrong mask. The backward run again on the same inputs
-    must give the same bits."""
+    could not see a wrong mask. Each kernel run again on the same inputs
+    must give the same bits. ``split``: each kernel's time a call too
+    (core_launches)."""
     import torch.nn.functional as F
     from unimm_torch.models import vilbert
     from unimm_torch.ops import attention_block_train as abt
@@ -1026,6 +1092,10 @@ def check_attention_block_train(dev, gen, B, L, desc_fn, drop=0.1):
                             1e-12)
 
     (y, ctx), (y_p, ctx_p) = fwd(), fwd_plain()
+    f_same = all(torch.equal(a, b) for a, b in zip((y, ctx), fwd()))
+    if not f_same:
+        raise SystemExit("attention_block_train_fwd: two runs on the same "
+                         "inputs differ")
     got, want = bwd(), bwd_plain()
     torch.cuda.synchronize()
     f_err, f_rel, f_ok = within(y, y_p, *TOL["attention_block_train_fwd"])
@@ -1075,7 +1145,8 @@ def check_attention_block_train(dev, gen, B, L, desc_fn, drop=0.1):
                     ctx_max_abs_err=c_err, ctx_rel_err=c_rel,
                     ctx_rel_tol=B5_CTX_REL,
                     ctx_max_abs=float(ctx_p.float().abs().max()),
-                    other_seed=control, ok=f_ok and c_ok, ms=time_ms(fwd, 10),
+                    other_seed=control, same_bits=f_same, ok=f_ok and c_ok,
+                    ms=time_ms(fwd, 10),
                     plain_ms=time_ms(fwd_plain, 2, 1), bound_ms=fb_ms,
                     bound_by=fb_by, library_ms=time_ms(library_fwd, 10))
     with torch.enable_grad():
@@ -1091,6 +1162,11 @@ def check_attention_block_train(dev, gen, B, L, desc_fn, drop=0.1):
                         ok=b_ok, ms=time_ms(bwd, 10),
                         plain_ms=time_ms(bwd_plain, 2, 1), bound_ms=bb_ms,
                         bound_by=bb_by, library_ms=time_ms(library_bwd, 10))
+    if split:
+        fwd_case["launch_ms"] = core_launches("attention_block_train_fwd",
+                                              fwd)
+        bwd_case["launch_ms"] = core_launches("attention_block_train_bwd",
+                                              bwd)
     return fwd_case, bwd_case
 
 
@@ -1540,8 +1616,10 @@ def phase_kernels(dev):
         # with every kind of descriptor, the longest with the same, and the
         # masked tails (the chunks the one-pass attention skips, and rows
         # that weigh every key, in one 16-row tile)
-        "attention_block": [check_attention_block(dev, gen, 192, dis_desc),
-                            check_attention_block(dev, gen, 256, dis_desc),
+        "attention_block": [check_attention_block(dev, gen, 192, dis_desc,
+                                                  split=True),
+                            check_attention_block(dev, gen, 256, dis_desc,
+                                                  split=True),
                             check_attention_block(dev, gen, 32, edge_desc),
                             check_attention_block(dev, gen, 256, edge_desc,
                                                   B=20),
@@ -1559,7 +1637,8 @@ def phase_kernels(dev):
     # length with a half key chunk, with and without attention dropout
     # (phase 8 (a) trains at dropout 0: the kernels' other instances), then
     # the masked tails with dropout (skipped chunks draw nothing)
-    b5 = [check_attention_block_train(dev, gen, 240, 256, train_desc),
+    b5 = [check_attention_block_train(dev, gen, 240, 256, train_desc,
+                                      split=True),
           check_attention_block_train(dev, gen, 20, 96, edge_desc),
           check_attention_block_train(dev, gen, 20, 96, edge_desc,
                                       drop=0.0),

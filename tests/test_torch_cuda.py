@@ -7,7 +7,10 @@ controls that must miss and bit-equal reruns), plus
 the wrappers' refusals, a short prefix-scorer run through
 its three kernels, a short flat-scorer run through its three, and the
 training attention block (forward and backward, with dropout, the
-backward's other-seed control and bit-equal reruns) and the fused AdamW,
+backward's other-seed control and bit-equal reruns; B4's and B5's
+products on the wgmma + TMA core: bit-equal reruns, B5's dx at the
+training morsels' lengths, no launch of the first design's mma.sync core
+or out_ln_kernel) and the fused AdamW,
 the per-head text attention kernels (forward, backward and attention_v2,
 the skipped chunks of the one-pass forward and of the tiled backward,
 both designs' fit on the card), and the attention-block bench's probes
@@ -547,6 +550,91 @@ def test_attention_block_train_autograd(dev):
         # which the softmax is blind: its gradient is rounding noise
         if name != "bk":
             assert _rel_err(g.cpu(), w) <= 3e-2, name
+
+
+def _block_calls(dev, B, L, seed):
+    """One call each of B4, B5's forward with and without the
+    hidden-dropout mask and B5's backward, on one set of bf16 inputs at
+    weight std 0.05: {name: call}."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    attn = _wide_attention(gen, dev)
+    ws = tuple(t.contiguous() for t in tab._weights(attn))
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    dctx = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = _mixed_desc(B, L, np.random.default_rng(seed)).to(dev)
+    m_o = ((torch.rand(B, L, 768, generator=gen, device=dev) > 0.1).float()
+           / 0.9)
+    kw = dict(num_heads=12, attn_drop=0.1)
+    return {
+        "attention_block": lambda: (tatb.attention_block(
+            x, desc, attn, num_heads=12),),
+        "attention_block_train_fwd mo":
+            lambda: tabt.attention_block_train_fwd(x, desc, 77, m_o, *ws,
+                                                   **kw),
+        "attention_block_train_fwd":
+            lambda: tabt.attention_block_train_fwd(
+                x, desc, 77, None, *ws, num_heads=12, attn_drop=0.0),
+        "attention_block_train_bwd": lambda: tabt.attention_block_train_bwd(
+            x, dctx, desc, 77, *ws[:6], **kw)}
+
+
+@pytest.mark.parametrize("name", ["attention_block",
+                                  "attention_block_train_fwd mo",
+                                  "attention_block_train_fwd",
+                                  "attention_block_train_bwd"])
+def test_block_kernels_on_the_core_give_the_same_bits(dev, name):
+    """B4 and B5 on the GEMM core (each tile's sums in one fixed order, no
+    atomics): two runs on the same inputs give the same bits."""
+    call = _block_calls(dev, 6, 160, 21)[name]
+    for a, b in zip(call(), call()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L", [64, 128, 256])
+def test_attention_block_train_bwd_dx_at_morsel_lengths(dev, L):
+    """B5's backward at the training morsels' lengths (64, 128 and 256
+    tokens): dx_qkv, the GEMM core's K 2304 product, and dq, dk, dv within
+    2% of their largest entry of the twin."""
+    gen = torch.Generator(device=dev).manual_seed(L + 9)
+    B = 60 if L < 256 else 12
+    attn = _wide_attention(gen, dev)
+    ws = tuple(t.contiguous() for t in tab._weights(attn))
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    dctx = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = chip_smoke.train_desc(B, L, gen)
+    kw = dict(num_heads=12, attn_drop=0.1)
+    got = tabt.attention_block_train_bwd(x, dctx, desc, 77, *ws[:6], **kw)
+    want = tabt.attention_block_train_bwd_plain(x, dctx, desc, 77, *ws[:6],
+                                                **kw)
+    for name, g, w in zip(("dx", "dq", "dk", "dv"), got, want):
+        assert _rel_err(g, w) <= 2e-2, name
+
+
+def _launched(call, calls=3):
+    """The names of the CUDA kernels ``calls`` calls launch, each once
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def test_block_wrappers_launch_only_the_gemm_core(dev):
+    """B4's and B5's wrappers launch their products on the wgmma + TMA
+    core, two instances each (Q/K/V and the output or dx epilogue), and
+    none on the first design's mma.sync core or out_ln_kernel (which only
+    the bench's probes keep)."""
+    for name, call in _block_calls(dev, 4, 128, 22).items():
+        names = _launched(call)
+        assert not [n for n in names if "gemm_nt_kernel" in n
+                    or "out_ln_kernel" in n], (name, names)
+        wg = [n for n in names if "gemm_nt_wg_kernel" in n]
+        assert len(wg) == 2, (name, names)
 
 
 @pytest.mark.parametrize("shape", [(30522, 768), (768,), (1001,), (3, 5)])

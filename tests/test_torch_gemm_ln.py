@@ -1,18 +1,26 @@
 """The residual + LayerNorm that ends K2 (``ffn_block``: W2 + b2 +
-residual + LayerNorm) and B8 (``co_text_block``: dense2 + bd2 + residual
-+ LayerNorm2) on the Hopper GEMM core (csrc/gemm_wg.cuh,
-``launch_gemm_residual_ln``), emulated in plain PyTorch in fp32 in the
-kernels' order of work: the product's epilogue forms h = (acc + bias) + x
-in fp32 (``ResidualEpi``); ``ln_rows_kernel`` gives each row to a warp,
+residual + LayerNorm), B8 (``co_text_block``: dense2 + bd2 + residual +
+LayerNorm2), B4 (``attention_block``: Wo + bo + residual + LayerNorm) and
+B5's forward (``attention_block_train_fwd``: the same with the
+hidden-dropout scale mask m_o) on the Hopper GEMM core (csrc/gemm_wg.cuh,
+``launch_gemm_residual_ln`` / ``launch_gemm_ln``), emulated in plain
+PyTorch in fp32 in the kernels' order of work: the product's epilogue
+forms h = (acc + bias) + x in fp32 (``ResidualEpi``), or h = (acc + bias)
+* m_o + x (``MaskedResidualEpi``, the order of the TPU kernel's
+``_train_fwd_kernel``); ``ln_rows_kernel`` gives each row to a warp,
 lane l adds its 24 columns l + 32 j in order of j, the warp's butterfly
 (xor 16, 8, 4, 2, 1) adds the lanes; mean first, then the sum of squared
 deviations from it (two passes); y = (h - mean) rsqrt(var + eps) gamma +
 beta. (A tile that owns 64 rows and all 768 columns and runs the
 LayerNorm on its accumulators lost to this route on an H100, PERF.md
 section 6.) Held at full width against the plain twins (``ffn_block_plain``,
-``co_text_block_plain``) and the JAX package's Pallas kernels in
-interpret mode; a control with the one-pass variance E[h^2] - mean^2 on
-rows offset by 1e3 must miss the bound the two-pass order holds there.
+``co_text_block_plain``, ``attention_block_plain``,
+``attention_block_train_fwd_plain``) and the JAX package's Pallas kernels
+in interpret mode; a control with the one-pass variance E[h^2] - mean^2 on
+rows offset by 1e3 must miss the bound the two-pass order holds there,
+and one with m_o applied after the residual must miss the twin. The
+attention blocks' wrappers take every (B, L) of the flat path and the
+training morsels and refuse what the core does not take.
 This is the algorithm's proof where there is no card; the kernels
 themselves are held in tests/test_torch_cuda.py and chip_smoke.py."""
 
@@ -25,6 +33,8 @@ import torch
 import jax.numpy as jnp
 
 from unimm_torch.models.vilbert import ACT
+from unimm_torch.ops import attention_block as tatb
+from unimm_torch.ops import attention_block_train as tabt
 from unimm_torch.ops import co_text_block as tco
 from unimm_torch.ops import ffn_block as tfb
 from unimm_tpu.ops import pallas_attention_v2 as pattn2
@@ -57,6 +67,18 @@ def _row_sums(v):
     return s[:, 0]
 
 
+def ln_rows(h, gamma, beta, eps=EPS, one_pass=False):
+    """ln_rows_kernel's LayerNorm of each row of h [M, 768] fp32;
+    ``one_pass`` is the control's variance."""
+    mean = _row_sums(h) / HID
+    if one_pass:
+        var = _row_sums(h * h) / HID - mean * mean
+    else:
+        var = _row_sums((h - mean[:, None]).square()) / HID
+    rstd = torch.rsqrt(var + eps)
+    return (h - mean[:, None]) * rstd[:, None] * gamma.float() + beta.float()
+
+
 def residual_ln(a, w, bias, x, gamma, beta, eps=EPS, one_pass=False):
     """LN(fp32(a w^T) + bias + x) * gamma + beta as the residual epilogue
     and ln_rows_kernel take it, in fp32; ``one_pass`` is the control's
@@ -65,14 +87,7 @@ def residual_ln(a, w, bias, x, gamma, beta, eps=EPS, one_pass=False):
     a = a.reshape(-1, a.shape[-1]).float()
     x = x.reshape(-1, HID).float()
     h = (a @ w.float().t() + bias.float()) + x
-    mean = _row_sums(h) / HID
-    if one_pass:
-        var = _row_sums(h * h) / HID - mean * mean
-    else:
-        var = _row_sums((h - mean[:, None]).square()) / HID
-    rstd = torch.rsqrt(var + eps)
-    y = (h - mean[:, None]) * rstd[:, None] * gamma.float() + beta.float()
-    return y.reshape(shape)
+    return ln_rows(h, gamma, beta, eps, one_pass).reshape(shape)
 
 
 def _linear(rng, n_out, n_in, std):
@@ -232,3 +247,183 @@ def test_ffn_wrapper_refuses_a_width_the_tile_does_not_take():
         tfb.ffn_block(x, *meta_layer(3200))
     with pytest.raises(ValueError, match="unsupported device meta"):
         tfb.ffn_block(x, *meta_layer(INTER))
+
+
+# --- B4 and B5's forward: the output side on the GEMM core ------------------
+
+BLOCK_H = 12             # heads of 64 at the kernels' width
+
+
+def _block_inputs(seed, B=2, L=32):
+    """x, desc, the hidden-dropout scale mask m_o (rate 0.1) and the ten
+    weights [out, in] (std 0.05, so that y sees its attention) of one
+    attention sub-block at full width, from numpy."""
+    rng = np.random.default_rng(seed)
+    ws = []
+    for _ in range(4):                     # query, key, value, output
+        ws += _linear(rng, HID, HID, 0.05)
+    ws += _ln(rng, HID)
+    x = rng.normal(size=(B, L, HID)).astype(np.float32)
+    desc = np.asarray([(0, L - 7, 0), (1, L - 4, 5)][:B], np.int32)
+    m_o = ((rng.random((B, L, HID)) >= 0.1) / 0.9).astype(np.float32)
+    return x, desc, m_o, ws
+
+
+def _block_module(ws):
+    t = torch.from_numpy
+
+    def lin(i):
+        return SimpleNamespace(weight=t(ws[i]), bias=t(ws[i + 1]))
+    return SimpleNamespace(
+        self=SimpleNamespace(query=lin(0), key=lin(2), value=lin(4)),
+        output=SimpleNamespace(dense=lin(6), LayerNorm=SimpleNamespace(
+            weight=t(ws[8]), bias=t(ws[9]))))
+
+
+def block_out_ln(ctx, wo, bo, x, gamma, beta, m_o=None, mo_after=False):
+    """The blocks' output side as the core's epilogue and ln_rows_kernel
+    take it, in fp32: h = (ctx wo^T + bo) + x (``ResidualEpi``), or
+    (ctx wo^T + bo) * m_o + x (``MaskedResidualEpi``); ``mo_after`` is the
+    control, ((ctx wo^T + bo) + x) * m_o."""
+    shape = x.shape
+    acc = ctx.reshape(-1, HID).float() @ wo.float().t()
+    x = x.reshape(-1, HID).float()
+    h = acc + bo.float()
+    if m_o is not None and not mo_after:
+        h = h * m_o.reshape(-1, HID)
+    h = h + x
+    if m_o is not None and mo_after:
+        h = h * m_o.reshape(-1, HID)
+    return ln_rows(h, gamma, beta).reshape(shape)
+
+
+def _block_case(seed, with_mo, mo_after=False):
+    """(the emulated route, the plain twin, the fp32 tensors) of one
+    case: B4 (``with_mo`` None), B5 with m_o (True) or without (False)."""
+    x, desc, m_o, ws = _block_inputs(seed)
+    xt, dt, mt = (torch.from_numpy(a) for a in (x, desc, m_o))
+    tws = [torch.from_numpy(w) for w in ws]
+    mo = mt if with_mo else None
+    # the context of both blocks' twins (fp32: identical arithmetic)
+    _, ctx = tabt.attention_block_train_fwd_plain(
+        xt, dt, 0, None, *tws, num_heads=BLOCK_H, attn_drop=0.0)
+    got = block_out_ln(ctx, tws[6], tws[7], xt, tws[8], tws[9], mo,
+                       mo_after)
+    if with_mo is None:
+        twin = tatb.attention_block_plain(xt, dt, _block_module(ws),
+                                          num_heads=BLOCK_H)
+    else:
+        twin, _ = tabt.attention_block_train_fwd_plain(
+            xt, dt, 0, mo, *tws, num_heads=BLOCK_H, attn_drop=0.0)
+    return got, twin, (x, desc, m_o, ws)
+
+
+@pytest.mark.parametrize("with_mo", [None, True, False],
+                         ids=["B4", "B5_mo", "B5_no_mo"])
+def test_block_out_ln_order_matches_twin_and_jax(with_mo):
+    """B4's and B5's forward output side in the new route's order on the
+    twin's context, at full width, against the twins and JAX's
+    fused_attention_block / fused_attention_block_train (attention
+    dropout 0; m_o all ones where the torch side has none) in interpret
+    mode."""
+    got, twin, (x, desc, m_o, ws) = _block_case(11, with_mo)
+    torch.testing.assert_close(got, twin, **TOL_TWIN)
+    jx, jd = jnp.asarray(x), jnp.asarray(desc)
+    if with_mo is None:
+        def jlin(i):
+            return {"kernel": jnp.asarray(ws[i].T),
+                    "bias": jnp.asarray(ws[i + 1])}
+        jp = {"self": {"query": jlin(0), "key": jlin(2), "value": jlin(4)},
+              "output": {"dense": jlin(6),
+                         "LayerNorm": {"weight": jnp.asarray(ws[8]),
+                                       "bias": jnp.asarray(ws[9])}}}
+        want = pattn2.fused_attention_block(jx, jd, jp, num_heads=BLOCK_H,
+                                            interpret=True)
+    else:
+        jm = jnp.asarray(m_o if with_mo else np.ones_like(m_o))
+        jw = [jnp.asarray(w.T if w.ndim == 2 else w) for w in ws]
+        want = pattn2.fused_attention_block_train(
+            BLOCK_H, 0.0, True, jx, jd, jnp.array([3], jnp.int32), jm, *jw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL_JAX)
+
+
+def test_block_mask_after_residual_misses():
+    """The control: m_o applied after the residual instead of before it
+    misses the twin's bound that the kernel's order holds."""
+    got, twin, _ = _block_case(12, True, mo_after=True)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got, twin, **TOL_TWIN)
+
+
+def _meta_block(B, L, width=HID):
+    """x, desc, the ten weights and dctx as meta tensors: the wrappers'
+    checks run on them and stop at the device check."""
+    def m(*shape, dtype=torch.bfloat16):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+    ws = [m(width, HID), m(width), m(width, HID), m(width), m(width, HID),
+          m(width), m(HID, width), m(HID), m(HID), m(HID)]
+    return m(B, L, HID), m(B, 3, dtype=torch.int32), ws, m(B, L, HID)
+
+
+def _block_wrappers(x, desc, ws, dctx):
+    """Each block wrapper called on the tensors."""
+    kw = dict(num_heads=BLOCK_H, attn_drop=0.1)
+    return {
+        "attention_block": lambda: tatb.attention_block(
+            x, desc, _meta_module(ws), num_heads=BLOCK_H),
+        "attention_block_train_fwd": lambda: tabt.attention_block_train_fwd(
+            x, desc, 1, None, *ws, **kw),
+        "attention_block_train_bwd": lambda: tabt.attention_block_train_bwd(
+            x, dctx, desc, 1, *ws[:6], **kw)}
+
+
+def _meta_module(ws):
+    def lin(i):
+        return SimpleNamespace(weight=ws[i], bias=ws[i + 1])
+    return SimpleNamespace(
+        self=SimpleNamespace(query=lin(0), key=lin(2), value=lin(4)),
+        output=SimpleNamespace(dense=lin(6), LayerNorm=SimpleNamespace(
+            weight=ws[8], bias=ws[9])))
+
+
+# the rows of the paths' calls: the flat path's 256-row chunks, a split
+# world's 128-row half chunks, short last chunks; the training batch (240),
+# its morsels under accumulation (60, 80, 120), a data-parallel rank's
+# (120, 50) and the dense step's (100)
+PATH_ROWS = (1, 37, 50, 60, 80, 100, 120, 128, 240, 255, 256)
+
+
+@pytest.mark.parametrize("L", range(32, 257, 32))
+def test_block_wrappers_take_every_path_shape(L):
+    """Every (B, L) the flat path and the training morsels give B4 and B5
+    passes every check of their wrappers (meta tensors then stop at the
+    device check), the GEMM core's rule included: M = B L >= 1, N 768,
+    K 768 and 2304."""
+    for B in PATH_ROWS:
+        assert all(tatb.core_takes(B * L, N, K)
+                   for N, K in tabt.BWD_PRODUCTS + tatb.BLOCK_PRODUCTS)
+        for name, call in _block_wrappers(*_meta_block(B, L)).items():
+            with pytest.raises(ValueError, match="unsupported device meta"):
+                call()
+
+
+@pytest.mark.parametrize("B,L,match", [
+    (0, 64, "GEMM core does not take M 0"),
+    (2, 48, "multiple of 32"), (2, 16, "multiple of 32"),
+    (2, 288, "multiple of 32")])
+def test_block_wrappers_refuse_what_the_kernels_do_not_take(B, L, match):
+    """No rows (the core's M >= 1) and lengths the attention does not take
+    are refused by each wrapper before any launch."""
+    for name, call in _block_wrappers(*_meta_block(B, L)).items():
+        with pytest.raises(ValueError, match=match):
+            call()
+
+
+@pytest.mark.parametrize("M,N,K", [(0, 768, 768), (64, 640, 768),
+                                   (64, 768, 720), (64, 128, 768),
+                                   (64, 768, 32)])
+def test_core_rule_refuses_shapes_off_its_tiles(M, N, K):
+    """The core's rule (``launch_gemm_nt_wg``'s) refuses no rows, a width
+    that is not a multiple of 256 and a depth that is not one of 64."""
+    assert not tatb.core_takes(M, N, K)
+    assert tatb.core_takes(64, 768, 768) and tatb.core_takes(1, 768, 2304)

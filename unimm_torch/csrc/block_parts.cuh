@@ -1,6 +1,8 @@
-// The output projection + residual + LayerNorm launch shared by the
-// attention-style sub-block kernels (answer_block.cu, attention_block.cu,
-// attention_block_train.cu, block_probe.cu).
+// The output projection + residual + LayerNorm launch of the first design
+// of the attention-style sub-block kernels, kept for the bench's probes
+// (block_probe.cu, B10 and B11) alone: the answer block and the attention
+// blocks run their output projection on gemm_wg.cuh's
+// launch_gemm_residual_ln.
 #pragma once
 
 #include "common.cuh"
@@ -9,12 +11,13 @@ namespace {
 
 // ---- output projection + residual + LayerNorm -----------------------------
 // out = LN(fp32(ctx Wo^T) + bo + x) * gamma + beta for ctx [M, K] and
-// Wo [768, K] (K % 32 == 0), x and out [M, 768]; with a hidden-dropout
-// scale mask mo [M, 768] fp32 (training) the sum is (fp32(ctx Wo^T) + bo)
-// * mo + x. One CTA per 32 rows holds
-// all 768 output columns, so the LayerNorm runs in the same launch: 8 warps,
-// warp w computes columns [96 w, 96 w + 96) of both 16-row halves (24
-// accumulator tiles), Wo streamed in k slices of 32.
+// Wo [768, K] (K % 32 == 0), x and out [M, 768]. (The kernel still takes
+// a hidden-dropout scale mask mo [M, 768] fp32, the sum then (fp32(ctx
+// Wo^T) + bo) * mo + x, from when the training block used it, so that its
+// machine code stays the probes'; the launcher passes none.) One CTA per
+// 32 rows holds all 768 output columns, so the LayerNorm runs in the same
+// launch: 8 warps, warp w computes columns [96 w, 96 w + 96) of both
+// 16-row halves (24 accumulator tiles), Wo streamed in k slices of 32.
 constexpr int OL_ROWS = 32, OL_THREADS = 256, OL_BK = 32, OL_LD = OL_BK + 8;
 constexpr int OL_LDC = HID + 4;  // pitch of the fp32 pre-LayerNorm tile
 
@@ -113,7 +116,7 @@ __global__ void __launch_bounds__(OL_THREADS)
 cudaError_t launch_out_ln(const void* ctx, const void* x, const void* wo,
                           const void* bo, const void* gamma, const void* beta,
                           float eps, void* out, int M, int K,
-                          cudaStream_t st, const float* mo = nullptr) {
+                          cudaStream_t st) {
   const size_t smem = out_ln_smem_bytes();
   cudaFuncSetAttribute(out_ln_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -121,8 +124,8 @@ cudaError_t launch_out_ln(const void* ctx, const void* x, const void* wo,
   out_ln_kernel<<<(M + OL_ROWS - 1) / OL_ROWS, OL_THREADS, smem, st>>>(
       static_cast<const bf16*>(ctx), static_cast<const bf16*>(x),
       static_cast<const bf16*>(wo), static_cast<const bf16*>(bo),
-      static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta), mo,
-      eps, static_cast<bf16*>(out), M, K);
+      static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta),
+      nullptr, eps, static_cast<bf16*>(out), M, K);
   return cudaGetLastError();
 }
 

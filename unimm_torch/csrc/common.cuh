@@ -1,7 +1,10 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// Matrix products use mma.sync m16n8k16 (bf16 in, fp32 accumulators) with
-// fragments loaded by ldmatrix from shared memory that cp.async fills.
+// The mma.sync m16n8k16 building blocks (bf16 in, fp32 accumulators, with
+// fragments loaded by ldmatrix from shared memory that cp.async fills),
+// the first design's GEMM core (gemm_nt_kernel: now the bench's probes'
+// alone; the block kernels' products run on gemm_wg.cuh), the projection
+// epilogues and the row LayerNorm.
 // Everything here is internal linkage: each .cu is compiled on its own and
 // the objects are linked into one shared library.
 #pragma once
@@ -150,6 +153,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
 // past M are zero-filled and never stored. blockIdx.z selects one of up to
 // three B matrices (the Q/K/V projections share A). The epilogue is called
 // as epi(z, row, col, v0, v1) for the two adjacent columns col, col + 1.
+// Launched by the bench's probes (block_probe.cu, B10 and B11) alone.
 // --------------------------------------------------------------------------
 constexpr int GM_BM = 128, GM_BN = 128, GM_BK = 64, GM_LD = GM_BK + 8;
 constexpr int GM_STAGES = 3, GM_THREADS = 256;

@@ -1,8 +1,11 @@
-// Hopper GEMM core of the FFN block (ffn_block.cu, K2) and of the
-// co-attention text block (co_text_block.cu, B8): C[M, N] = A[M, K]
-// B[N, K]^T (both K-contiguous, the torch Linear layout), up to three B
-// matrices (grid z), on wgmma with TMA loads; the other kernels keep
-// common.cuh's mma.sync core.
+// Hopper GEMM core of every product of the port's block kernels: the FFN
+// block (ffn_block.cu, K2), the co-attention text block (co_text_block.cu,
+// B8), the answer block (answer_block.cu, K1) and the whole-sequence
+// attention blocks (attention_block.cu, B4; attention_block_train.cu, B5):
+// C[M, N] = A[M, K] B[N, K]^T (both K-contiguous, the torch Linear
+// layout), up to three B matrices (grid z), on wgmma with TMA loads. Only
+// the bench's probes (block_probe.cu, B10 and B11) keep common.cuh's
+// mma.sync core and block_parts.cuh's out_ln_kernel, as their first design.
 //
 // gemm_nt_wg_kernel<Epi>: CTA tiles of 128 x 256, k step 64. A producer
 // warpgroup (one thread issues) keeps 2-D TMA loads (cp.async.bulk.tensor,
@@ -39,7 +42,9 @@
 // launch_gemm_residual_ln: y = LN(fp32(A W^T) + bias + x) * gamma + beta for
 // W [768, K]: the product with the bias + residual epilogue into an fp32
 // [M, 768] buffer, then a one-warp-a-row LayerNorm (ln_rows_kernel,
-// common.cuh's ln_row_store: two-pass fp32 statistics).
+// common.cuh's ln_row_store: two-pass fp32 statistics). launch_gemm_ln
+// takes any such fp32 epilogue: the training block's MaskedResidualEpi,
+// (acc + bias) * mo + x, goes through it.
 #pragma once
 
 #include <cuda.h>
@@ -383,6 +388,31 @@ struct ResidualEpi {  // pre = (acc + bias) + x, fp32
   }
 };
 
+// pre = (acc + bias) * mo + x, fp32, for a hidden-dropout scale mask mo
+// [M, 768] fp32: the order of the TPU kernel's _train_fwd_kernel, each
+// step rounded once (no fused multiply-add). A type of its own, so that
+// ResidualEpi's instances keep their machine code.
+struct MaskedResidualEpi {
+  static constexpr bool VEC = false;
+  const bf16* bias;
+  const bf16* x;
+  const float* mo;
+  float* pre;
+  __device__ __forceinline__ MaskedResidualEpi at(int) const { return *this; }
+  __device__ __forceinline__ void operator()(long row, int col, float v0,
+                                             float v1) const {
+    const long i = row * HID + col;
+    const float2 b = __bfloat1622float2(
+        __ldg(reinterpret_cast<const __nv_bfloat162*>(bias + col)));
+    const float2 r = __bfloat1622float2(
+        __ldg(reinterpret_cast<const __nv_bfloat162*>(x + i)));
+    const float2 m = __ldg(reinterpret_cast<const float2*>(mo + i));
+    *reinterpret_cast<float2*>(pre + i) =
+        make_float2(__fadd_rn(__fmul_rn(v0 + b.x, m.x), r.x),
+                    __fadd_rn(__fmul_rn(v1 + b.y, m.y), r.y));
+  }
+};
+
 constexpr int LN_WARPS = 8;
 
 // y = (h - mean) * rsqrt(var + eps) * gamma + beta, one warp per row
@@ -401,6 +431,21 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
   ln_row_store(v, gamma, beta, eps, out + row * HID, lane);
 }
 
+// out = LN(e.pre) * gamma + beta: the product g (N 768) through the fp32
+// pre-LayerNorm epilogue e (ResidualEpi, MaskedResidualEpi) into e.pre
+// [M, 768], then ln_rows_kernel
+template <class Epi>
+cudaError_t launch_gemm_ln(const GemmArgs& g, const Epi& e,
+                           const void* gamma, const void* beta, float eps,
+                           void* out, cudaStream_t st) {
+  cudaError_t err = launch_gemm_nt_wg(g, 1, e, st);
+  if (err != cudaSuccess) return err;
+  ln_rows_kernel<<<(g.M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
+      e.pre, static_cast<const bf16*>(gamma),
+      static_cast<const bf16*>(beta), eps, static_cast<bf16*>(out), g.M);
+  return cudaGetLastError();
+}
+
 // out = LN(fp32(a W^T) + bias + x) * gamma + beta for a [M, K], W [768, K]
 // (K % 64 == 0), x and out [M, 768], through pre [M, 768] fp32
 cudaError_t launch_gemm_residual_ln(const void* a, const void* w,
@@ -413,12 +458,7 @@ cudaError_t launch_gemm_residual_ln(const void* a, const void* w,
                    K};
   const ResidualEpi e{static_cast<const bf16*>(bias),
                       static_cast<const bf16*>(x), static_cast<float*>(pre)};
-  cudaError_t err = launch_gemm_nt_wg(g, 1, e, st);
-  if (err != cudaSuccess) return err;
-  ln_rows_kernel<<<(M + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, st>>>(
-      static_cast<const float*>(pre), static_cast<const bf16*>(gamma),
-      static_cast<const bf16*>(beta), eps, static_cast<bf16*>(out), M);
-  return cudaGetLastError();
+  return launch_gemm_ln(g, e, gamma, beta, eps, out, st);
 }
 
 }  // namespace

@@ -41,10 +41,12 @@ _SIGNATURES = {
     "unimm_ffn_block": [_VP] * 10 + [_INT] * 3 + [_F32, _VP],
     # hidden, labels, decoder, bias, partials, label logits, nll; M, V
     "unimm_xent_head": [_VP] * 7 + [_INT] * 2 + [_VP],
-    # ...; B, L, block_b; eps
-    "unimm_attention_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
+    # x, desc, ten weights, q, k, v, ctx, pre, out; B, L, block_b; eps
+    "unimm_attention_block": [_VP] * 18 + [_INT] * 3 + [_F32, _VP],
     "unimm_co_text_block": [_VP] * 19 + [_INT] * 3 + [_F32, _VP],
-    "unimm_attention_block_train_fwd": ([_VP] * 18 + [_INT] * 2
+    # x, desc, ten weights, mo, q, k, v, ctx, pre, out; B, L; eps, seed,
+    # thresh, inv_keep, drop
+    "unimm_attention_block_train_fwd": ([_VP] * 19 + [_INT] * 2
                                         + [_F32, _U32, _U32, _F32, _INT,
                                            _VP]),
     # ..., dqkv, dx, stats scratch; B, L; seed, thresh, inv_keep, drop

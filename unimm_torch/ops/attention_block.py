@@ -7,11 +7,13 @@ in-kernel mask, ``unimm_tpu/ops/pallas_attention.py:_mask_bias``): QKV
 projection, the dis/gen text mask from the ``(mode, ctx_end, ans_len)``
 descriptor, fp32 softmax, PV, head merge, output projection, residual,
 LayerNorm. On a CUDA tensor it launches the hand-written kernel in
-``csrc/attention_block.cu`` (three launches: Q/K/V projection; the
-one-pass attention of ``csrc/seq_attn_fwd.cuh`` per (query tile, head,
-sequence), with the mask computed in the kernel from each row's open-key
-interval and the 64-key chunks a warp's rows all leave closed skipped;
-output projection + LayerNorm); on a CPU tensor it runs
+``csrc/attention_block.cu`` (four launches: the Q/K/V projection on the
+wgmma + TMA GEMM core of ``csrc/gemm_wg.cuh``; the one-pass attention of
+``csrc/seq_attn_fwd.cuh`` per (query tile, head, sequence), with the mask
+computed in the kernel from each row's open-key interval and the 64-key
+chunks a warp's rows all leave closed skipped; the output projection with
+the bias and residual into an fp32 scratch on the same core, then the
+row LayerNorm); on a CPU tensor it runs
 ``attention_block_plain``, which repeats the kernel's arithmetic and
 rounding points in plain PyTorch over the ``[B, L, L]`` bias of
 ``masks.mask_bias``, but for one: it rounds the normalised probabilities
@@ -34,6 +36,12 @@ from unimm_torch.ops.masks import mask_bias
 HID = 768        # the width the CUDA kernel is built for
 HEAD_DIM = 64
 MAX_LEN = 256    # the longest sequence whose K/V fit one CTA's shared memory
+# csrc/gemm_wg.cuh's tiles: a product's width N must be a multiple of
+# WG_BN, its depth K of WG_BK
+WG_BN, WG_BK = 256, 64
+# (N, K) of the block's products on the core: Q/K/V and the output, each
+# 768 x 768
+BLOCK_PRODUCTS = ((HID, HID),)
 
 
 def attention_block_plain(x, desc, p_attn, *, num_heads, eps=1e-12):
@@ -66,13 +74,18 @@ def attention_block_plain(x, desc, p_attn, *, num_heads, eps=1e-12):
     return (y * gamma.float() + beta.float()).to(dt)
 
 
-def check_inputs(name, x, desc, weights, num_heads, width=HID):
+def check_inputs(name, x, desc, weights, num_heads, width=HID,
+                 products=()):
     """Raise ValueError unless the attention-block kernels (this one, the
     training block's and the bench's probes) take these tensors: x [B, L,
     768] bf16 with 32 <= L <= 256 and L % 32 == 0, heads of 64, desc int32
     [B, 3], the weights bf16 [width, 768] / [width] (Q, K, V), [768, width]
     / [768] (output) and [768] (LayerNorm), all contiguous, aligned and on
-    one CUDA device. ``width`` is 768, or 1536 for heads padded to 128."""
+    one CUDA device. ``width`` is 768, or 1536 for heads padded to 128.
+    ``products``: the (N, K) of each product the kernel runs on the GEMM
+    core over the B L rows, each of which the core must take (the core
+    itself returns an error for one it refuses, after the launches before
+    it: this says so before any)."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f"{name}: {msg}")
@@ -99,7 +112,19 @@ def check_inputs(name, x, desc, weights, num_heads, width=HID):
         require(t.device == x.device, "all tensors on one device")
         require(t.is_contiguous() and t.data_ptr() % 16 == 0,
                 "inputs must be contiguous and 16-byte aligned")
+    for N, K in products:
+        require(core_takes(B * L, N, K),
+                f"the GEMM core does not take M {B * L}, N {N}, K {K} "
+                f"(M >= 1, N % {WG_BN} == 0, K % {WG_BK} == 0)")
     require(x.device.type == "cuda", f"unsupported device {x.device}")
+
+
+def core_takes(M, N, K):
+    """Whether the GEMM core (csrc/gemm_wg.cuh's ``launch_gemm_nt_wg``,
+    whose rule this repeats) takes a product of M rows, width N and depth
+    K."""
+    return M >= 1 and N >= WG_BN and N % WG_BN == 0 and K >= WG_BK \
+        and K % WG_BK == 0
 
 
 def lower_block_b(B, block_b):
@@ -129,14 +154,18 @@ def attention_block(x, desc, p_attn, *, num_heads, eps=1e-12, block_b=1):
         return attention_block_plain(x, desc, p_attn, num_heads=num_heads,
                                      eps=eps)
     weights = _weights(p_attn)
-    check_inputs("attention_block", x, desc, weights, num_heads)
+    check_inputs("attention_block", x, desc, weights, num_heads,
+                 products=BLOCK_PRODUCTS)
     B, L, _ = x.shape
     lib = _build.library()
     q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))
+    # the output projection's bias + residual sum, fp32, for the LayerNorm
+    pre = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     code = lib.unimm_attention_block(
         x.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in weights),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
-        out.data_ptr(), B, L, block_b, eps, _build.stream(x.device))
+        pre.data_ptr(), out.data_ptr(), B, L, block_b, eps,
+        _build.stream(x.device))
     _build.check(code, "attention_block")
     attention_block.launches += 1
     return out

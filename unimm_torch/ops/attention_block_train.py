@@ -25,6 +25,11 @@ step, with attention-probability dropout made in the kernel.
   64-row tiles), and takes dx_qkv = dq Wq + dk Wk + dv Wv in one GEMM.
 * tail: dWq / dWk / dWv and the bias sums, plain PyTorch.
 
+The kernels' products (Q/K/V, the output projection with its bias, mask
+and residual summed in fp32 before the LayerNorm, and the backward's Q/K/V
+recompute and dx_qkv) run on the wgmma + TMA GEMM core of
+``csrc/gemm_wg.cuh``, as the answer block's.
+
 On CUDA tensors the wrappers launch the kernels (bf16, width 768 in heads
 of 64, 32 <= L <= 256 with L % 32 == 0) or raise; on CPU tensors they run
 the plain twins below, which round at the kernels' points: projections
@@ -43,7 +48,8 @@ import torch
 
 from unimm_torch.ops import _build, philox
 from unimm_torch.ops.answer_block import _weights
-from unimm_torch.ops.attention_block import check_inputs
+from unimm_torch.ops.attention_block import (BLOCK_PRODUCTS, HID,
+                                             check_inputs)
 from unimm_torch.ops.masks import mask_bias
 
 
@@ -128,6 +134,11 @@ def attention_block_train_bwd_plain(x, dctx, desc, seed, wq, bq, wk, bk, wv,
     return dx, dq, dk, dv
 
 
+# the backward's products: the Q/K/V recompute, then dx_qkv from
+# [dq | dk | dv] (K 2304)
+BWD_PRODUCTS = ((HID, HID), (HID, 3 * HID))
+
+
 def _require(cond, msg):
     if not cond:
         raise ValueError(f"attention_block_train: {msg}")
@@ -149,7 +160,8 @@ def attention_block_train_fwd(x, desc, seed, m_o, wq, bq, wk, bk, wv, bv,
         return attention_block_train_fwd_plain(
             x, desc, seed, m_o, *weights, num_heads=num_heads,
             attn_drop=attn_drop, eps=eps)
-    check_inputs("attention_block_train", x, desc, weights, num_heads)
+    check_inputs("attention_block_train", x, desc, weights, num_heads,
+                 products=BLOCK_PRODUCTS)
     if m_o is not None:
         _require(m_o.dtype == torch.float32 and m_o.shape == x.shape
                  and m_o.device == x.device and m_o.is_contiguous(),
@@ -157,11 +169,14 @@ def attention_block_train_fwd(x, desc, seed, m_o, wq, bq, wk, bk, wv, bv,
     B, L, _ = x.shape
     lib = _build.library()
     q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))
+    # the output projection's (bias, mask, residual) sum, fp32, for the
+    # LayerNorm
+    pre = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     code = lib.unimm_attention_block_train_fwd(
         x.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in weights),
         None if m_o is None else m_o.data_ptr(), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), ctx.data_ptr(), out.data_ptr(), B, L, eps,
-        *_drop_args(seed, attn_drop), _build.stream(x.device))
+        v.data_ptr(), ctx.data_ptr(), pre.data_ptr(), out.data_ptr(), B, L,
+        eps, *_drop_args(seed, attn_drop), _build.stream(x.device))
     _build.check(code, "attention_block_train_fwd")
     attention_block_train_fwd.launches += 1
     return out, ctx
@@ -175,7 +190,8 @@ def attention_block_train_bwd(x, dctx, desc, seed, wq, bq, wk, bk, wv, bv, *,
         return attention_block_train_bwd_plain(
             x, dctx, desc, seed, *weights, num_heads=num_heads,
             attn_drop=attn_drop)
-    check_inputs("attention_block_train", x, desc, weights, num_heads)
+    check_inputs("attention_block_train", x, desc, weights, num_heads,
+                 products=BWD_PRODUCTS)
     _require(dctx.dtype == x.dtype and dctx.shape == x.shape
              and dctx.is_contiguous(), "dctx must be shaped like x")
     B, L, Hd = x.shape

@@ -35,7 +35,8 @@ attention launch counts its two score and value products), and the
 largest absolute error against the twin. ``--train-step``:
 ms per step of ``--steps`` B 240 training steps with the fused AdamW after
 2 warm-up steps, as chip_smoke.py phase 9 times them ("pallas" at
-attention dropout 0; ``--remat`` with encoder remat). ``--csrc`` builds
+attention dropout 0; ``--remat`` with encoder remat), and the peak of
+allocated device memory over the steps. ``--csrc`` builds
 and loads the kernels of another csrc directory into ``--build`` (a copy
 with a design change, say). To compare two commits on one card, run this
 file from each tree's root with ``PYTHONPATH`` set to that root, in turns;
@@ -88,7 +89,7 @@ def _host_us(fn, n=20):
     return (t1 - t0) / n * 1e6
 
 
-def _sub_kernels(fn, iters=5):
+def sub_kernels(fn, iters=5):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -139,7 +140,7 @@ def _time_runs(runs):
         same = all(torch.equal(a, b) for a, b in zip(kern(), kern()))
         out[name] = dict(ms=_device_ms(kern), host_us=_host_us(kern),
                          rel_errs=_rel(kern(), plain()), same_bits=same,
-                         kernels_ms=_sub_kernels(kern))
+                         kernels_ms=sub_kernels(kern))
     return out
 
 
@@ -461,6 +462,7 @@ def step_times(dev, impl, steps, remat=False):
         model, optim.OptimConfig(warmup_steps=10, t_total=1000), lang),
         seed=0)
     step = tstep.make_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
     with torch.enable_grad():
         for i in range(2):
             step(state, batches[i % 2])
@@ -470,7 +472,8 @@ def step_times(dev, impl, steps, remat=False):
             step(state, batches[i % 2])
         torch.cuda.synchronize()
     return dict(impl=impl, remat=remat, steps=steps,
-                ms_per_step=(time.perf_counter() - t0) / steps * 1e3)
+                ms_per_step=(time.perf_counter() - t0) / steps * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
 
 
 def main(argv=None):

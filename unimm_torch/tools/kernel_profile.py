@@ -31,8 +31,10 @@ encoder remat for ``--train-step``. Each reports its wall
 time, the summed device time of all kernels, the device idle share (1 -
 device / wall; one stream, so kernels do not overlap), the kernels that
 took the most device time, every attention kernel (``*_attn_*``: which
-attention design ran), and the PyTorch operators whose kernels took the
-most (inclusive). All end with the card's name and power limit.
+attention design ran), every GEMM-core launch of the block kernels
+(``GEMM_CORES``: which GEMM design ran), and the PyTorch operators whose
+kernels took the most (inclusive). All end with the card's name and power
+limit.
 """
 
 import argparse
@@ -170,6 +172,13 @@ def train_step(dev, impl="pallas_block", remat=False):
         _profile(run, f"train {impl}" + (" remat" if remat else ""))
 
 
+# the block kernels' GEMM launches: the wgmma + TMA core and its row
+# LayerNorm, and the first design's mma.sync core and out_ln_kernel (which
+# only the bench's probes launch)
+GEMM_CORES = ("gemm_nt_wg_kernel", "ln_rows_kernel", "gemm_nt_kernel",
+              "out_ln_kernel")
+
+
 def _profile(run, label):
     """Profile one ``run()`` and print its breakdown."""
     import time
@@ -205,6 +214,9 @@ def _profile(run, label):
                       "attention_kernels": [
                           {"ms": r[0], "launches": r[1], "name": r[2]}
                           for r in rows if "_attn_" in r[2]],
+                      "gemm_core_kernels": [
+                          {"ms": r[0], "launches": r[1], "name": r[2]}
+                          for r in rows if any(k in r[2] for k in GEMM_CORES)],
                       "top_torch_ops": [{"ms": r[0], "calls": r[1],
                                          "op": r[2]} for r in ops[:25]]}),
           flush=True)

@@ -1,9 +1,10 @@
 """What the compiler made of the port's kernels: digests of the SASS of
 the attention kernels' instances (``seq_attn_kernel``,
 ``seq_attn_fwd_kernel``, the backward's ``seq_attn_bwd_*``, K1's
-``answer_attn_kernel``), of the mma.sync GEMM core and output-projection
-kernel (``gemm_nt_kernel``, ``out_ln_kernel``), of the wgmma + TMA GEMM
-core (``gemm_nt_wg_kernel``) and of K3's ``xent_wg_kernel``, to show that a
+``answer_attn_kernel``), of the first design's mma.sync GEMM core and
+output-projection kernel (``gemm_nt_kernel``, ``out_ln_kernel``: the
+bench's probes alone), of the wgmma + TMA GEMM core
+(``gemm_nt_wg_kernel``) and of K3's ``xent_wg_kernel``, to show that a
 change to another kernel left their machine code as it was, and ptxas's
 register and spill report per kernel.
 
@@ -17,8 +18,8 @@ into a temporary directory. Every instance of ``seq_attn_kernel`` (the
 first design of the attention forward, kept for the probes B10 and B11),
 of ``seq_attn_fwd_kernel`` (the one-pass forward of B4, B5, B6 and B9), of
 the backward's two kernels (B5, B6), of ``gemm_nt_kernel`` and
-``out_ln_kernel`` (B4, B5, B10, B11), of ``gemm_nt_wg_kernel`` (K1, K2,
-B8) and of K1's and K3's own kernels is keyed by its source file and
+``out_ln_kernel`` (B10, B11), of ``gemm_nt_wg_kernel`` (K1, K2, B8, B4,
+B5) and of K1's and K3's own kernels is keyed by its source file and
 demangled name and hashed over its
 ``cuobjdump -sass`` text (each instruction and its encoding, blanks
 collapsed). ``--out`` writes the digests and the nvcc version
