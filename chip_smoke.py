@@ -27,12 +27,16 @@ prints its seconds):
      backward) with their shared memory and CTAs an SM, the Hopper GEMM
      core's instances (K1, K2, B8, B4, B5), K1's attention kernel (with its
      shared memory and CTAs an SM) and K3's logits kernel (fails on a
-     spill of any), whether each recorded attention-kernel,
-     gemm_nt_kernel, out_ln_kernel (B10 and B11 alone) and
-     gemm_nt_wg_kernel instance kept the SASS of SASS_RECORD's build
-     (tools/sass_digest; fails on one that differs under the same nvcc),
-     and that B4's and B5's Q/K/V and residual instances of the GEMM core
-     have K1's SASS.
+     spill of any), the probes' own kernels (B10's none and noshift
+     attention, B11's pad128 attention and wo_acc / transposed kernel,
+     with their shared memory and CTAs an SM; fails on a spill), whether
+     each recorded attention-kernel and gemm_nt_wg_kernel instance kept
+     the SASS of SASS_RECORD's build (tools/sass_digest; fails on one that
+     differs under the same nvcc), that B4's and B5's Q/K/V and residual
+     instances of the GEMM core have K1's SASS and the probes' GEMM-core
+     and B4-attention instances B4's, and that no kernel of the library is
+     one of the first design's (FIRST_DESIGN), so that no phase can launch
+     one.
   3. kernels: each kernel against its plain version on the same bf16
      inputs at full width, with the stated tolerance; kernel, plain and
      one-PyTorch-call (``library_ms``) times by CUDA events; the roofline
@@ -48,8 +52,9 @@ prints its seconds):
      and 1000, bit-equal when rerun, the twin on labels one column on and
      without the last vocab tile missing its bound. B4 and B5 bit-equal
      when rerun, with each kernel's time a call at their main shapes
-     (fails on a launch of the first design's gemm_nt_kernel or
-     out_ln_kernel).
+     (fails on a launch of the first design's gemm_nt_kernel,
+     out_ln_kernel or seq_attn_kernel); B10 and B11 likewise at the
+     bench's shape, and B10 ``full`` bit-equal to B4.
   4. generative path: ``evaluate_split(mode="ll_sum")`` (prefix-cache
      scorer) at the default config (12 text / 6 vision / 6 connection
      layers, hidden 768 / 1024, vocab 30522) from a seeded init over 4
@@ -100,10 +105,12 @@ prints its seconds):
      variant.
  10. attention-block bench (phase 3 also holds B10's four softmax modes and
      B11's three layouts against their plain twins at the bench's shape
-     and at L 96, each with a control, and B4 at block_b 2 equal to
-     block_b 1 bit for bit): ``tools/bench_attn_block`` runs its 13
-     variants, 2 calls a measurement, with 2 B4, 2 K2, 4 B10 and 3 B11
-     launches per call round.
+     and at L 96, each with a control, B10 ``full`` equal to B4 bit for
+     bit, and B4 at block_b 2 equal to block_b 1 bit for bit):
+     ``tools/bench_attn_block`` runs its 13 variants, 2 calls a
+     measurement, with 2 B4, 2 K2, 4 B10 and 3 B11 launches per call
+     round; then each variant's kernels, one profiled call round (fails
+     on a launch of FIRST_DESIGN).
  11. the evaluation CLIs at full width through ``main(argv)``, as a user
      runs them (``python -m unimm_torch.cli.val_lm ...``): a fixture tree
      (``tools/fixture_tree.py``, 2048 features and 1601 classes, 8 val and
@@ -299,15 +306,14 @@ def seeded_module(make, gen, dev, std=0.02):
 # ---------------------------------------------------------------------------
 
 # the SASS digests, taken with tools/sass_digest, of the instances of the
-# attention kernels (seq_attn_kernel, seq_attn_fwd_kernel, the backward's
-# seq_attn_bwd_*, K1's answer_attn_kernel), of the mma.sync GEMM core
-# gemm_nt_kernel and out_ln_kernel (the bench's probes B10 and B11 alone),
-# of the wgmma + TMA core gemm_nt_wg_kernel and of K3's xent_wg_kernel,
-# recorded when B4's and B5's products moved onto the wgmma core: every
-# instance that stayed has the machine code of the record before (the
-# parent of K1's and K3's redesign, 43b20da, and K1's and K3's instances
-# since), and B4's and B5's Q/K/V and residual instances have K1's
-# (shared_core_sass); the record's "sources" says so
+# attention kernels (seq_attn_fwd_kernel, the backward's seq_attn_bwd_*,
+# K1's answer_attn_kernel, the probes' probe_attn_kernel and
+# wo_acc_wg_kernel), of the wgmma + TMA core gemm_nt_wg_kernel and of K3's
+# xent_wg_kernel, recorded when the probes B10 and B11 moved onto B4's
+# design: every instance that is not a probe's has the machine code of
+# the record before (B4's and B5's move onto the wgmma core), the first
+# design's instances are gone and the probes' are new; the record's
+# "sources" says so
 SASS_RECORD = "unimm_torch/tools/kernel_sass.json"
 
 
@@ -327,37 +333,48 @@ def report_spills(pattern, n):
 
 def report_kernels():
     """The one-pass forward's and the attention backward's two kernels'
-    registers and spills (ptxas: 5 forward instances, B6, B9, B4 and B5's
-    forward at dropout 0 and above; dq and dk / dv for B6, B5 and B5 at
-    dropout 0), their shared memory and CTAs an SM at L 256 (the
-    runtime), the Hopper GEMM core's (gemm_wg.cuh: gemm_nt_wg_kernel,
-    2 instances each for K1, K2, B8 and B4, 4 for B5), K1's attention
-    kernel's two
-    instances (whole row blocks and 16-row tails, with their shared
-    memory and CTAs an SM) and K3's logits kernel's, failing on a spill;
-    then whether each recorded instance kept the SASS of
-    SASS_RECORD's build, failing on one that differs under the same
-    nvcc, and that B4's and B5's instances shared with K1 have its SASS
-    (shared_core_sass)."""
+    registers and spills (ptxas: 6 forward instances, B6, B9, B4, B5's
+    forward at dropout 0 and above, and the probes' copy of B4's; dq and
+    dk / dv for B6, B5 and B5 at dropout 0), their shared memory and CTAs
+    an SM at L 256 (the runtime), the Hopper GEMM core's (gemm_wg.cuh:
+    gemm_nt_wg_kernel, 2 instances each for K1, K2, B8 and B4, 4 for B5, 3
+    for the probes), K1's attention kernel's two instances (whole row
+    blocks and 16-row tails, with their shared memory and CTAs an SM), K3's
+    logits kernel's and the probes' own kernels' (3 probe_attn_kernel and
+    2 wo_acc_wg_kernel instances, with their shared memory and CTAs an
+    SM), failing on a spill; then whether each recorded instance kept the
+    SASS of SASS_RECORD's build, failing on one that differs under the
+    same nvcc, that the instances shared with K1 or B4 have its SASS
+    (shared_core_sass), and that the library holds no kernel of
+    FIRST_DESIGN."""
     from pathlib import Path
 
     from unimm_torch.ops import answer_block as k1
     from unimm_torch.ops import attention_block as ab
     from unimm_torch.ops import attention_block_train as abt
     from unimm_torch.ops import attention_v2 as av2
+    from unimm_torch.ops import block_probe as bp
     from unimm_torch.ops import text_attention as ta
     from unimm_torch.tools import sass_digest
 
-    report_spills("seq_attn_fwd_kernel", 5)
+    # B6's forward, B9, B4, B5's forward twice, and block_probe.cu's copy
+    # of B4's (B10 full)
+    report_spills("seq_attn_fwd_kernel", 6)
     report_spills("seq_attn_bwd_dq_kernel", 3)
     report_spills("seq_attn_bwd_dkdv_kernel", 3)
-    # 13: K1's, K2's, B8's and B4's two each, B5's four (Q/K/V, the
-    # output with and without the hidden-dropout mask, dx), and the
-    # residual instance that xent_head.cu compiles with gemm_wg.cuh's
-    # launch_gemm_residual_ln and never launches
-    report_spills("gemm_nt_wg_kernel", 13)
+    # 16: K1's, K2's, B8's and B4's two each, B5's four (Q/K/V, the
+    # output with and without the hidden-dropout mask, dx), the residual
+    # instance that xent_head.cu compiles with gemm_wg.cuh's
+    # launch_gemm_residual_ln and never launches, and the probes' three
+    # (Q/K/V, its feature-major QkvEpiT, the residual)
+    report_spills("gemm_nt_wg_kernel", 16)
     report_spills("answer_attn_kernel", 2)
     report_spills("xent_wg_kernel", 1)
+    # B10's none and noshift, B11's pad128 attention; wo_acc, transposed
+    report_spills("probe_attn_kernel", 3)
+    report_spills("wo_acc_wg_kernel", 2)
+    print(json.dumps({"block_probe_kernels": bp.kernel_info(256)}),
+          flush=True)
     print(json.dumps({"answer_attn_kernel": {
         "whole": k1.kernel_info(), "tail": k1.kernel_info(tail=True)}}),
         flush=True)
@@ -383,34 +400,45 @@ def report_kernels():
     if differ and nvcc == recorded["nvcc"]:
         raise SystemExit(f"SASS differs from {SASS_RECORD}: {differ}")
     shared_core_sass(current)
+    first = [n for n in sass_digest.kernel_names(sass_digest.built_objects())
+             if any(d in n for d in FIRST_DESIGN)]
+    if first:
+        raise SystemExit(f"the library holds the first design's kernels: "
+                         f"{first}")
 
 
-# the GEMM core's instances that B4 and B5 share with K1: one kernel, one
-# epilogue, so one machine code whichever source compiles it
+# the GEMM core's instances that B4, B5 and the probes share with K1: one
+# kernel, one epilogue, so one machine code whichever source compiles it
 SHARED_CORE = ("QkvEpi", "ResidualEpi")
 
 
 def shared_core_sass(current):
-    """Fail unless attention_block.cu's and attention_block_train.cu's
-    gemm_nt_wg_kernel instances of SHARED_CORE's epilogues have the SASS
-    digests of answer_block.cu's."""
-    def digest(src, epi):
+    """Fail unless attention_block.cu's, attention_block_train.cu's and
+    block_probe.cu's gemm_nt_wg_kernel instances of SHARED_CORE's
+    epilogues have the SASS digests of answer_block.cu's, and
+    block_probe.cu's instance of B4's attention (B10 full) that of
+    attention_block.cu."""
+    def digest(src, kernel):
         found = [v for k, v in current.items()
-                 if k.startswith(f"{src}: ")
-                 and f"gemm_nt_wg_kernel<<unnamed>::{epi}>" in k]
+                 if k.startswith(f"{src}: ") and kernel in k]
         if len(found) != 1:
-            raise SystemExit(f"{src}: {len(found)} gemm_nt_wg_kernel<{epi}> "
-                             f"instances")
+            raise SystemExit(f"{src}: {len(found)} {kernel} instances")
         return found[0]
-    same = {f"{src} {epi}": digest(src, epi) == digest("answer_block.cu",
-                                                       epi)
-            for src in ("attention_block.cu", "attention_block_train.cu")
+    same = {f"{src} {epi}": digest(src, f"gemm_nt_wg_kernel<<unnamed>::"
+                                        f"{epi}>")
+            == digest("answer_block.cu", f"gemm_nt_wg_kernel<<unnamed>::"
+                                         f"{epi}>")
+            for src in ("attention_block.cu", "attention_block_train.cu",
+                        "block_probe.cu")
             for epi in SHARED_CORE}
+    b4_attn = "seq_attn_fwd_kernel<(int)0, (bool)0>"
+    same["block_probe.cu seq_attn_fwd_kernel"] = digest(
+        "block_probe.cu", b4_attn) == digest("attention_block.cu", b4_attn)
     print(json.dumps({"gemm_core_shared_with_answer_block": same}),
           flush=True)
     if not all(same.values()):
-        raise SystemExit(f"B4 / B5's GEMM core instances differ from K1's: "
-                         f"{same}")
+        raise SystemExit(f"B4 / B5 / B10-B11's shared instances differ from "
+                         f"K1's or B4's: {same}")
 
 
 # ---------------------------------------------------------------------------
@@ -855,9 +883,11 @@ def library_block(attn, x, mask, H=12):
                         1e-12)
 
 
-# the first design's GEMM launches, which only the bench's probes (B10,
-# B11) keep
-FIRST_DESIGN = ("gemm_nt_kernel", "out_ln_kernel")
+# the first design's kernels (the mma.sync GEMM core, its output
+# projection + LayerNorm and the two-pass attention), which no source
+# defines any more: phase 2 fails if the library holds one, core_launches
+# if a call launches one
+FIRST_DESIGN = ("gemm_nt_kernel", "out_ln_kernel", "seq_attn_kernel")
 
 
 def core_launches(name, fn):
@@ -871,7 +901,7 @@ def core_launches(name, fn):
         k = re.sub(r"^void |\(anonymous namespace\)::", "", k).split("(")[0]
         out[k] = out.get(k, 0.0) + ms
     if any(d in k for k in out for d in FIRST_DESIGN):
-        raise SystemExit(f"{name}: launches the first design's GEMM: {out}")
+        raise SystemExit(f"{name}: launches the first design: {out}")
     return out
 
 
@@ -1377,15 +1407,18 @@ def check_probe_ctx(x, attn, kind, gen):
     return err, control
 
 
-def check_probe(dev, gen, name, kind, B, L, desc_fn):
+def check_probe(dev, gen, name, kind, B, L, desc_fn, split=False):
     """B10 (``name`` "probe_block", ``kind`` a softmax mode) or B11
     ("layout_probe_block", a layout) against its plain twin on the same
     bf16 inputs, weights at WIDE_STD. The control must miss the same bound:
     the twin on the flipped descriptors, or for skip the full twin. B10's
-    context is held as well (check_probe_ctx)."""
+    context is held as well (check_probe_ctx), and B10 ``full`` must equal
+    B4 (attention_block) bit for bit: it launches B4's kernels. ``split``:
+    each kernel's time a call too (core_launches)."""
     import torch.nn.functional as F
     from unimm_torch.models import vilbert
     from unimm_torch.ops import block_probe as bp
+    from unimm_torch.ops.attention_block import attention_block
     from unimm_torch.ops.masks import mask_bias
 
     H, Hd = 12, 768
@@ -1439,7 +1472,12 @@ def check_probe(dev, gen, name, kind, B, L, desc_fn):
     if name == "probe_block" and kind != "skip":
         c_err, c_control = check_probe_ctx(x, attn, kind, gen)
         res.update(ctx_rel_err=c_err, ctx_control_rel_err=c_control,
-                   ok=ok and c_err <= TA_REL)
+                   ok=res["ok"] and c_err <= TA_REL)
+    if name == "probe_block" and kind == "full":
+        same = torch.equal(got, attention_block(x, desc, attn, num_heads=H))
+        res.update(bit_equal_to_attention_block=same, ok=res["ok"] and same)
+    if split:
+        res["launch_ms"] = core_launches(f"{name} {kind}", kern)
     # the function's work: skip's output needs only the V and Wo products;
     # its kernel also projects q and k (as_run_bound_ms)
     M, W = B * L, 2 * Hd if kind == "pad128" else Hd
@@ -1458,13 +1496,15 @@ def check_probe(dev, gen, name, kind, B, L, desc_fn):
 
 def probe_cases(dev, gen):
     """Phase 3's cases of B10 and B11: each mode and layout at the
-    bench's shape and descriptors, then at L 96 on the edge descriptors
-    (padding keys under none, fully masked rows under noshift)."""
+    bench's shape and descriptors, with each kernel's time a call, then at
+    L 96 on the edge descriptors (padding keys under none, fully masked
+    rows under noshift); ``full`` bit-equal to B4 at both."""
     out = {}
     for name, kinds in (("probe_block", ("full", "none", "noshift", "skip")),
                         ("layout_probe_block",
                          ("wo_acc", "transposed", "pad128"))):
-        out[name] = ([check_probe(dev, gen, name, k, 512, 256, bench_desc)
+        out[name] = ([check_probe(dev, gen, name, k, 512, 256, bench_desc,
+                                  split=True)
                       for k in kinds]
                      + [check_probe(dev, gen, name, k, 20, 96, edge_desc)
                         for k in kinds])
@@ -2458,6 +2498,16 @@ def phase_bench_block(dev, card, runs, iters=2):
     print(json.dumps({"bench_attn_block": {n: r[0] for n, r in res.items()},
                       "iters": iters, "seconds": secs, "card": card}),
           flush=True)
+    # each variant's kernels on the bench's first input set (core_launches
+    # fails on a launch of FIRST_DESIGN); not counted, after the counted run
+    fns = bench_attn_block.variants(
+        bench_attn_block.make_layer(bench_attn_block.SHAPE[2], dev),
+        bench_attn_block.SHAPE[2] // 64)
+    x, desc = bench_attn_block.make_inputs(0, bench_attn_block.SHAPE, dev)
+    print(json.dumps({"bench_attn_block_kernels": {
+        n: core_launches(f"bench_attn_block {n}",
+                         lambda f=f: f(x, desc))
+        for n, f in fns.items()}, "card": card}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4377,6 +4427,7 @@ def main():
                                          "control_max_abs_errs", "bit_equal",
                                          "nan_rows",
                                          "ctx_control_rel_err",
+                                         "bit_equal_to_attention_block",
                                          "as_run_bound_ms")
                        if k in c} for c in cs]})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

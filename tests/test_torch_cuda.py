@@ -9,13 +9,14 @@ its three kernels, a short flat-scorer run through its three, and the
 training attention block (forward and backward, with dropout, the
 backward's other-seed control and bit-equal reruns; B4's and B5's
 products on the wgmma + TMA core: bit-equal reruns, B5's dx at the
-training morsels' lengths, no launch of the first design's mma.sync core
-or out_ln_kernel) and the fused AdamW,
+training morsels' lengths, nothing launched but the GEMM core, the
+attention and the row LayerNorm) and the fused AdamW,
 the per-head text attention kernels (forward, backward and attention_v2,
 the skipped chunks of the one-pass forward and of the tiled backward,
-both designs' fit on the card), and the attention-block bench's probes
-(B4 at other block_b, the softmax-mode and layout probes). Every test
-needs a CUDA device and skips without one.
+their fit on the card), and the attention-block bench's probes (B4 at
+other block_b, the softmax-mode and layout probes, the ``full`` probe
+equal to B4 bit for bit, their own kernels' fit). Every test needs a CUDA
+device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -624,17 +625,81 @@ def _launched(call, calls=3):
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
+def _probe_calls(dev, B, L, seed):
+    """One call of each mode of B10 and each layout of B11 on one set of
+    bf16 inputs at weight std 0.05: {name: (call, GEMM-core instances it
+    launches)}."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    attn = _wide_attention(gen, dev)
+    padded = tbp.pad_heads_128(attn)
+    x = torch.randn(B, L, 768, generator=gen, device=dev).bfloat16()
+    desc = _mixed_desc(B, L, np.random.default_rng(seed)).to(dev)
+    out = {f"probe_block {m}": (lambda m=m: tbp.probe_block(
+        x, desc, attn, num_heads=12, softmax_mode=m), 2)
+        for m in tbp.SOFTMAX_MODES}
+    # wo_acc and transposed: the projection alone on the core
+    out.update({f"layout_probe_block {lay}": (
+        lambda lay=lay: tbp.layout_probe_block(
+            x, desc, padded if lay == "pad128" else attn, num_heads=12,
+            layout=lay), 2 if lay == "pad128" else 1)
+        for lay in tbp.LAYOUTS})
+    return out
+
+
+# what the probes' wrappers launch: the wgmma + TMA GEMM core and its row
+# LayerNorm, B4's one-pass attention and the probes' own attention kernels
+PROBE_LAUNCHES = ("gemm_nt_wg_kernel", "ln_rows_kernel",
+                  "seq_attn_fwd_kernel", "probe_attn_kernel",
+                  "wo_acc_wg_kernel")
+
+
 def test_block_wrappers_launch_only_the_gemm_core(dev):
     """B4's and B5's wrappers launch their products on the wgmma + TMA
-    core, two instances each (Q/K/V and the output or dx epilogue), and
-    none on the first design's mma.sync core or out_ln_kernel (which only
-    the bench's probes keep)."""
-    for name, call in _block_calls(dev, 4, 128, 22).items():
+    core, two instances each (Q/K/V and the output or dx epilogue); the
+    probes B10 and B11 theirs too (one under wo_acc and transposed, whose
+    own kernel holds the output product) and nothing but the core, its row
+    LayerNorm and the attention kernels. No wrapper launches the first
+    design's kernels (chip_smoke.FIRST_DESIGN), which no source defines."""
+    calls = {name: (call, 2)
+             for name, call in _block_calls(dev, 4, 128, 22).items()}
+    probes = _probe_calls(dev, 4, 128, 22)
+    calls.update(probes)
+    for name, (call, n_core) in calls.items():
         names = _launched(call)
-        assert not [n for n in names if "gemm_nt_kernel" in n
-                    or "out_ln_kernel" in n], (name, names)
+        assert not [n for n in names
+                    if any(d in n for d in chip_smoke.FIRST_DESIGN)], \
+            (name, names)
+        if name in probes:
+            assert all(any(k in n for k in PROBE_LAUNCHES) for n in names), \
+                (name, names)
         wg = [n for n in names if "gemm_nt_wg_kernel" in n]
-        assert len(wg) == 2, (name, names)
+        assert len(wg) == n_core, (name, names)
+
+
+@pytest.mark.parametrize("L", [96, 256])
+def test_probe_full_equals_attention_block(dev, L):
+    """B10 under ``full`` launches B4's kernels on B4's buffers: its output
+    is attention_block's bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(L + 5)
+    attn = _wide_attention(gen, dev)
+    x = torch.randn(6, L, 768, generator=gen, device=dev).bfloat16()
+    desc = _mixed_desc(6, L, np.random.default_rng(L)).to(dev)
+    assert torch.equal(
+        tbp.probe_block(x, desc, attn, num_heads=12, softmax_mode="full"),
+        tatb.attention_block(x, desc, attn, num_heads=12))
+
+
+def test_probe_kernels_fit_the_card(dev):
+    """The probes' own kernels at L 256: no local memory (no spills), the
+    register cap of their launch bounds, and at least one CTA an SM (the
+    one-pass instances at heads of 64: B4's 72 KB and 2 CTAs or more)."""
+    for name, info in tbp.kernel_info(256).items():
+        assert info["local_bytes"] == 0, (name, info)
+        assert info["ctas_per_sm"] >= 1, (name, info)
+        if name.endswith(("none", "noshift")):
+            assert info["registers"] <= 168, (name, info)
+            assert info["smem_bytes"] == (2 * 256 + 64) * 128, (name, info)
+            assert info["ctas_per_sm"] >= 2, (name, info)
 
 
 @pytest.mark.parametrize("shape", [(30522, 768), (768,), (1001,), (3, 5)])

@@ -3,9 +3,9 @@
 // B8), the answer block (answer_block.cu, K1) and the whole-sequence
 // attention blocks (attention_block.cu, B4; attention_block_train.cu, B5):
 // C[M, N] = A[M, K] B[N, K]^T (both K-contiguous, the torch Linear
-// layout), up to three B matrices (grid z), on wgmma with TMA loads. Only
-// the bench's probes (block_probe.cu, B10 and B11) keep common.cuh's
-// mma.sync core and block_parts.cuh's out_ln_kernel, as their first design.
+// layout), up to three B matrices (grid z), on wgmma with TMA loads; the
+// bench's probes (block_probe.cu, B10 and B11) run their products on it as
+// B4 does.
 //
 // gemm_nt_wg_kernel<Epi>: CTA tiles of 128 x 256, k step 64. A producer
 // warpgroup (one thread issues) keeps 2-D TMA loads (cp.async.bulk.tensor,

@@ -2,8 +2,8 @@
 // text_attention.cu (B6's backward) and attention_block_train.cu (B5's
 // attention backward). The kernels live in this translation unit of their
 // own and the callers reach them by these C names, so the objects that
-// hold the forward kernels (seq_attn_kernel, seq_attn_fwd_kernel) hold
-// the same kernels as before (tools/sass_digest compares their SASS).
+// hold the forward kernel (seq_attn_fwd_kernel) hold the same kernels as
+// before (tools/sass_digest compares their SASS).
 
 #include "seq_attn_bwd.cuh"
 

@@ -71,8 +71,8 @@
 //    ms slower.
 // 3. Score elements: the scale and log2(e) fold into one FFMA per score
 //    before ex2.approx; no division per element (one per row, for D); the
-//    mask from row_span intervals (seq_attn_fwd.cuh), not text_bias; a
-//    chunk that every row of a warp fully attends takes no mask there.
+//    mask from row_span intervals (seq_attn_fwd.cuh), not a bias computed
+//    per score; a chunk that every row of a warp fully attends takes no mask there.
 // 4. Closed chunks are skipped both ways, per CTA (exact: a masked key of
 //    a row with an open key has p = exp(-10000 + ...) = 0 in fp32): (a)
 //    skips a key chunk that no row of its 64 attends (masks.chunk_closed),

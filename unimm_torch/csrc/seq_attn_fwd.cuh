@@ -35,8 +35,9 @@
 // kernel does not). Padding keys past L (L % 64 == 32) weigh 0. The
 // dropout draws are the backward's (philox.cuh: key (seed, b H + h),
 // counter (column / 4, row)); a skipped chunk draws nothing, exactly, as
-// its probabilities are 0. seq_attn_kernel (seq_attn.cuh), the first
-// design, stays for the bench probes B10 / B11, which attribute it.
+// its probabilities are 0. The bench's probes B10 / B11 (block_probe.cu)
+// launch B4's instance and build their own softmax variants from these
+// helpers.
 //
 // What bounds it on an H100: device memory. q, k, v read and o written,
 // 4 B H L 64 x 2 bytes (805 MB for B9 at [512, 12, 256, 64], 0.240 ms at
@@ -74,8 +75,9 @@
 //    as its warps hold this one's, and K and V after the last P.V. (Waiting
 //    per 64-key chunk instead, to start on chunk 0 before chunk 3 lands,
 //    cost more in barriers than it gained.)
-// 5. Tensor cores: mma.sync m16n8k16 (bf16 in, fp32 accumulators), the
-//    fragment layout of seq_attn.cuh. Both rows are bound by bytes, and
+// 5. Tensor cores: mma.sync m16n8k16 (bf16 in, fp32 accumulators; a
+//    warp's scores of a chunk sc[j][t]: row t < 2 ? ra : rb, key 8 j + gc
+//    + (t & 1)). Both rows are bound by bytes, and
 //    mma.sync lets each warp skip chunks for its own 16 rows, where
 //    wgmma's 64-row tiles would skip per warpgroup.
 // 6. Dropout (DROP) in the loop: a live chunk's draws are made before its

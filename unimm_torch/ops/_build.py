@@ -70,9 +70,12 @@ _SIGNATURES = {
     "unimm_attention_block_train_fwd_info": [_INT, _INT, _VP],
     # L; kernel (0 the dq launch, 1 the dk / dv launch), drop, split; out
     "unimm_seq_attn_bwd_info": [_INT] * 4 + [_VP],
-    # x, desc, ten weights, q, k, v, ctx, out; B, L, mode / layout; eps
-    "unimm_probe_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
-    "unimm_layout_probe_block": [_VP] * 17 + [_INT] * 3 + [_F32, _VP],
+    # x, desc, ten weights, q, k, v, ctx, pre, out; B, L, mode / layout;
+    # eps
+    "unimm_probe_block": [_VP] * 18 + [_INT] * 3 + [_F32, _VP],
+    "unimm_layout_probe_block": [_VP] * 18 + [_INT] * 3 + [_F32, _VP],
+    # L, kernel; out
+    "unimm_block_probe_info": [_INT, _INT, _VP],
 }
 
 

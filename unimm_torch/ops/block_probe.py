@@ -25,8 +25,16 @@ fp32 output projection, residual and LayerNorm) and change one thing:
 The probes compute other functions than the block (``none``, ``skip``,
 ``noshift``) or the same one in another order; they serve the bench
 (``tools/bench_attn_block.py``) and nothing else. On a CPU tensor each
-wrapper runs its plain twin; on a CUDA tensor it launches the kernel in
-``csrc/block_probe.cu`` or raises.
+wrapper runs its plain twin; on a CUDA tensor it launches the kernels in
+``csrc/block_probe.cu`` or raises. They run on B4's design: the Q/K/V and
+output products on the wgmma + TMA core of ``csrc/gemm_wg.cuh`` (the
+output with the bias + residual into an fp32 scratch, then the row
+LayerNorm); ``full`` launches B4's own attention (so it equals
+``attention_block`` bit for bit); ``none``, ``noshift`` and ``pad128``
+launch ``probe_attn_kernel``, the one-pass attention with another softmax
+step (or heads of 128); ``wo_acc`` and ``transposed`` launch
+``wo_acc_wg_kernel``, the attention, the output product on wgmma and the
+LayerNorm in one kernel per 64 query rows.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ import torch
 
 from unimm_torch.ops import _build
 from unimm_torch.ops.answer_block import _weights
-from unimm_torch.ops.attention_block import HEAD_DIM, HID, check_inputs
+from unimm_torch.ops.attention_block import (BLOCK_PRODUCTS, HEAD_DIM, HID,
+                                             check_inputs)
 from unimm_torch.ops.masks import mask_bias
 
 SOFTMAX_MODES = {"full": 0, "none": 1, "noshift": 2, "skip": 3}
@@ -149,18 +158,23 @@ def pad_heads_128(p_attn):
         output=SimpleNamespace(dense=dense, LayerNorm=po.LayerNorm))
 
 
-def _launch(name, fn, x, desc, weights, code_arg, eps, width, need_ctx):
-    """Allocate the projections (and the context where the probe keeps one)
-    and launch the C entry point ``fn``: the output and the context (v
-    where the probe keeps none)."""
+def _launch(name, fn, x, desc, weights, code_arg, eps, width, need_ctx,
+            need_pre):
+    """Allocate the projections (and the context and the fp32
+    pre-LayerNorm sum where the probe keeps them) and launch the C entry
+    point ``fn``: the output and the context (v where the probe keeps
+    none)."""
     B, L, _ = x.shape
     q, k, v = (torch.empty(B, L, width, dtype=x.dtype, device=x.device)
                for _ in range(3))
     ctx = torch.empty_like(q) if need_ctx else None
+    pre = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
+        if need_pre else None
     out = torch.empty_like(x)
     code = fn(x.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in weights),
               q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              None if ctx is None else ctx.data_ptr(), out.data_ptr(), B, L,
+              None if ctx is None else ctx.data_ptr(),
+              None if pre is None else pre.data_ptr(), out.data_ptr(), B, L,
               code_arg, eps, _build.stream(x.device))
     _build.check(code, name)
     return out, v if ctx is None else ctx
@@ -182,10 +196,11 @@ def probe_block(x, desc, p_attn, *, num_heads, softmax_mode, eps=1e-12,
                                  softmax_mode=softmax_mode, eps=eps,
                                  return_ctx=return_ctx)
     weights = _weights(p_attn)
-    check_inputs("probe_block", x, desc, weights, num_heads)
+    check_inputs("probe_block", x, desc, weights, num_heads,
+                 products=BLOCK_PRODUCTS)
     out, ctx = _launch("probe_block", _build.library().unimm_probe_block, x,
                        desc, weights, SOFTMAX_MODES[softmax_mode], eps, HID,
-                       need_ctx=softmax_mode != "skip")
+                       need_ctx=softmax_mode != "skip", need_pre=True)
     probe_block.launches += 1
     return (out, ctx) if return_ctx else out
 
@@ -201,15 +216,32 @@ def layout_probe_block(x, desc, p_attn, *, num_heads, layout, eps=1e-12):
         return layout_probe_block_plain(x, desc, p_attn, num_heads=num_heads,
                                         layout=layout, eps=eps)
     weights = _weights(p_attn)
-    width = num_heads * PAD_DIM if layout == "pad128" else HID
-    check_inputs("layout_probe_block", x, desc, weights, num_heads, width)
+    pad = layout == "pad128"
+    width = num_heads * PAD_DIM if pad else HID
+    # pad128's Q/K/V products are [1536, 768], its output [768, 1536]
+    check_inputs("layout_probe_block", x, desc, weights, num_heads, width,
+                 products=((width, HID), (HID, width)))
     out, _ = _launch("layout_probe_block",
                      _build.library().unimm_layout_probe_block, x, desc,
-                     weights, LAYOUTS[layout], eps, width,
-                     need_ctx=layout == "pad128")
+                     weights, LAYOUTS[layout], eps, width, need_ctx=pad,
+                     need_pre=pad)
     layout_probe_block.launches += 1
     return out
 
 
 probe_block.launches = 0
 layout_probe_block.launches = 0
+
+# the probes' own kernels, by the index unimm_block_probe_info takes
+PROBE_KERNELS = ("probe_attn_kernel none", "probe_attn_kernel noshift",
+                 "probe_attn_kernel pad128", "wo_acc_wg_kernel wo_acc",
+                 "wo_acc_wg_kernel transposed")
+
+
+def kernel_info(L=256):
+    """{kernel: registers, local bytes (stack and spills), dynamic shared
+    memory and CTAs an SM at length L} of each of the probes' own kernels
+    (``text_attention.fwd_kernel_info``'s fields); ``full`` launches B4's
+    attention, whose instance ``attention_block.kernel_info`` reports."""
+    return {name: _build.kernel_info("unimm_block_probe_info", L, i)
+            for i, name in enumerate(PROBE_KERNELS)}

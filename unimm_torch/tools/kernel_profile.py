@@ -173,10 +173,9 @@ def train_step(dev, impl="pallas_block", remat=False):
 
 
 # the block kernels' GEMM launches: the wgmma + TMA core and its row
-# LayerNorm, and the first design's mma.sync core and out_ln_kernel (which
-# only the bench's probes launch)
-GEMM_CORES = ("gemm_nt_wg_kernel", "ln_rows_kernel", "gemm_nt_kernel",
-              "out_ln_kernel")
+# LayerNorm, and the probes' wo_acc_wg_kernel (attention, output product
+# and LayerNorm in one launch)
+GEMM_CORES = ("gemm_nt_wg_kernel", "ln_rows_kernel", "wo_acc_wg_kernel")
 
 
 def _profile(run, label):

@@ -1,12 +1,11 @@
 """What the compiler made of the port's kernels: digests of the SASS of
-the attention kernels' instances (``seq_attn_kernel``,
-``seq_attn_fwd_kernel``, the backward's ``seq_attn_bwd_*``, K1's
-``answer_attn_kernel``), of the first design's mma.sync GEMM core and
-output-projection kernel (``gemm_nt_kernel``, ``out_ln_kernel``: the
-bench's probes alone), of the wgmma + TMA GEMM core
-(``gemm_nt_wg_kernel``) and of K3's ``xent_wg_kernel``, to show that a
-change to another kernel left their machine code as it was, and ptxas's
-register and spill report per kernel.
+the attention kernels' instances (``seq_attn_fwd_kernel``, the
+backward's ``seq_attn_bwd_*``, K1's ``answer_attn_kernel``, the bench
+probes' ``probe_attn_kernel`` and ``wo_acc_wg_kernel``), of the wgmma +
+TMA GEMM core (``gemm_nt_wg_kernel``) and of K3's ``xent_wg_kernel``, to
+show that a change to another kernel left their machine code as it was,
+the names of every function the library holds, and ptxas's register and
+spill report per kernel.
 
     python3 -m unimm_torch.tools.sass_digest [--csrc DIR] [--out FILE]
         [--compare FILE]
@@ -14,12 +13,11 @@ register and spill report per kernel.
 Without ``--csrc`` it reads the objects ``ops/_build`` keeps beside the
 library (building it first if needed); with ``--csrc DIR`` it compiles that
 tree's ``*.cu`` (another commit's sources, say) with the same nvcc flags
-into a temporary directory. Every instance of ``seq_attn_kernel`` (the
-first design of the attention forward, kept for the probes B10 and B11),
-of ``seq_attn_fwd_kernel`` (the one-pass forward of B4, B5, B6 and B9), of
-the backward's two kernels (B5, B6), of ``gemm_nt_kernel`` and
-``out_ln_kernel`` (B10, B11), of ``gemm_nt_wg_kernel`` (K1, K2, B8, B4,
-B5) and of K1's and K3's own kernels is keyed by its source file and
+into a temporary directory. Every instance of ``seq_attn_fwd_kernel``
+(the one-pass forward of B4, B5, B6, B9 and B10), of the backward's two
+kernels (B5, B6), of ``gemm_nt_wg_kernel`` (K1, K2, B8, B4, B5, B10, B11),
+of the probes' ``probe_attn_kernel`` and ``wo_acc_wg_kernel`` (B10, B11)
+and of K1's and K3's own kernels is keyed by its source file and
 demangled name and hashed over its
 ``cuobjdump -sass`` text (each instruction and its encoding, blanks
 collapsed). ``--out`` writes the digests and the nvcc version
@@ -41,9 +39,9 @@ from pathlib import Path
 
 from unimm_torch.ops import _build
 
-PATTERNS = ("seq_attn_kernel", "seq_attn_fwd_kernel", "seq_attn_bwd_",
-            "gemm_nt_kernel", "out_ln_kernel", "gemm_nt_wg_kernel",
-            "answer_attn_kernel", "xent_wg_kernel")
+PATTERNS = ("seq_attn_fwd_kernel", "seq_attn_bwd_", "gemm_nt_wg_kernel",
+            "answer_attn_kernel", "xent_wg_kernel", "probe_attn_kernel",
+            "wo_acc_wg_kernel")
 
 
 def _tool(name: str) -> str:
@@ -116,6 +114,16 @@ def digests(objects) -> dict:
                 found[key] = hashlib.sha256(
                     funcs[mangled].encode()).hexdigest()
     return dict(sorted(found.items()))
+
+
+def kernel_names(objects) -> list:
+    """The demangled name of every function in ``objects``' sm_90a code,
+    each "<source>.cu: <name>"."""
+    out = []
+    for obj in objects:
+        funcs = _functions(Path(obj))
+        out += [f"{Path(obj).stem}.cu: {n}" for n in _demangle(list(funcs))]
+    return out
 
 
 def compare(recorded: dict, current: dict) -> dict:
