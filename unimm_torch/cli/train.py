@@ -45,13 +45,15 @@ from unimm_torch.data.loader import DataLoader
 from unimm_torch.eval import evaluator
 from unimm_torch.parallel import dist, mesh
 from unimm_torch.train import optim, step as tstep
+from unimm_torch.utils import trace
 from unimm_torch.utils.logging import MetricsLogger
 
 
 def to_device(flat: dict, dev) -> dict:
-    """A flat numpy batch as tensors on ``dev``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in flat.items()}
+    """A flat numpy batch as tensors on ``dev`` (the span ``train.h2d``)."""
+    with trace.span("train.h2d"):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in flat.items()}
 
 
 def _log_step(iter_id, metrics, num_iter_epoch, dataset, viz, start_t):

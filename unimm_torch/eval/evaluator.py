@@ -41,6 +41,7 @@ from unimm_torch.models import unimm, vilbert
 from unimm_torch.ops import masks as M_masks
 from unimm_torch.ops import metrics as M
 from unimm_torch.parallel import dist
+from unimm_torch.utils import trace
 
 # per-chunk sequence arrays; position ids are always regenerated from the
 # descriptor on the device
@@ -137,8 +138,9 @@ class RankingEvaluator:
         return order, ext[order]
 
     def _put(self, v):
-        return torch.from_numpy(np.ascontiguousarray(v)).to(
-            self.device, non_blocking=True)
+        with trace.span("eval.h2d"):
+            return torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device, non_blocking=True)
 
     def score_flat(self, model, flat: Dict[str, np.ndarray]) -> dict:
         """Score a flat [N, ...] batch in fixed-size padded chunks; returns
@@ -157,14 +159,15 @@ class RankingEvaluator:
         N = flat["tokens"].shape[0]
         Lmax = flat["tokens"].shape[-1]
         compact = "img_index" in flat
-        pmax = self._label_bucket(flat)
-        order = None
-        if self.length_buckets and N > 1:
-            order, ext_sorted = self._length_order(flat)
-            seq_keys = [k for k in _SEQ_KEYS if k in flat] + \
-                [k for k in _IMG_KEYS if k in flat and not compact]
-            flat = dict(flat, **{k: np.asarray(flat[k])[order]
-                                 for k in seq_keys})
+        with trace.span("eval.plan"):
+            pmax = self._label_bucket(flat)
+            order = None
+            if self.length_buckets and N > 1:
+                order, ext_sorted = self._length_order(flat)
+                seq_keys = [k for k in _SEQ_KEYS if k in flat] + \
+                    [k for k in _IMG_KEYS if k in flat and not compact]
+                flat = dict(flat, **{k: np.asarray(flat[k])[order]
+                                     for k in seq_keys})
         cast = self._compute_model(model)
         # the fp32 tied-decoder bias, read before the compute-dtype cast
         d_bias = model.cls.predictions.bias.detach().float()
@@ -177,23 +180,27 @@ class RankingEvaluator:
         outs = []
         for s in range(0, N, self.chunk):
             e = min(s + self.chunk, N)
-            chunk = {k: np.asarray(flat[k])[s:e] for k in chunk_keys
-                     if k in flat}
-            pad = self.chunk - (e - s)
-            if pad:
-                chunk = {k: np.concatenate(
-                    [v, np.repeat(v[-1:], pad, axis=0)]) for k, v in
-                    chunk.items()}
-            if order is not None:
-                Lb = M_masks.quarter_bucket(int(ext_sorted[s:e].max()), Lmax,
-                                            div=self._bucket_div)
-                if Lb < Lmax:
-                    for k in ("tokens", "segments", "mlm_labels"):
-                        if k in chunk:
-                            chunk[k] = chunk[k][:, :Lb]
+            with trace.span("eval.plan"):
+                chunk = {k: np.asarray(flat[k])[s:e] for k in chunk_keys
+                         if k in flat}
+                pad = self.chunk - (e - s)
+                if pad:
+                    chunk = {k: np.concatenate(
+                        [v, np.repeat(v[-1:], pad, axis=0)]) for k, v in
+                        chunk.items()}
+                if order is not None:
+                    Lb = M_masks.quarter_bucket(int(ext_sorted[s:e].max()),
+                                                Lmax, div=self._bucket_div)
+                    if Lb < Lmax:
+                        for k in ("tokens", "segments", "mlm_labels"):
+                            if k in chunk:
+                                chunk[k] = chunk[k][:, :Lb]
+                if trace.recording():
+                    self._count_chunk_rows(chunk, e - s, rows)
             chunk = {k: self._put(v[rows]) for k, v in chunk.items()}
             chunk.update(imgs)
-            outs.append((e - s, self._fwd(cast, d_bias, chunk, pmax)))
+            with trace.span("eval.flat_forward"):
+                outs.append((e - s, self._fwd(cast, d_bias, chunk, pmax)))
 
         def finalize():
             keys = sorted(outs[0][1])
@@ -214,6 +221,19 @@ class RankingEvaluator:
 
         return finalize
 
+    def _count_chunk_rows(self, chunk, n_real: int, rows):
+        """The flat scorer's ``eval.rows_needed.flat`` (the attended
+        extents of the chunk's real sequences this rank scores) and
+        ``eval.rows_launched.flat`` (its rows times the chunk's length)."""
+        ext = M_masks.attended_extent(
+            chunk["mode"], chunk["ctx_end"], chunk["ans_len"],
+            chunk["tokens"].shape[-1],
+            chunk.get("mlm_labels") if self._need_lm else None)
+        real = (np.arange(self.chunk) < n_real)[rows]
+        trace.count("eval.rows_needed.flat", ext[rows][real].sum())
+        trace.count("eval.rows_launched.flat",
+                    real.size * chunk["tokens"].shape[-1])
+
     def score_slates(self, model, batch: Dict[str, np.ndarray]) -> dict:
         """Score a [B, R, O] val batch; returns flat [B*R*O] score arrays
         in the batch's order, with the keys of ``score_flat``."""
@@ -223,7 +243,19 @@ class RankingEvaluator:
         """Stage and launch a [B, R, O] val batch; return a closure that
         fetches and assembles the flat score dict. Slates the prefix scorer
         cannot take (decided on the host at dispatch) are launched through
-        the flat scorer at the same time."""
+        the flat scorer at the same time. The call is the root span
+        ``eval.dispatch``, the closure ``eval.fetch``, with one id."""
+        with trace.span("eval.dispatch") as did:
+            trace.count("eval.dispatches")
+            fin = self._slates_async(model, batch)
+
+        def fetch():
+            with trace.span("eval.fetch", id=did):
+                return fin()
+
+        return fetch
+
+    def _slates_async(self, model, batch):
         B, R, O = np.asarray(batch["tokens"]).shape[:3]
         if self._prefix is None:
             return self.score_flat_async(

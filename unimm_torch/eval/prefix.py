@@ -55,6 +55,7 @@ from unimm_torch.ops.answer_block import (answer_block, answer_block_plain,
 from unimm_torch.ops.ffn_block import ffn_block, ffn_block_plain
 from unimm_torch.ops.xent_head import xent_head, xent_head_plain
 from unimm_torch.parallel import dist
+from unimm_torch.utils import trace
 
 
 def slate_eligibility(batch) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -239,8 +240,9 @@ class PrefixScorer:
     def _put(self, arrays, rows=slice(None)):
         """Host arrays on the device, each cut to ``rows`` of its first
         axis."""
-        return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(
-            self.device, non_blocking=True) for k, v in arrays.items()}
+        with trace.span("eval.h2d"):
+            return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(
+                self.device, non_blocking=True) for k, v in arrays.items()}
 
     # ------------------------------------------------------------------
     # device passes
@@ -462,11 +464,19 @@ class PrefixScorer:
         """Stage and launch every slate group of a batch; return a closure
         that fetches and assembles (scores, ok). Launches are asynchronous
         on the card, so a caller can stage the NEXT batch before finalizing
-        this one."""
+        this one.
+
+        While ``utils.trace`` records, each group counts its rows:
+        ``eval.rows_needed.prefill`` the real context tokens of its real
+        slates against ``eval.rows_launched.prefill``, slates times Lcb;
+        ``eval.rows_needed.answer`` their options' answer rows against
+        ``eval.rows_launched.answer``, slates times P (packed) or O * W (the
+        W layout); a rank counts the slates it scores."""
         tokens = np.asarray(batch["tokens"])
         B, R, O, Lx = tokens.shape
         NS = B * R
-        ok, lc, rows_max = slate_eligibility(batch)
+        with trace.span("eval.plan"):
+            ok, lc, rows_max = slate_eligibility(batch)
         self.last_ok = ok
         scores = {k: np.zeros((NS, O), np.float32)
                   for k in ("ll_sum", "ll_mean")}
@@ -486,69 +496,91 @@ class PrefixScorer:
         imask_h = np.asarray(batch["image_mask"])
         imgs = self._put({k: np.asarray(batch[k]) for k in self._IMG_KEYS})
 
-        T_all = np.minimum(ce + al, Lx)
-        n_all = np.clip(T_all - lc[:, None], 0, Lx).astype(np.int64)
+        with trace.span("eval.plan"):
+            T_all = np.minimum(ce + al, Lx)
+            n_all = np.clip(T_all - lc[:, None], 0, Lx).astype(np.int64)
 
-        # sort by context length, balance groups to one size per call;
-        # under split_rows a multiple of the world, each rank's block
-        sel = sel[np.argsort(lc[sel], kind="stable")]
-        n_groups = max(1, -(-sel.size // self.group))
-        gsize = -(-sel.size // n_groups)
-        gsize = -(-gsize // self._world) * self._world
-        mine = (dist.row_block(gsize, over=dist.DP) if self._world > 1
-                else slice(None))
+            # sort by context length, balance groups to one size per call;
+            # under split_rows a multiple of the world, each rank's block
+            sel = sel[np.argsort(lc[sel], kind="stable")]
+            n_groups = max(1, -(-sel.size // self.group))
+            gsize = -(-sel.size // n_groups)
+            gsize = -(-gsize // self._world) * self._world
+            mine = (dist.row_block(gsize, over=dist.DP) if self._world > 1
+                    else slice(None))
 
         outs = []
         for gi in range(n_groups):
-            g = sel[gi * gsize:(gi + 1) * gsize]
-            if g.size == 0:
-                break
-            pad = gsize - g.size
-            if pad:
-                g = np.concatenate([g, np.repeat(g[-1:], pad)])
-            Lcb = masks.quarter_bucket(int(lc[g].max()), Lx,
-                                       div=self._bucket_div)
-            ctx_batch = self._put(dict(
-                tokens=toks[g, 0, :Lcb], segments=segs[g, 0, :Lcb],
-                mode=np.ones(g.size, np.int32), ctx_end=lc[g],
-                ans_len=np.zeros(g.size, np.int32),
-                img_index=img_of_slate[g]), mine)
+            with trace.span("eval.plan"):
+                g = sel[gi * gsize:(gi + 1) * gsize]
+                if g.size == 0:
+                    break
+                pad = gsize - g.size
+                if pad:
+                    g = np.concatenate([g, np.repeat(g[-1:], pad)])
+                Lcb = masks.quarter_bucket(int(lc[g].max()), Lx,
+                                           div=self._bucket_div)
+                need = int(n_all[g].max())
+                rb = self._rb_for(Lcb, need)
+                if trace.recording():
+                    # this rank's slates, and which of them are not padding
+                    real = (np.arange(g.size) < g.size - pad)[mine]
+                    trace.count("eval.rows_needed.prefill",
+                                lc[g][mine][real].sum())
+                    trace.count("eval.rows_launched.prefill",
+                                real.size * Lcb)
+                    trace.count("eval.rows_needed.answer",
+                                n_all[g][mine][real].sum())
+            with trace.span("eval.pack"):
+                ctx_batch = self._put(dict(
+                    tokens=toks[g, 0, :Lcb], segments=segs[g, 0, :Lcb],
+                    mode=np.ones(g.size, np.int32), ctx_end=lc[g],
+                    ans_len=np.zeros(g.size, np.int32),
+                    img_index=img_of_slate[g]), mine)
             ctx_batch.update(imgs)
-            caches = self._context_impl(cast, ctx_batch)
+            with trace.span("eval.prefill"):
+                caches = self._context_impl(cast, ctx_batch)
             g_out = g[:g.size - pad] if pad else g
 
-            need = int(n_all[g].max())
-            rb = self._rb_for(Lcb, need)
             if self.packed and need <= rb:
-                rows = self._pack_rows(g, n_all[g], rb, O, toks, segs, labs,
-                                       lc, al, imask_h[img_of_slate[g]],
-                                       mine)
-                outs.append((g_out, pad, self._answer_impl_packed(
-                    cast, d_bias, caches, rows, rb)))
+                with trace.span("eval.pack"):
+                    rows = self._pack_rows(g, n_all[g], rb, O, toks, segs,
+                                           labs, lc, al,
+                                           imask_h[img_of_slate[g]], mine)
+                trace.count("eval.rows_launched.answer",
+                            rows["tokens"].numel())
+                with trace.span("eval.answer"):
+                    outs.append((g_out, pad, self._answer_impl_packed(
+                        cast, d_bias, caches, rows, rb)))
                 continue
 
             # the W layout: each option's rows padded to W (16, 32, ...
             # up to Lx)
-            need = max(1, int(rows_max[g].max()))
-            W = 16
-            while W < need:
-                W *= 2
-            W = min(W, Lx)
-            idx = (lc[g][:, None, None]
-                   + np.arange(W, dtype=np.int64)[None, None, :])
-            in_range = idx < Lx
-            take = np.broadcast_to(np.minimum(idx, Lx - 1), (g.size, O, W))
+            with trace.span("eval.pack"):
+                need = max(1, int(rows_max[g].max()))
+                W = 16
+                while W < need:
+                    W *= 2
+                W = min(W, Lx)
+                idx = (lc[g][:, None, None]
+                       + np.arange(W, dtype=np.int64)[None, None, :])
+                in_range = idx < Lx
+                take = np.broadcast_to(np.minimum(idx, Lx - 1),
+                                       (g.size, O, W))
 
-            def _rows(a, fill):
-                v = np.take_along_axis(a[g], take, axis=-1)
-                return np.where(in_range, v, fill).astype(a.dtype)
+                def _rows(a, fill):
+                    v = np.take_along_axis(a[g], take, axis=-1)
+                    return np.where(in_range, v, fill).astype(a.dtype)
 
-            rows = self._put(dict(
-                tokens=_rows(toks, 0), segments=_rows(segs, 0),
-                mlm_labels=_rows(labs, -1), lc=lc[g], ans_len=al[g],
-                ctx_end=ce[g], image_mask=imask_h[img_of_slate[g]]), mine)
-            outs.append((g_out, pad, self._answer_impl(cast, d_bias, caches,
-                                                       rows)))
+                rows = self._put(dict(
+                    tokens=_rows(toks, 0), segments=_rows(segs, 0),
+                    mlm_labels=_rows(labs, -1), lc=lc[g], ans_len=al[g],
+                    ctx_end=ce[g], image_mask=imask_h[img_of_slate[g]]),
+                    mine)
+            trace.count("eval.rows_launched.answer", rows["tokens"].numel())
+            with trace.span("eval.answer"):
+                outs.append((g_out, pad, self._answer_impl(cast, d_bias,
+                                                           caches, rows)))
 
         def finalize():
             keys = sorted(scores)

@@ -34,6 +34,7 @@ from unimm_torch.ops.attention_block_train import attention_block_train
 from unimm_torch.ops.co_text_block import co_text_block
 from unimm_torch.ops.ffn_block import ffn_block
 from unimm_torch.ops.text_attention import text_attention
+from unimm_torch.utils import trace
 
 # Label positions gathered per sequence on the flat eval path: the
 # generative layout bounds an answer at ~126 label tokens, so 128 covers
@@ -254,17 +255,19 @@ def lm_loss_and_heads(view, cfg: VilbertConfig, t_seq, v_seq, pooled_t,
         hidden = vilbert.mlm_head_at_positions(view, cfg, t_seq, pos)
         decoder = view.bert.embeddings.word_embeddings.weight.to(
             hidden.dtype)
-        nll = L.online_softmax_xent_vjp(hidden, decoder,
-                                        decoder_bias.float(), labs)
-        num_tokens = (norm if norm is not None
-                      else (batch["lm_weight"] != 0).float().sum())
-        lm = L.masked_lm_ul_loss_gathered(nll, labs, w_g, num_tokens)
+        with trace.span("train.mlm_xent"):
+            nll = L.online_softmax_xent_vjp(hidden, decoder,
+                                            decoder_bias.float(), labs)
+            num_tokens = (norm if norm is not None
+                          else (batch["lm_weight"] != 0).float().sum())
+            lm = L.masked_lm_ul_loss_gathered(nll, labs, w_g, num_tokens)
         img_logits, nsp_logits = vilbert.nsp_and_img_heads(
             view, cfg, v_seq, pooled_t, pooled_v, train=train, rng=rng)
     else:
         mlm_logits, img_logits, nsp_logits = vilbert.pretraining_heads(
             view, cfg, t_seq, v_seq, pooled_t, pooled_v, train=train,
             rng=rng)
-        lm = L.masked_lm_ul_loss(mlm_logits, batch["mlm_labels"],
-                                 batch["lm_weight"], num_tokens=norm)
+        with trace.span("train.mlm_xent"):
+            lm = L.masked_lm_ul_loss(mlm_logits, batch["mlm_labels"],
+                                     batch["lm_weight"], num_tokens=norm)
     return lm, img_logits, nsp_logits

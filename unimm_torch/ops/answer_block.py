@@ -32,6 +32,7 @@ import torch
 
 from unimm_torch.ops import _build
 from unimm_torch.ops.masks import KEY_CHUNK, NEG_INF, ROW_TILE
+from unimm_torch.utils import trace
 
 HID = 768        # the width the CUDA kernel is built for
 HEAD_DIM = 64
@@ -247,17 +248,18 @@ def answer_block(x, kc, vc, b_ctx, b_rr, p_attn, *, num_heads, eps=1e-12,
         _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
                  "inputs must be contiguous and 16-byte aligned")
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
-    lib = _build.library()
-    q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))
-    pre = torch.empty(G, P, Hd, dtype=torch.float32, device=x.device)
-    code = lib.unimm_answer_block(
-        x.data_ptr(), kc.data_ptr(), vc.data_ptr(), b_ctx.data_ptr(),
-        b_rr.data_ptr(), table.data_ptr(),
-        *(t.data_ptr() for t in weights), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), ctx.data_ptr(), pre.data_ptr(), out.data_ptr(), G, P,
-        Lcb, RB, eps, _build.stream(x.device))
-    _build.check(code, "answer_block")
-    answer_block.launches += 1
+    with trace.span("op.answer_block"):
+        lib = _build.library()
+        q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))
+        pre = torch.empty(G, P, Hd, dtype=torch.float32, device=x.device)
+        code = lib.unimm_answer_block(
+            x.data_ptr(), kc.data_ptr(), vc.data_ptr(), b_ctx.data_ptr(),
+            b_rr.data_ptr(), table.data_ptr(),
+            *(t.data_ptr() for t in weights), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), ctx.data_ptr(), pre.data_ptr(), out.data_ptr(), G, P,
+            Lcb, RB, eps, _build.stream(x.device))
+        _build.check(code, "answer_block")
+        answer_block.launches += 1
     return (out, ctx) if return_ctx else out
 
 

@@ -32,6 +32,7 @@ import torch
 from unimm_torch.ops import _build
 from unimm_torch.ops.answer_block import _weights
 from unimm_torch.ops.masks import mask_bias
+from unimm_torch.utils import trace
 
 HID = 768        # the width the CUDA kernel is built for
 HEAD_DIM = 64
@@ -156,18 +157,19 @@ def attention_block(x, desc, p_attn, *, num_heads, eps=1e-12, block_b=1):
     weights = _weights(p_attn)
     check_inputs("attention_block", x, desc, weights, num_heads,
                  products=BLOCK_PRODUCTS)
-    B, L, _ = x.shape
-    lib = _build.library()
-    q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))
-    # the output projection's bias + residual sum, fp32, for the LayerNorm
-    pre = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    code = lib.unimm_attention_block(
-        x.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in weights),
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
-        pre.data_ptr(), out.data_ptr(), B, L, block_b, eps,
-        _build.stream(x.device))
-    _build.check(code, "attention_block")
-    attention_block.launches += 1
+    with trace.span("op.attention_block"):
+        B, L, _ = x.shape
+        lib = _build.library()
+        q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))
+        # the output projection's bias + residual sum, fp32, for the LayerNorm
+        pre = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        code = lib.unimm_attention_block(
+            x.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in weights),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
+            pre.data_ptr(), out.data_ptr(), B, L, block_b, eps,
+            _build.stream(x.device))
+        _build.check(code, "attention_block")
+        attention_block.launches += 1
     return out
 
 

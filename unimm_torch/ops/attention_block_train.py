@@ -51,6 +51,7 @@ from unimm_torch.ops.answer_block import _weights
 from unimm_torch.ops.attention_block import (BLOCK_PRODUCTS, HID,
                                              check_inputs)
 from unimm_torch.ops.masks import mask_bias
+from unimm_torch.utils import trace
 
 
 def _heads(t, num_heads):          # [B, L, Hd] -> [B, H, L, D] fp32
@@ -166,19 +167,21 @@ def attention_block_train_fwd(x, desc, seed, m_o, wq, bq, wk, bk, wv, bv,
         _require(m_o.dtype == torch.float32 and m_o.shape == x.shape
                  and m_o.device == x.device and m_o.is_contiguous(),
                  "m_o must be a contiguous float32 tensor shaped like x")
-    B, L, _ = x.shape
-    lib = _build.library()
-    q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))
-    # the output projection's (bias, mask, residual) sum, fp32, for the
-    # LayerNorm
-    pre = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    code = lib.unimm_attention_block_train_fwd(
-        x.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in weights),
-        None if m_o is None else m_o.data_ptr(), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), ctx.data_ptr(), pre.data_ptr(), out.data_ptr(), B, L,
-        eps, *_drop_args(seed, attn_drop), _build.stream(x.device))
-    _build.check(code, "attention_block_train_fwd")
-    attention_block_train_fwd.launches += 1
+    with trace.span("op.attention_block_train_fwd"):
+        B, L, _ = x.shape
+        lib = _build.library()
+        q, k, v, ctx, out = (torch.empty_like(x) for _ in range(5))
+        # the output projection's (bias, mask, residual) sum, fp32, for the
+        # LayerNorm
+        pre = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        code = lib.unimm_attention_block_train_fwd(
+            x.data_ptr(), desc.data_ptr(), *(t.data_ptr() for t in weights),
+            None if m_o is None else m_o.data_ptr(), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), ctx.data_ptr(), pre.data_ptr(),
+            out.data_ptr(), B, L, eps, *_drop_args(seed, attn_drop),
+            _build.stream(x.device))
+        _build.check(code, "attention_block_train_fwd")
+        attention_block_train_fwd.launches += 1
     return out, ctx
 
 
@@ -194,23 +197,24 @@ def attention_block_train_bwd(x, dctx, desc, seed, wq, bq, wk, bk, wv, bv, *,
                  products=BWD_PRODUCTS)
     _require(dctx.dtype == x.dtype and dctx.shape == x.shape
              and dctx.is_contiguous(), "dctx must be shaped like x")
-    B, L, Hd = x.shape
-    lib = _build.library()
-    w_cat_t = torch.cat([wq, wk, wv], 0).t().contiguous()   # [Hd, 3 Hd]
-    q, k, v, dx = (torch.empty_like(x) for _ in range(4))
-    dqkv = torch.empty(B, L, 3 * Hd, dtype=x.dtype, device=x.device)
-    # each row's log-sum-exp and rowsum(dP P), from the dq launch to the
-    # dk / dv launch
-    stats = torch.empty(B, num_heads, 2, L, dtype=torch.float32,
-                        device=x.device)
-    code = lib.unimm_attention_block_train_bwd(
-        x.data_ptr(), dctx.data_ptr(), desc.data_ptr(),
-        *(t.data_ptr() for t in weights), w_cat_t.data_ptr(), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), dqkv.data_ptr(), dx.data_ptr(),
-        stats.data_ptr(), B, L, *_drop_args(seed, attn_drop),
-        _build.stream(x.device))
-    _build.check(code, "attention_block_train_bwd")
-    attention_block_train_bwd.launches += 1
+    with trace.span("op.attention_block_train_bwd"):
+        B, L, Hd = x.shape
+        lib = _build.library()
+        w_cat_t = torch.cat([wq, wk, wv], 0).t().contiguous()   # [Hd, 3 Hd]
+        q, k, v, dx = (torch.empty_like(x) for _ in range(4))
+        dqkv = torch.empty(B, L, 3 * Hd, dtype=x.dtype, device=x.device)
+        # each row's log-sum-exp and rowsum(dP P), from the dq launch to the
+        # dk / dv launch
+        stats = torch.empty(B, num_heads, 2, L, dtype=torch.float32,
+                            device=x.device)
+        code = lib.unimm_attention_block_train_bwd(
+            x.data_ptr(), dctx.data_ptr(), desc.data_ptr(),
+            *(t.data_ptr() for t in weights), w_cat_t.data_ptr(), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), dqkv.data_ptr(), dx.data_ptr(),
+            stats.data_ptr(), B, L, *_drop_args(seed, attn_drop),
+            _build.stream(x.device))
+        _build.check(code, "attention_block_train_bwd")
+        attention_block_train_bwd.launches += 1
     return dx, dqkv[..., :Hd], dqkv[..., Hd:2 * Hd], dqkv[..., 2 * Hd:]
 
 

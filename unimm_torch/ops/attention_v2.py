@@ -23,6 +23,7 @@ from unimm_torch.ops import _build
 from unimm_torch.ops.attention_block import lower_block_b
 from unimm_torch.ops.masks import mask_bias
 from unimm_torch.ops.text_attention import check_inputs, same_layout
+from unimm_torch.utils import trace
 
 
 def attention_v2_plain(q, k, v, desc):
@@ -44,15 +45,16 @@ def attention_v2(q, k, v, desc, *, block_b=4):
         return attention_v2_plain(q, k, v, desc)
     check_inputs("attention_v2", (q, k, v), desc)
     q, k, v = same_layout(q, k, v)
-    B, H, L, D = q.shape
-    out = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
-                              device=q.device)
-    code = _build.library().unimm_attention_v2(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), desc.data_ptr(),
-        out.data_ptr(), B, H, L, *q.stride()[:3], block_b,
-        1.0 / math.sqrt(D), _build.stream(q.device))
-    _build.check(code, "attention_v2")
-    attention_v2.launches += 1
+    with trace.span("op.attention_v2"):
+        B, H, L, D = q.shape
+        out = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
+                                  device=q.device)
+        code = _build.library().unimm_attention_v2(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), desc.data_ptr(),
+            out.data_ptr(), B, H, L, *q.stride()[:3], block_b,
+            1.0 / math.sqrt(D), _build.stream(q.device))
+        _build.check(code, "attention_v2")
+        attention_v2.launches += 1
     return out
 
 

@@ -21,6 +21,7 @@ import torch
 
 from unimm_torch.ops import _build
 from unimm_torch.ops.masks import NEG_INF
+from unimm_torch.utils import trace
 
 HID = 768          # text width the CUDA kernel is built for
 BI = 1024          # bi_hidden_size = v_hidden_size
@@ -122,20 +123,21 @@ def co_text_block(t_x, v_x, image_mask, p_conn, *, num_heads, eps=1e-12):
         _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
                  "inputs must be contiguous and 16-byte aligned")
     _require(t_x.device.type == "cuda", f"unsupported device {t_x.device}")
-    lib = _build.library()
-    dev, dt = t_x.device, t_x.dtype
-    q = torch.empty(B, L, BI, dtype=dt, device=dev)
-    k, v = (torch.empty(B, R, BI, dtype=dt, device=dev) for _ in range(2))
-    ctx = torch.empty_like(q)
-    pre = torch.empty(B, L, HID, dtype=torch.float32, device=dev)
-    out = torch.empty_like(t_x)
-    code = lib.unimm_co_text_block(
-        t_x.data_ptr(), v_x.data_ptr(), image_mask.data_ptr(),
-        *(t.data_ptr() for t in weights), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), ctx.data_ptr(), pre.data_ptr(), out.data_ptr(), B, L,
-        R, eps, _build.stream(dev))
-    _build.check(code, "co_text_block")
-    co_text_block.launches += 1
+    with trace.span("op.co_text_block"):
+        lib = _build.library()
+        dev, dt = t_x.device, t_x.dtype
+        q = torch.empty(B, L, BI, dtype=dt, device=dev)
+        k, v = (torch.empty(B, R, BI, dtype=dt, device=dev) for _ in range(2))
+        ctx = torch.empty_like(q)
+        pre = torch.empty(B, L, HID, dtype=torch.float32, device=dev)
+        out = torch.empty_like(t_x)
+        code = lib.unimm_co_text_block(
+            t_x.data_ptr(), v_x.data_ptr(), image_mask.data_ptr(),
+            *(t.data_ptr() for t in weights), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), ctx.data_ptr(), pre.data_ptr(), out.data_ptr(), B, L,
+            R, eps, _build.stream(dev))
+        _build.check(code, "co_text_block")
+        co_text_block.launches += 1
     return out
 
 

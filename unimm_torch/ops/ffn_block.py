@@ -18,6 +18,7 @@ import torch
 
 from unimm_torch.models.vilbert import ACT
 from unimm_torch.ops import _build
+from unimm_torch.utils import trace
 
 HID = 768            # the width the CUDA kernel is built for
 TILE_N = 256         # the first product's CTA tile width (gemm_wg.cuh WG_BN)
@@ -68,16 +69,17 @@ def ffn_block(x, p_inter, p_out, *, act="gelu", eps=1e-12):
         _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
                  "inputs must be contiguous and 16-byte aligned")
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
-    M = x.numel() // HID
-    act_buf = torch.empty(M, inter, dtype=x.dtype, device=x.device)
-    pre = torch.empty(M, HID, dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
-    code = _build.library().unimm_ffn_block(
-        x.data_ptr(), *(t.data_ptr() for t in weights), act_buf.data_ptr(),
-        pre.data_ptr(), out.data_ptr(), M, inter, _ACT_CODE[act], eps,
-        _build.stream(x.device))
-    _build.check(code, "ffn_block")
-    ffn_block.launches += 1
+    with trace.span("op.ffn_block"):
+        M = x.numel() // HID
+        act_buf = torch.empty(M, inter, dtype=x.dtype, device=x.device)
+        pre = torch.empty(M, HID, dtype=torch.float32, device=x.device)
+        out = torch.empty_like(x)
+        code = _build.library().unimm_ffn_block(
+            x.data_ptr(), *(t.data_ptr() for t in weights), act_buf.data_ptr(),
+            pre.data_ptr(), out.data_ptr(), M, inter, _ACT_CODE[act], eps,
+            _build.stream(x.device))
+        _build.check(code, "ffn_block")
+        ffn_block.launches += 1
     return out
 
 

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from unimm_torch.utils import trace
+
 
 CLAMP_MIN = 1e-6  # vilbert_dialog.py:1558
 
@@ -87,6 +89,11 @@ class _OnlineXent(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with trace.span("train.mlm_xent.bwd"):
+            return _OnlineXent._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         hidden, decoder_weight, decoder_bias, lab, lse = ctx.saved_tensors
         chunk = ctx.chunk
         V, H = decoder_weight.shape

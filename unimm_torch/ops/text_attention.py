@@ -40,6 +40,7 @@ import torch
 
 from unimm_torch.ops import _build
 from unimm_torch.ops.masks import mask_bias
+from unimm_torch.utils import trace
 
 HEAD_DIM = 64    # the head width the CUDA kernels are built for
 MAX_LEN = 256    # the longest sequence whose K/V fit one CTA's shared memory
@@ -138,13 +139,14 @@ def text_attention_fwd(q, k, v, desc):
         return text_attention_fwd_plain(q, k, v, desc)
     check_inputs("text_attention", (q, k, v), desc)
     q, k, v = same_layout(q, k, v)
-    out = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
-                              device=q.device)
-    code = _build.library().unimm_text_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), desc.data_ptr(),
-        out.data_ptr(), *_dims(q), _build.stream(q.device))
-    _build.check(code, "text_attention_fwd")
-    text_attention_fwd.launches += 1
+    with trace.span("op.text_attention_fwd"):
+        out = torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
+                                  device=q.device)
+        code = _build.library().unimm_text_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), desc.data_ptr(),
+            out.data_ptr(), *_dims(q), _build.stream(q.device))
+        _build.check(code, "text_attention_fwd")
+        text_attention_fwd.launches += 1
     return out
 
 
@@ -155,16 +157,17 @@ def text_attention_bwd(q, k, v, desc, do):
         return text_attention_bwd_plain(q, k, v, desc, do)
     check_inputs("text_attention_bwd", (q, k, v, do), desc)
     q, k, v, do = same_layout(q, k, v, do)
-    dq, dk, dv = (torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
-                                      device=q.device) for _ in range(3))
-    B, H, L, _ = q.shape
-    stats = torch.empty(B, H, 2, L, dtype=torch.float32, device=q.device)
-    code = _build.library().unimm_text_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        desc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats.data_ptr(), *_dims(q), _build.stream(q.device))
-    _build.check(code, "text_attention_bwd")
-    text_attention_bwd.launches += 1
+    with trace.span("op.text_attention_bwd"):
+        dq, dk, dv = (torch.empty_strided(q.shape, q.stride(), dtype=q.dtype,
+                                          device=q.device) for _ in range(3))
+        B, H, L, _ = q.shape
+        stats = torch.empty(B, H, 2, L, dtype=torch.float32, device=q.device)
+        code = _build.library().unimm_text_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            desc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), *_dims(q), _build.stream(q.device))
+        _build.check(code, "text_attention_bwd")
+        text_attention_bwd.launches += 1
     return dq, dk, dv
 
 

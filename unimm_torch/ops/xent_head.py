@@ -17,6 +17,7 @@ import torch
 
 from unimm_torch.ops import _build
 from unimm_torch.ops.losses import online_softmax_xent as xent_head_plain
+from unimm_torch.utils import trace
 
 HID = 768            # the width the CUDA kernel is built for
 VOCAB_TILE = 256     # the kernel's vocab columns a tile
@@ -55,20 +56,21 @@ def xent_head(hidden, decoder_weight, decoder_bias, labels):
                  "inputs must be contiguous and 16-byte aligned")
     _require(hidden.device.type == "cuda",
              f"unsupported device {hidden.device}")
-    lab = labels.to(torch.int32)
-    M = lab.numel()
-    nll = torch.empty(labels.shape, dtype=torch.float32,
-                      device=hidden.device)
-    # per (row, vocab tile) (max, exp-sum), and each row's label logit
-    part = torch.empty(M, -(-V // VOCAB_TILE), 2, dtype=torch.float32,
-                       device=hidden.device)
-    label_logit = torch.empty(M, dtype=torch.float32, device=hidden.device)
-    code = _build.library().unimm_xent_head(
-        hidden.data_ptr(), lab.data_ptr(), decoder_weight.data_ptr(),
-        decoder_bias.data_ptr(), part.data_ptr(), label_logit.data_ptr(),
-        nll.data_ptr(), M, V, _build.stream(hidden.device))
-    _build.check(code, "xent_head")
-    xent_head.launches += 1
+    with trace.span("op.xent_head"):
+        lab = labels.to(torch.int32)
+        M = lab.numel()
+        nll = torch.empty(labels.shape, dtype=torch.float32,
+                          device=hidden.device)
+        # per (row, vocab tile) (max, exp-sum), and each row's label logit
+        part = torch.empty(M, -(-V // VOCAB_TILE), 2, dtype=torch.float32,
+                           device=hidden.device)
+        label_logit = torch.empty(M, dtype=torch.float32, device=hidden.device)
+        code = _build.library().unimm_xent_head(
+            hidden.data_ptr(), lab.data_ptr(), decoder_weight.data_ptr(),
+            decoder_bias.data_ptr(), part.data_ptr(), label_logit.data_ptr(),
+            nll.data_ptr(), M, V, _build.stream(hidden.device))
+        _build.check(code, "xent_head")
+        xent_head.launches += 1
     return nll
 
 

@@ -61,6 +61,7 @@ import torch
 from unimm_torch import checkpoint as ckpt
 from unimm_torch.ops.adamw import adamw_update_leaf, adamw_update_leaf_plain
 from unimm_torch.parallel import dist, mesh
+from unimm_torch.utils import trace
 
 B1, B2 = 0.9, 0.999
 
@@ -205,9 +206,12 @@ class GroupedAdamW:
             if self.mini_step < k:
                 return False
             grads, self.acc, self.mini_step = self.acc, None, 0
-        dist.allreduce_sum_(grads, over=dist.DP)
-        dist.broadcast_([grads[i] for i in self.replicated], over=dist.MP)
-        self._update(grads)
+        with trace.span("train.optim.allreduce"):
+            dist.allreduce_sum_(grads, over=dist.DP)
+            dist.broadcast_([grads[i] for i in self.replicated],
+                            over=dist.MP)
+        with trace.span("train.optim.update"):
+            self._update(grads)
         return True
 
     def _update(self, grads):

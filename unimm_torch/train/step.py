@@ -36,6 +36,7 @@ from unimm_torch.config import VilbertConfig
 from unimm_torch.models import unimm, vilbert
 from unimm_torch.ops import losses as L
 from unimm_torch.parallel import dist
+from unimm_torch.utils import trace
 
 
 def step_seed(seed: int, step: int, rank=None) -> int:
@@ -104,22 +105,28 @@ def make_train_step(cfg: VilbertConfig, *, lm_coeff=1.0, nsp_coeff=1.0,
         rng = vilbert.DropoutRng(step_seed(state["seed"], state["step"],
                                            world_rank()),
                                  batch["tokens"].device)
-        parts = unimm.forward_train(model, cfg, world_norms(batch), rng=rng,
-                                    nsp_weight=nsp_weight, dtype=dtype)
-        loss = L.combine_losses(parts["lm"], parts["img"], parts["nsp"],
-                                lm_coeff, nsp_coeff, img_coeff)
-        for p in model.parameters():
-            p.grad = None
-        loss.backward()
-        state["opt"].step()
+        with trace.span("train.world_norms"):
+            normed = world_norms(batch)
+        with trace.span("train.forward"):
+            parts = unimm.forward_train(model, cfg, normed, rng=rng,
+                                        nsp_weight=nsp_weight, dtype=dtype)
+            loss = L.combine_losses(parts["lm"], parts["img"], parts["nsp"],
+                                    lm_coeff, nsp_coeff, img_coeff)
+        with trace.span("train.backward"):
+            for p in model.parameters():
+                p.grad = None
+            loss.backward()
+        with trace.span("train.optim"):
+            state["opt"].step()
         state["step"] += 1
-        n_lab = (batch["mlm_labels"] != -1).sum(-1)
-        metrics = {"loss": loss.detach(), "lm_loss": parts["lm"].detach(),
-                   "nsp_loss": parts["nsp"].detach(),
-                   "img_loss": parts["img"].detach(),
-                   "label_budget_overflow": (
-                       n_lab > cfg.max_train_label_positions).sum()}
-        return state, world_metrics(metrics)
+        with trace.span("train.metrics"):
+            n_lab = (batch["mlm_labels"] != -1).sum(-1)
+            metrics = {"loss": loss.detach(), "lm_loss": parts["lm"].detach(),
+                       "nsp_loss": parts["nsp"].detach(),
+                       "img_loss": parts["img"].detach(),
+                       "label_budget_overflow": (
+                           n_lab > cfg.max_train_label_positions).sum()}
+            return state, world_metrics(metrics)
 
     return train_step
 
@@ -153,31 +160,37 @@ def make_train_step_with_fallback(cfg: VilbertConfig, *,
 
     In a world of several processes the ranks vote: any rank's overflow
     sends every rank down the same branch.
+
+    The step is the root span ``train.step``, its id the step index.
     """
     if policy not in ("dense", "error", "allow"):
         raise ValueError(f"policy {policy!r}")
     gathered = make_train_step(cfg, **kw)
     if cfg.mlm_loss_impl != "gathered" or policy == "allow":
         def plain(state, batch, nsp_weight=None, host_mlm_labels=None):
-            return gathered(state, batch, nsp_weight)
+            with trace.span("train.step", id=state["step"]):
+                return gathered(state, batch, nsp_weight)
         return plain
     dense = make_train_step(dataclasses.replace(cfg, mlm_loss_impl="dense"),
                             **kw)
 
     def step(state, batch, nsp_weight=None, host_mlm_labels=None):
-        labels = (host_mlm_labels if host_mlm_labels is not None
-                  else batch["mlm_labels"].cpu().numpy())
-        n = (np.asarray(labels) != -1).sum(axis=-1)
-        over = n.max(initial=0) > cfg.max_train_label_positions
-        if any(dist.allgather_np(np.asarray([over]))):
-            if policy == "error":
-                raise ValueError(
-                    "gathered-MLM label budget overflow: a sequence carries "
-                    "more than max_train_label_positions="
-                    f"{cfg.max_train_label_positions} labels and its tail "
-                    "would be dropped; raise the budget or use the 'dense' "
-                    "policy")
-            return dense(state, batch, nsp_weight)
-        return gathered(state, batch, nsp_weight)
+        with trace.span("train.step", id=state["step"]):
+            with trace.span("train.vote"):
+                labels = (host_mlm_labels if host_mlm_labels is not None
+                          else batch["mlm_labels"].cpu().numpy())
+                n = (np.asarray(labels) != -1).sum(axis=-1)
+                over = n.max(initial=0) > cfg.max_train_label_positions
+                over = any(dist.allgather_np(np.asarray([over])))
+            if over:
+                if policy == "error":
+                    raise ValueError(
+                        "gathered-MLM label budget overflow: a sequence "
+                        "carries more than max_train_label_positions="
+                        f"{cfg.max_train_label_positions} labels and its "
+                        "tail would be dropped; raise the budget or use the "
+                        "'dense' policy")
+                return dense(state, batch, nsp_weight)
+            return gathered(state, batch, nsp_weight)
 
     return step
