@@ -7,10 +7,13 @@ the serving paths end to end and check that they went through the kernels.
     python3 chip_smoke.py --world
     python3 chip_smoke.py --mp
     python3 chip_smoke.py --modes
+    python3 chip_smoke.py --xent-train
 
 ``--world`` runs phase 1, the build and phase 13 alone, ``--mp`` phase 1,
 the build and phase 14 alone (``--world-rank SPEC RANK`` is one of their
-rank processes), ``--modes`` phase 1, the build and phase 15 alone.
+rank processes), ``--modes`` phase 1, the build and phase 15 alone,
+``--xent-train`` phase 1, the build, phase 2's report and phase 3's
+training cross-entropy cases alone.
 ``--train-gates`` runs phase 1,
 the build and phase 8 (a)'s two gates alone, on the batches of the given
 seeds (default GATE_SEEDS), printing
@@ -50,7 +53,11 @@ prints its seconds):
      per-head context too, bit-equal when rerun, the twin at lc - 1 and on
      options shifted by a row missing the context bound; K3 at M 25600
      and 1000, bit-equal when rerun, the twin on labels one column on and
-     without the last vocab tile missing its bound. B4 and B5 bit-equal
+     without the last vocab tile missing its bound; the training
+     cross-entropy (xent_train: nll, lse and the three gradients against
+     the plain scan of _OnlineXent) at the step's M 38400, a dp rank's 9600
+     and 129 rows over a vocabulary of 5000, bit-equal when rerun, the same
+     two controls missing on every output. B4 and B5 bit-equal
      when rerun, with each kernel's time a call at their main shapes
      (fails on a launch of the first design's gemm_nt_kernel,
      out_ln_kernel or seq_attn_kernel); B10 and B11 likewise at the
@@ -142,8 +149,8 @@ prints its seconds):
      relaunched with -auto_resume does nothing; (e) -batch_multiply 2
      -length_buckets 1, B5 at the morsels' bucket lengths; (f) val_lm from
      (a)'s .ckpt; (g) dense_finetune -overfit, 5 steps of 100 options with
-     the GT first. Launch counts as derived from the code (12 + 12 B5 a
-     micro-step, one B7 a parameter tensor an update, 12 B4 / 18 K2 an
+     the GT first. Launch counts as derived from the code (12 + 12 B5
+     and one xent_train_fwd / _bwd a micro-step, one B7 a parameter tensor an update, 12 B4 / 18 K2 an
      eval chunk, 12 K1 / 18 K2 / 1 K3 a slate group), every loss finite;
      each run's seconds and the training runs' ms a step beside the
      loader's wait and phase 8 (b)'s ms a step.
@@ -160,8 +167,8 @@ prints its seconds):
      a rank; (c) train, 2 ranks x 120 sequences against 1 x 240 (every
      sequence of 12 images a step, so the same global batches), dropout
      0, 2 steps, -fused_adamw 1: the ranks' weights bit-equal, every loss
-     part within LOSS_RTOL of the one-rank run's, 12 + 12 B5 and 534 B7 a
-     rank and step, each rank's peak memory and ms a step beside its
+     part within LOSS_RTOL of the one-rank run's, 12 + 12 B5, one
+     xent_train_fwd / _bwd and 534 B7 a rank and step, each rank's peak memory and ms a step beside its
      gradient all-reduce's ms (the card synchronized around it); (d)
      dense_finetune, 2 steps, the slate split 50 / 50, as (c); (e) one
      rank under NCCL: one train step and a data-sharded val_lm, each
@@ -370,6 +377,8 @@ def report_kernels():
     report_spills("gemm_nt_wg_kernel", 16)
     report_spills("answer_attn_kernel", 2)
     report_spills("xent_wg_kernel", 1)
+    # the training cross-entropy's recompute, dh and ddecoder instances
+    report_spills("xt_wg_kernel", 3)
     # B10's none and noshift, B11's pad128 attention; wo_acc, transposed
     report_spills("probe_attn_kernel", 3)
     report_spills("wo_acc_wg_kernel", 2)
@@ -516,8 +525,11 @@ def shared_core_sass(current):
 # the scores alone), to TA_REL of its largest entry, as B6's; its control
 # is the twin on weights whose Wq and bq are zero (every score 0).
 TA_REL = 1e-2
+XT_REL = 2e-2   # the training cross-entropy's gradients (check_xent_train)
 TOL = {"answer_block": (5e-2, 2e-2), "ffn_block": (5e-2, 2e-2),
-       "xent_head": (2e-3, 1e-4), "attention_block": (5e-2, 2e-2),
+       "xent_head": (2e-3, 1e-4), "xent_train_fwd": (2e-3, 1e-4),
+       "xent_train_bwd": (XT_REL, 0.0),
+       "attention_block": (5e-2, 2e-2),
        "co_text_block": (5e-2, 2e-2),
        "attention_block_train_fwd": (5e-2, 2e-2),
        "attention_block_train_bwd": (2e-2, 0.0),
@@ -829,6 +841,236 @@ def check_xent_head(dev, gen, M=25600, V=30522):
                 ms=time_ms(kern, 5), plain_ms=time_ms(plain, 2, 1),
                 bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library, 5))
 
+
+# The training cross-entropy (xent_train) against the plain scan of
+# ops/losses._OnlineXent on the same bf16 inputs: nll and lse take K3's
+# bound (the same logits kernel and combine). Its gradients round dlogits
+# to bf16 on both sides (the kernel from ex2, the scan from exp: a rounding
+# may move by one step, 2^-8 of the entry) and the kernel rounds dh and
+# ddecoder once more, 2^-9: each gradient is held to max |d| <= XT_REL
+# max |plain| (the atol column; rtol 0), as B5's backward outputs. That
+# bound is set by the one-hot term (-gf at the label), so the softmax term
+# (gf p) is held on its own too: every row of dh (where gf != 0) and of
+# ddecoder to XT_REL of that row's largest entry, and dbias on the vocab
+# columns that no label hits (the softmax term alone) to XT_REL of their
+# largest. The hidden rows peak the softmax as a trained head does, so
+# that the softmax term weighs in dh as much as the one-hot term.
+# Controls that must miss: the scan on labels one column on (the one-hot
+# term moves), the scan without the last vocab tile, as a kernel that
+# skipped it would return (its columns of ddecoder and dbias 0, their part
+# of dhidden lost; a likelihood row's label is V - 1), each on nll and
+# every gradient; and the gradients of the one-hot term alone (d = -gf
+# onehot, a kernel that lost the softmax term) on every gradient.
+
+
+def xent_train_case(gen, B, P, V, L=256):
+    """The cross-entropy's inputs as the training step gives them: 10-39
+    labels a sequence of L at random places, gathered to P slots by
+    ``unimm.label_positions`` (the slots past a sequence's labels hold -1),
+    the first quarter of the sequences unlikelihood (weight -1), the rest
+    likelihood; the bf16 decoder at std 0.02, an fp32 bias, and hidden
+    rows h = c W[t] / |W[t]|^2 + N(0, 1) that peak the softmax at a token t
+    (the row's label for half of the labelled rows, else one drawn at
+    random): logit c in [4, 12] over noise of std ~0.55, so t takes 0.2%
+    to 85% of the row's probability. Returns (h [B P, 768], w, b,
+    labels [B P], weights [B P], the loss's denominator)."""
+    from unimm_torch.models.unimm import label_positions
+
+    dev = gen.device
+    n = torch.randint(10, 40, (B,), generator=gen, device=dev)
+    rank = torch.rand(B, L, generator=gen, device=dev).argsort(-1).argsort(-1)
+    mlm = torch.where(rank < n[:, None],
+                      torch.randint(0, V, (B, L), generator=gen, device=dev),
+                      -1)
+    _, labs = label_positions(mlm, P)
+    wt = torch.where(torch.arange(B, device=dev)[:, None] < B // 4, -1.0,
+                     1.0).expand(B, P)
+    wt = torch.where(labs == -1, 0.0, wt).reshape(-1)
+    lab = labs.reshape(-1).clone()
+    r0 = (B // 4) * P                  # the first likelihood sequence's
+    lab[r0], lab[r0 + 1] = V - 1, 0    # the vocab tail and head
+    M = B * P
+    w = (torch.randn(V, 768, generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    hit = torch.rand(M, generator=gen, device=dev) < 0.5
+    peak = torch.where(hit & (lab != -1), lab,
+                       torch.randint(0, V, (M,), generator=gen, device=dev))
+    wp = w[peak].float()
+    c = 4 + 8 * torch.rand(M, 1, generator=gen, device=dev)
+    h = (c * wp / (wp * wp).sum(-1, keepdim=True)
+         + torch.randn(M, 768, generator=gen, device=dev)).to(torch.bfloat16)
+    b = torch.randn(V, generator=gen, device=dev) * 0.1
+    return h, w, b, lab, wt, (wt != 0).float().sum()
+
+
+def xent_upstream(nll, lab, wt, num):
+    """d loss / d nll of ``masked_lm_ul_loss_gathered`` (likelihood rows
+    w / num, unlikelihood rows the derivative of -log(1 - exp(-nll)) /
+    num), 0 where the label is -1: _OnlineXent's gf."""
+    from unimm_torch.ops import losses
+
+    with torch.enable_grad():
+        x = nll.detach().float().requires_grad_()
+        g, = torch.autograd.grad(
+            losses.masked_lm_ul_loss_gathered(x, lab, wt, num), x)
+    return g * (lab != -1).float()
+
+
+def check_xent_train(dev, gen, B=240, P=160, V=30522):
+    """xent_train's forward and backward against the plain scan, bit-equal
+    when rerun, each control missing on every output it moves. Returns
+    (the forward's case, the backward's case)."""
+    import torch.nn.functional as F
+    from unimm_torch.ops import losses
+    from unimm_torch.ops import xent_train as xt
+
+    h, w, b, lab, wt, num = xent_train_case(gen, B, P, V)
+    lab32 = lab.to(torch.int32)
+    M, Hd, ch = h.shape[0], h.shape[1], 7680
+
+    def plain(lab_=lab, w_=w, b_=b):
+        lse, t = losses._xent_stats(h.float(), w_, b_, lab_, ch)
+        return losses._nll(lse, t, lab_), lse
+
+    nll_p, lse_p = plain()
+    gf = xent_upstream(nll_p, lab, wt, num)
+
+    def fwd():
+        return xt.xent_train_fwd(h, w, b, lab32)
+
+    def bwd():
+        return xt.xent_train_bwd(h, w, b, lab32, fwd_out[1], gf)
+
+    def plain_bwd(lab_=lab, w_=w, b_=b):
+        return losses._xent_grads(h, w_, b_, lab_, lse_p, gf, ch)
+
+    def onehot_only():
+        # the gradients of d = -gf onehot: the softmax term left out
+        g = -gf
+        idx = lab.clamp(min=0)
+        return (g[:, None] * w.float()[idx],
+                torch.zeros(V, Hd, device=dev).index_add_(
+                    0, idx, g[:, None] * h.float()),
+                torch.zeros(V, device=dev).index_add_(0, idx, g))
+
+    with torch.enable_grad():
+        hh, ww, bb = (t.detach().requires_grad_() for t in (h, w, b))
+
+        def library():
+            return F.cross_entropy((hh @ ww.t()).float() + bb, lab,
+                                   reduction="none", ignore_index=-1)
+
+        nll_lib = library()
+
+    names = ("nll", "lse", "dh", "dw", "db")
+    fwd_out = fwd()
+    got = (*fwd_out, *bwd())
+    again = (*fwd(), *bwd())
+    same_f, same_b = (all(torch.equal(x, y) for x, y in zip(got[k], again[k]))
+                      for k in (slice(0, 2), slice(2, 5)))
+    want = (nll_p, lse_p, *plain_bwd())
+    torch.cuda.synchronize()
+    live = gf != 0                     # the rows with a gradient
+    free = torch.bincount(lab[lab >= 0], minlength=V) == 0
+
+    def rel(g_, r):
+        return float((g_.float() - r.float()).abs().max()
+                     / r.float().abs().max())
+
+    def row_rel(g_, r):
+        # the worst row, held against that row's largest entry
+        r = r.float()
+        return float(((g_.float() - r).abs().amax(-1)
+                      / r.abs().amax(-1)).max())
+
+    def errs(ref):
+        """{output: (its errors, whether all hold)}"""
+        out = {}
+        for name, g_, r in zip(names, got, ref):
+            if name in ("nll", "lse"):
+                e, _, ok_ = within(g_, r, *TOL["xent_train_fwd"])
+                out[name] = ({name: e}, ok_)
+                continue
+            e = {name: rel(g_, r)}
+            if name == "dh":
+                e["dh_rows"] = row_rel(g_[live], r[live])
+            elif name == "dw":
+                e["dw_rows"] = row_rel(g_, r)
+            else:
+                e["db_free"] = rel(g_[free], r[free])
+            out[name] = (e, bool(torch.isfinite(g_.float()).all())
+                         and all(v <= XT_REL for v in e.values()))
+        return out
+
+    res = errs(want)
+    ok_f = (res["nll"][1] and res["lse"][1] and same_f
+            and bool((got[0][lab == -1] == 0).all()))
+    ok_b = all(res[k][1] for k in ("dh", "dw", "db")) and same_b
+    shifted = torch.where(lab == -1, lab, (lab + 1) % V)
+    cut = (V - 1) // 256 * 256
+    b_drop = b.clone()
+    b_drop[cut:] = -1e4
+    g_cut = plain_bwd(torch.where(lab >= cut, -1, lab), w[:cut], b[:cut])
+    zeros = torch.zeros(V - cut, Hd, device=dev)
+    grads = ("dh", "dw", "db")
+    # (the control's outputs, the outputs it must miss on): lse hardly
+    # sees the labels, or one of 120 tiles; nll carries them
+    controls = {
+        "labels_shifted": ((*plain(shifted), *plain_bwd(shifted)),
+                           ("nll",) + grads),
+        "last_tile_dropped": ((
+            *plain(lab, w, b_drop), g_cut[0],
+            torch.cat([g_cut[1], zeros]),
+            torch.cat([g_cut[2], torch.zeros(V - cut, device=dev)])),
+            ("nll",) + grads),
+        "softmax_dropped": ((nll_p, lse_p, *onehot_only()), grads)}
+    ctrl = {}
+    for label, (outs, must) in controls.items():
+        r = errs(outs)
+        if any(r[k][1] for k in must):
+            seen = {k: r[k] for k in must}
+            raise SystemExit(f"xent_train: the check passes the control "
+                             f"{label}: {seen}")
+        ctrl[label] = {n: e for k in must for n, e in r[k][0].items()}
+    # inputs read once, outputs written once (dl, the backward's own
+    # intermediate, not counted)
+    flops = 2 * M * Hd * V
+    nbytes = M * Hd * 2 + V * Hd * 2 + V * 4 + M * 4
+    f_ms, f_by = bound(flops, nbytes + M * 8)
+    b_ms, b_by = bound(3 * flops, 2 * nbytes + M * 8)
+    shape = f"M={M} (B={B} P={P}) V={V}"
+    fwd_case = dict(
+        shape=shape, max_abs_err=res["nll"][0]["nll"],
+        lse_max_abs_err=res["lse"][0]["lse"], ok=ok_f, bit_equal=same_f,
+        control_max_errs={k: {"nll": v["nll"]} for k, v in ctrl.items()
+                          if "nll" in v},
+        ms=time_ms(fwd, 5), plain_ms=time_ms(plain, 2, 1),
+        bound_ms=f_ms, bound_by=f_by)
+    rel_errs = {n: e for k in grads for n, e in res[k][0].items()}
+    with torch.enable_grad():
+        fwd_case["library_ms"] = time_ms(library, 3, 1)
+        lib_bwd = time_ms(lambda: torch.autograd.backward(
+            nll_lib, gf, retain_graph=True), 3, 1)
+    del nll_lib
+    bwd_case = dict(
+        shape=shape, max_abs_err=max(rel_errs.values()), rel_errs=rel_errs,
+        ok=ok_b, bit_equal=same_b,
+        control_max_errs={k: {n: e for n, e in v.items() if n != "nll"}
+                          for k, v in ctrl.items()},
+        ms=time_ms(bwd, 5), plain_ms=time_ms(plain_bwd, 2, 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_bwd)
+    return fwd_case, bwd_case
+
+
+def xent_train_cases(dev, gen):
+    """Phase 3's cases of xent_train_fwd and xent_train_bwd: the training
+    step's shape, a data-parallel rank's (B 60), and a ragged one (129
+    rows, a vocabulary of 5000: partial row and vocab tiles)."""
+    cs = [check_xent_train(dev, gen),
+          check_xent_train(dev, gen, B=60),
+          check_xent_train(dev, gen, B=3, P=43, V=5000)]
+    return {"xent_train_fwd": [f for f, _ in cs],
+            "xent_train_bwd": [b_ for _, b_ in cs]}
 
 def dis_desc(B, L, gen):
     """Discriminative descriptors of the flat path's bucket L: real
@@ -1538,6 +1780,10 @@ KERNELS = [
      "unimm_tpu/ops/pallas_attention_v2.py:494"),
     ("xent_head", "unimm_torch/csrc/xent_head.cu",
      "unimm_tpu/ops/pallas_head.py:106"),
+    ("xent_train_fwd", "unimm_torch/csrc/xent_train.cu",
+     "unimm_tpu/ops/losses.py:177"),
+    ("xent_train_bwd", "unimm_torch/csrc/xent_train.cu",
+     "unimm_tpu/ops/losses.py:183"),
     ("attention_block", "unimm_torch/csrc/attention_block.cu",
      "unimm_tpu/ops/pallas_attention_v2.py:168"),
     ("co_text_block", "unimm_torch/csrc/co_text_block.cu",
@@ -1652,6 +1898,7 @@ def phase_kernels(dev):
            for m in (1, 63, 64, 65, 129, 300)],
         "xent_head": [check_xent_head(dev, gen),
                       check_xent_head(dev, gen, M=1000)],
+        **xent_train_cases(dev, gen),
         # the flat path's main bucket, the longest one, the shortest one
         # with every kind of descriptor, the longest with the same, and the
         # masked tails (the chunks the one-pass attention skips, and rows
@@ -1726,11 +1973,12 @@ def wrappers():
     from unimm_torch.ops.text_attention import (text_attention_bwd,
                                                 text_attention_fwd)
     from unimm_torch.ops.xent_head import xent_head
-    return (answer_block, ffn_block, xent_head, attention_block,
-            co_text_block, attention_block_train_fwd,
-            attention_block_train_bwd, adamw_update_leaf, text_attention_fwd,
-            text_attention_bwd, attention_v2, probe_block,
-            layout_probe_block)
+    from unimm_torch.ops.xent_train import xent_train_bwd, xent_train_fwd
+    return (answer_block, ffn_block, xent_head, xent_train_fwd,
+            xent_train_bwd, attention_block, co_text_block,
+            attention_block_train_fwd, attention_block_train_bwd,
+            adamw_update_leaf, text_attention_fwd, text_attention_bwd,
+            attention_v2, probe_block, layout_probe_block)
 
 
 def counted(fn):
@@ -1948,6 +2196,11 @@ class Named:
         return iter(self.named)
 
 
+# the training cross-entropy's launches a forward and backward of the
+# gathered MLM loss on bf16 rows (ops/xent_train.takes)
+XENT_STEP = {"xent_train_fwd": 1, "xent_train_bwd": 1}
+
+
 def on_device(batch, dev):
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in batch.items()}
@@ -1957,7 +2210,8 @@ def on_device(batch, dev):
 def plain_block_train():
     """Inside: the training step's text attention blocks run as autograd
     through the forward kernel's plain twin (its Philox mask, hidden-
-    dropout mask and rounding points), launching no kernel."""
+    dropout mask and rounding points), launching no kernel of theirs (the
+    step's cross-entropy still launches its own, XENT_STEP)."""
     from unimm_torch.models import unimm
     from unimm_torch.ops import attention_block_train as abt
     from unimm_torch.ops.answer_block import _weights
@@ -2059,7 +2313,8 @@ def train_gates(dev, cfg, runs, seeds=GATE_SEEDS, B_small=64):
     from unimm_torch.models import unimm, vilbert
 
     per_step = {"attention_block_train_fwd": cfg.num_hidden_layers,
-                "attention_block_train_bwd": cfg.num_hidden_layers}
+                "attention_block_train_bwd": cfg.num_hidden_layers,
+                **XENT_STEP}
     cfg0 = cfg.replace(**NO_DROPOUT)
     model = vilbert.train_model(cfg0, seed=0, device=dev)
 
@@ -2115,7 +2370,7 @@ def train_gates(dev, cfg, runs, seeds=GATE_SEEDS, B_small=64):
         runs["train_a_dropout"] = launches
         with plain_block_train():
             (parts_t, g_t), _, launches = counted(lambda: drop_step(1))
-        expect("train (a) dropout, plain twin", launches, {})
+        expect("train (a) dropout, plain twin", launches, XENT_STEP)
         _, g_o = drop_step(2)
     d_loss_ok = all(abs(parts_k[k] - parts_t[k])
                     <= LOSS_RTOL * abs(parts_t[k]) for k in parts_t)
@@ -2143,7 +2398,7 @@ def phase_train(dev, card, runs, cfg=None, B=240, B_small=64):
     lang = optim.load_language_weights(
         Path(__file__).resolve().parent / "config" / "language_weights.json")
     per_step = {"attention_block_train_fwd": n_t,
-                "attention_block_train_bwd": n_t}
+                "attention_block_train_bwd": n_t, **XENT_STEP}
 
     def times(d, k):
         return {name: n * k for name, n in d.items()}
@@ -2397,7 +2652,8 @@ def phase_per_head(dev, card, runs, model, cfg, dis_batches, dis_steady,
         (parts_k, g_k), secs, launches = counted(
             lambda: train_grads(model_t, cfg_t, small, 3))
         expect("pallas train (b)", launches,
-               {"text_attention_fwd": n_t, "text_attention_bwd": n_t})
+               {"text_attention_fwd": n_t, "text_attention_bwd": n_t,
+                **XENT_STEP})
         runs["pallas_train_b64"] = launches
         g_k = {n: g.clone() for n, g in g_k.items() if g is not None}
         parts_p, g_p = train_grads(model_t, plain, small, 3)
@@ -2423,7 +2679,8 @@ def phase_per_head(dev, card, runs, model, cfg, dis_batches, dis_steady,
     res, launches, n_params = timed_steps(dev, cfg_t, batches, lang)
     expect("pallas train (b) B 240", launches,
            {"text_attention_fwd": 3 * n_t, "text_attention_bwd": 3 * n_t,
-            "adamw_update_leaf": 3 * n_params})
+            "adamw_update_leaf": 3 * n_params,
+            **{k: 3 * v for k, v in XENT_STEP.items()}})
     runs["pallas_train"] = launches
     steps["pallas"] = res
 
@@ -2432,9 +2689,10 @@ def phase_per_head(dev, card, runs, model, cfg, dis_batches, dis_steady,
     remat = {}
     for impl, c, want in (
             ("pallas", cfg_t, {"text_attention_fwd": 2 * n_t,
-                               "text_attention_bwd": n_t}),
+                               "text_attention_bwd": n_t, **XENT_STEP}),
             ("pallas_block", cfg, {"attention_block_train_fwd": n_t,
-                                   "attention_block_train_bwd": n_t})):
+                                   "attention_block_train_bwd": n_t,
+                                   **XENT_STEP})):
         res, launches, n_params = timed_steps(dev, c.replace(remat=True),
                                               batches, lang)
         expect(f"remat {impl}", launches,
@@ -2458,7 +2716,7 @@ def phase_per_head(dev, card, runs, model, cfg, dis_batches, dis_steady,
     with torch.enable_grad():
         _, _, launches = counted(lambda: train_grads(model_d, cfg_p, small,
                                                      5))
-    expect("pallas train at attention dropout", launches, {})
+    expect("pallas train at attention dropout", launches, XENT_STEP)
     runs["pallas_train_dropout"] = launches
     del model_d, small, batches
 
@@ -2889,8 +3147,8 @@ def phase_train_cli(dev, card, runs, train_b, config=None, max_seq_len=256):
     -batch_multiply 2 -length_buckets 1
     (B5 at the morsels' bucket lengths); (f) val_lm from (a)'s .ckpt; (g)
     dense_finetune -overfit from (a)'s .ckpt (100 options a step, the GT
-    first). Launches as derived from the code: 12 + 12 B5 a micro-step,
-    one B7 a parameter tensor an update, 12 B4 / 18 K2 an eval chunk, 12
+    first). Launches as derived from the code: 12 + 12 B5 and one
+    xent_train_fwd / _bwd a micro-step, one B7 a parameter tensor an update, 12 B4 / 18 K2 an eval chunk, 12
     K1 / 18 K2 / 1 K3 a slate group. Every loss finite. Prints each run's
     wall seconds, the training runs' mean ms a step after the first (each
     step timed to the card's idle) and the seconds their loop waited for
@@ -2937,7 +3195,8 @@ def phase_train_cli(dev, card, runs, train_b, config=None, max_seq_len=256):
         "-sequences_per_image", "8",
         "-language_weights", str(here / "config" / "language_weights.json"),
         "-save_path", str(root / "ckpt")]
-    b5 = {"attention_block_train_fwd": n_t, "attention_block_train_bwd": n_t}
+    per_step = {"attention_block_train_fwd": n_t,
+                "attention_block_train_bwd": n_t, **XENT_STEP}
 
     def per(d, k):
         return {name: n * k for name, n in d.items()}
@@ -2948,7 +3207,7 @@ def phase_train_cli(dev, card, runs, train_b, config=None, max_seq_len=256):
                       for f in Path(d).rglob("*") if f.is_file())
 
     def train_want(micro, updates, eval_chunks=0):
-        want = per(b5, micro)
+        want = per(per_step, micro)
         want["adamw_update_leaf"] = n_params * updates
         if eval_chunks:
             want["attention_block"] = n_t * eval_chunks
@@ -3441,10 +3700,11 @@ def world_tree(name, dev, config=None, max_seq_len=256):
         "-save_path", str(root / "ckpt")]
     lm = base + ["-model_config", str(config), "-val_dis", "0",
                  "-start_path", start, "-eval_data_sharded", "1"]
-    b5 = {"attention_block_train_fwd": n_t, "attention_block_train_bwd": n_t}
+    per_step = {"attention_block_train_fwd": n_t,
+                "attention_block_train_bwd": n_t, **XENT_STEP}
 
     def train_want(steps):
-        return dict({k: v * steps for k, v in b5.items()},
+        return dict({k: v * steps for k, v in per_step.items()},
                     adamw_update_leaf=n_params * steps)
 
     def gen_want(dialog_batches):
@@ -3479,10 +3739,11 @@ def phase_dist(dev, card, runs, config=None, max_seq_len=256,
     global batches: every sequence of 12 images a step), dropout 0, 2
     steps from one start .ckpt, -fused_adamw 1: the ranks' weights
     bit-equal, every loss part within LOSS_RTOL of the one-rank run's,
-    12 + 12 B5 and 534 B7 a rank and step, each rank's peak memory and ms
-    a step beside its gradient all-reduce's ms; (d) dense_finetune, 2
-    steps, the 100-option slate split 50 / 50: as (c). (e) one rank under NCCL (the backend's default on a card):
-    one train step and a data-sharded val_lm, each bit-equal to the same
+    12 + 12 B5, one xent_train_fwd / _bwd and 534 B7 a rank and step,
+    each rank's peak memory and ms a step beside its gradient
+    all-reduce's ms; (d) dense_finetune, 2 steps, the 100-option slate
+    split 50 / 50: as (c). (e) one rank under NCCL (the backend's default
+    on a card): one train step and a data-sharded val_lm, each bit-equal to the same
     command without the flags. ``config`` / ``max_seq_len`` /
     ``rank_device`` / ``one_backend`` rehearse it on the CPU at TINY size
     (with ``torch.cuda``'s calls and ``expect`` stubbed in every
@@ -3671,7 +3932,7 @@ def phase_mp(dev, card, runs, config=None, max_seq_len=256,
     process's, its peak memory (since sharding), its ms a step, its mp
     gathers' and dp gradient all-reduce's MiB and ms (the card synchronized
     around each) and its launches, which must be one process's: 12 + 12
-    B5 a step and 534 B7 an update (on the slices), 12 K1 / 18 K2 / 1 K3 a
+    B5 and one xent_train_fwd / _bwd a step and 534 B7 an update (on the slices), 12 K1 / 18 K2 / 1 K3 a
     prefix group. ``config`` / ``max_seq_len`` / ``rank_device`` rehearse
     it on the CPU at TINY size (with ``torch.cuda``'s calls and ``expect``
     stubbed in every process)."""
@@ -4142,6 +4403,31 @@ def main_train_gates(dev, card, seeds):
     return 0 if ok_a and ok_d else 1
 
 
+def main_xent_train(dev, card):
+    """``--xent-train``: the build, phase 2's report and the training
+    cross-entropy's phase 3 cases alone."""
+    from unimm_torch.ops import _build
+
+    with phase("2 build"):
+        _build.library()
+    report_kernels()
+    with phase("3 xent_train"):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cases = xent_train_cases(dev, gen)
+    bad = []
+    for name, cs in cases.items():
+        atol, rtol = TOL[name]
+        for c in cs:
+            print(json.dumps({"kernel": name, "atol": atol, "rtol": rtol,
+                              **c}), flush=True)
+            if not c["ok"]:
+                bad.append(f"{name} {c['shape']}")
+    print(card, flush=True)
+    if bad:
+        raise SystemExit(f"xent_train disagrees with its plain version: {bad}")
+    return 0
+
+
 def main_world(dev, card):
     """``--world``: the build and phase 13 alone."""
     from unimm_torch.ops import _build
@@ -4199,6 +4485,8 @@ def main():
         return main_mp(dev, card)
     if sys.argv[1:2] == ["--modes"]:
         return main_modes(dev, card)
+    if sys.argv[1:2] == ["--xent-train"]:
+        return main_xent_train(dev, card)
 
     from unimm_torch.config import VilbertConfig
     from unimm_torch.eval.evaluator import (RankingEvaluator, _merge_batches,

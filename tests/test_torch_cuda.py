@@ -2,9 +2,9 @@
 version on the same bf16 inputs, at the kernels' width (768) and small
 batches (K2 and B8, on the Hopper GEMM cores, also at row tails and 1-64
 regions with bit-equal reruns and lost-tile / lost-row controls; K1 with
-its per-head context, on the scorer's biases too, and K3, each with
-controls that must miss and bit-equal reruns), plus
-the wrappers' refusals, a short prefix-scorer run through
+its per-head context, on the scorer's biases too, K3 and the training
+cross-entropy, each with controls that must miss and bit-equal reruns),
+plus the wrappers' refusals, a short prefix-scorer run through
 its three kernels, a short flat-scorer run through its three, and the
 training attention block (forward and backward, with dropout, the
 backward's other-seed control and bit-equal reruns; B4's and B5's
@@ -42,6 +42,7 @@ from unimm_torch.ops import co_text_block as tco
 from unimm_torch.ops import ffn_block as tfb
 from unimm_torch.ops import text_attention as tta
 from unimm_torch.ops import xent_head as txh
+from unimm_torch.ops import xent_train as txt
 from unimm_torch.ops.masks import NEG_INF
 
 pytestmark = pytest.mark.cuda
@@ -332,6 +333,29 @@ def test_xent_head_controls_and_bits(dev, M, V):
     gen = torch.Generator(device=dev).manual_seed(M)
     res = chip_smoke.check_xent_head(dev, gen, M=M, V=V)
     assert res["ok"], res
+
+
+@pytest.mark.parametrize("B,P,V", [(60, 160, 30522), (3, 43, 5000)])
+def test_xent_train_controls_and_bits(dev, B, P, V):
+    """The training cross-entropy's kernels as chip_smoke.py phase 3 holds
+    them: nll, lse and the three gradients against the plain scan (the
+    softmax term row by row too), reruns bit-equal, the shifted-label,
+    dropped-tile and dropped-softmax controls missing on every output they
+    move (``check_xent_train`` raises if one passes)."""
+    gen = torch.Generator(device=dev).manual_seed(B)
+    fwd, bwd = chip_smoke.check_xent_train(dev, gen, B=B, P=P, V=V)
+    assert fwd["ok"] and bwd["ok"], (fwd, bwd)
+
+
+def test_xent_train_refuses_wrong_dtype(dev):
+    h = torch.randn(64, 768, device=dev)
+    w = torch.randn(300, 768, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(300, device=dev)
+    lab = torch.zeros(64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="must be bfloat16"):
+        txt.xent_train_fwd(h, w, b, lab)
+    with pytest.raises(ValueError, match="must be int32"):
+        txt.xent_train_fwd(h.bfloat16(), w, b, lab.long())
 
 
 def test_wrappers_refuse_wrong_dtype(dev):

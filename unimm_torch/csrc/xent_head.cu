@@ -35,29 +35,9 @@
 // device memory about once per group, not once per row tile. exp is
 // ex2.approx with log2(e) folded into one FFMA per logit.
 #include "gemm_wg.cuh"
+#include "xent_tiles.cuh"
 
 namespace {
-
-constexpr int XW_GROUP = 16;  // row tiles of a tile group
-constexpr float XW_LOG2E = 1.4426950408889634f;
-constexpr float XW_PAD = -1e30f;
-
-__device__ __forceinline__ float xw_ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// tile t's row and vocab tile: groups of XW_GROUP row tiles (the last one
-// smaller), the row tile fastest inside a group
-__device__ __forceinline__ void xw_tile(int t, int ntm, int ntn, int& tm,
-                                        int& tn) {
-  const int per = XW_GROUP * ntn;
-  const int grp = t / per, w = t - grp * per;
-  const int rows = min(XW_GROUP, ntm - grp * XW_GROUP);
-  tm = grp * XW_GROUP + w % rows;
-  tn = w / rows;
-}
 
 __global__ void __launch_bounds__(WG_THREADS, 1)
     xent_wg_kernel(const __grid_constant__ WgMaps maps, const int M,
@@ -201,10 +181,12 @@ __global__ void __launch_bounds__(XC_WARPS * 32)
 
 }  // namespace
 
-extern "C" int unimm_xent_head(const void* hid, const void* labels,
-                               const void* w, const void* b, void* part,
-                               void* label_logit, void* nll, int M, int V,
-                               void* stream) {
+// the logits kernel alone: part and label_logit for M rows (the
+// training cross-entropy's forward, xent_train.cu, combines them itself)
+extern "C" int unimm_xent_tiles(const void* hid, const void* labels,
+                                const void* w, const void* b, void* part,
+                                void* label_logit, int M, int V,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M < 1 || V < 1) return cudaErrorInvalidValue;
   WgMaps maps;
@@ -223,10 +205,19 @@ extern "C" int unimm_xent_head(const void* hid, const void* labels,
       maps, M, V, static_cast<const float*>(b),
       static_cast<const int*>(labels), static_cast<float2*>(part),
       static_cast<float*>(label_logit));
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+extern "C" int unimm_xent_head(const void* hid, const void* labels,
+                               const void* w, const void* b, void* part,
+                               void* label_logit, void* nll, int M, int V,
+                               void* stream) {
+  const int err =
+      unimm_xent_tiles(hid, labels, w, b, part, label_logit, M, V, stream);
   if (err != cudaSuccess) return err;
+  const int ntn = (V + WG_BN - 1) / WG_BN;
   xent_combine_kernel<<<(M + XC_WARPS - 1) / XC_WARPS, XC_WARPS * 32, 0,
-                        st>>>(
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(part),
       static_cast<const float*>(label_logit),
       static_cast<const int*>(labels), static_cast<float*>(nll), M, ntn);

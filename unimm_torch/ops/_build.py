@@ -41,6 +41,10 @@ _SIGNATURES = {
     "unimm_ffn_block": [_VP] * 10 + [_INT] * 3 + [_F32, _VP],
     # hidden, labels, decoder, bias, partials, label logits, nll; M, V
     "unimm_xent_head": [_VP] * 7 + [_INT] * 2 + [_VP],
+    # hidden, labels, decoder, bias, partials, label logits, nll, lse; M, V
+    "unimm_xent_train_fwd": [_VP] * 8 + [_INT] * 2 + [_VP],
+    # hidden, labels, decoder, bias, lse, gf, dl, part_db, dh, dw, db; M, V
+    "unimm_xent_train_bwd": [_VP] * 11 + [_INT] * 2 + [_VP],
     # x, desc, ten weights, q, k, v, ctx, pre, out; B, L, block_b; eps
     "unimm_attention_block": [_VP] * 18 + [_INT] * 3 + [_F32, _VP],
     "unimm_co_text_block": [_VP] * 19 + [_INT] * 3 + [_F32, _VP],

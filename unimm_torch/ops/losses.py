@@ -7,7 +7,8 @@ exp-sum and true-label logit) and the plain version of the label-head
 kernel (ops/xent_head.py). Only one [M, chunk] fp32 logits tile exists at a
 time; the reference materialises [N, 256, 30522] logits on every eval
 forward. ``online_softmax_xent_vjp`` is its differentiable form, whose
-backward recomputes each vocab chunk.
+backward recomputes each vocab chunk; on CUDA bf16 rows of width 768 both
+passes launch the Hopper kernels of ops/xent_train.py instead.
 
 The training losses port ``unimm_tpu/ops/losses.py`` with the reference's
 semantics (vilbert_dialog.py:1559-1624): the MLM likelihood +
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from unimm_torch.ops import xent_train
 from unimm_torch.utils import trace
 
 
@@ -70,19 +72,58 @@ def _xent_stats(h, decoder_weight, decoder_bias, lab, chunk):
     return run_max + torch.log(run_sum), true_logit
 
 
+def _xent_grads(hidden, decoder_weight, decoder_bias, lab, lse, gf, chunk):
+    """(dhidden, ddecoder, dbias) fp32 of sum(gf * nll) by the chunked
+    scan: each vocab chunk's logits again, dlogits = gf (softmax - onehot)
+    rounded to the hidden dtype for both products (fp32 accumulation),
+    dbias from the unrounded dlogits."""
+    V, H = decoder_weight.shape
+    h = hidden.reshape(-1, H)
+    M = h.shape[0]
+    hf = h.float()
+    rows = torch.arange(M, device=h.device)
+    dh = torch.zeros(M, H, dtype=torch.float32, device=h.device)
+    dw = torch.empty(V, H, dtype=torch.float32, device=h.device)
+    db = torch.empty(V, dtype=torch.float32, device=h.device)
+    for c0 in range(0, V, chunk):
+        # the chunk in the hidden dtype, products in fp32 (the JAX
+        # backward's preferred_element_type=float32)
+        w_c = decoder_weight[c0:c0 + chunk].to(hidden.dtype).float()
+        logits = hf @ w_c.t() + decoder_bias[c0:c0 + chunk].float()
+        dlogits = torch.exp(logits - lse[:, None])
+        local = lab - c0
+        in_chunk = (local >= 0) & (local < w_c.shape[0])
+        col = local.clamp(0, w_c.shape[0] - 1)
+        dlogits[rows, col] -= in_chunk.float()
+        dlogits = dlogits * gf[:, None]
+        dl = dlogits.to(hidden.dtype).float()
+        dh += dl @ w_c
+        dw[c0:c0 + chunk] = dl.t() @ hf
+        db[c0:c0 + chunk] = dlogits.sum(0)
+    return dh, dw, db
+
+
 class _OnlineXent(torch.autograd.Function):
     """The JAX package's ``online_softmax_xent_vjp``: the forward keeps
-    only the [M] log-sum-exp; the backward recomputes each vocab chunk's
-    logits and accumulates dhidden, ddecoder and dbias chunk by chunk, so
-    the [M, V] logits exist in neither pass."""
+    only the [M] log-sum-exp; the backward recomputes the logits and takes
+    dhidden, ddecoder and dbias, so the [M, V] fp32 logits exist in neither
+    pass. CUDA tensors with bf16 hidden rows of width 768
+    (``xent_train.takes``) launch the Hopper kernels of
+    ``ops/xent_train.py``; anything else runs the chunked scan
+    (``_xent_stats``, ``_xent_grads``), their plain version."""
 
     @staticmethod
     def forward(ctx, hidden, decoder_weight, decoder_bias, labels, chunk):
         H = decoder_weight.shape[1]
-        h = hidden.reshape(-1, H).float()
         lab = labels.reshape(-1).long()
-        lse, t = _xent_stats(h, decoder_weight, decoder_bias, lab, chunk)
-        nll = _nll(lse, t, lab)
+        ctx.kernels = xent_train.takes(hidden)
+        if ctx.kernels:
+            nll, lse = xent_train.xent_train_fwd(
+                *_kernel_operands(hidden, decoder_weight, decoder_bias, lab))
+        else:
+            lse, t = _xent_stats(hidden.reshape(-1, H).float(),
+                                 decoder_weight, decoder_bias, lab, chunk)
+            nll = _nll(lse, t, lab)
         ctx.save_for_backward(hidden, decoder_weight, decoder_bias, lab, lse)
         ctx.chunk = chunk
         return nll.reshape(labels.shape)
@@ -95,34 +136,25 @@ class _OnlineXent(torch.autograd.Function):
     @staticmethod
     def _backward(ctx, g):
         hidden, decoder_weight, decoder_bias, lab, lse = ctx.saved_tensors
-        chunk = ctx.chunk
-        V, H = decoder_weight.shape
-        h = hidden.reshape(-1, H)
-        M = h.shape[0]
-        hf = h.float()
         gf = g.reshape(-1).float() * (lab != -1).float()
-        rows = torch.arange(M, device=h.device)
-        dh = torch.zeros(M, H, dtype=torch.float32, device=h.device)
-        dw = torch.empty(V, H, dtype=torch.float32, device=h.device)
-        db = torch.empty(V, dtype=torch.float32, device=h.device)
-        for c0 in range(0, V, chunk):
-            # the chunk in the hidden dtype, products in fp32 (the JAX
-            # backward's preferred_element_type=float32)
-            w_c = decoder_weight[c0:c0 + chunk].to(hidden.dtype).float()
-            logits = hf @ w_c.t() + decoder_bias[c0:c0 + chunk].float()
-            dlogits = torch.exp(logits - lse[:, None])
-            local = lab - c0
-            in_chunk = (local >= 0) & (local < w_c.shape[0])
-            col = local.clamp(0, w_c.shape[0] - 1)
-            dlogits[rows, col] -= in_chunk.float()
-            dlogits = dlogits * gf[:, None]
-            dl = dlogits.to(hidden.dtype).float()
-            dh += dl @ w_c
-            dw[c0:c0 + chunk] = dl.t() @ hf
-            db[c0:c0 + chunk] = dlogits.sum(0)
+        if ctx.kernels:
+            dh, dw, db = xent_train.xent_train_bwd(
+                *_kernel_operands(hidden, decoder_weight, decoder_bias, lab),
+                lse, gf)
+        else:
+            dh, dw, db = _xent_grads(hidden, decoder_weight, decoder_bias,
+                                     lab, lse, gf, ctx.chunk)
         return (dh.reshape(hidden.shape).to(hidden.dtype),
                 dw.to(decoder_weight.dtype), db.to(decoder_bias.dtype), None,
                 None)
+
+
+def _kernel_operands(hidden, decoder_weight, decoder_bias, lab):
+    """The kernels' hidden [M, 768], bf16 decoder, fp32 bias and int32
+    labels (copies only where a dtype or layout differs)."""
+    return (hidden.reshape(-1, hidden.shape[-1]).contiguous(),
+            decoder_weight.to(hidden.dtype).contiguous(),
+            decoder_bias.float().contiguous(), lab.to(torch.int32))
 
 
 def online_softmax_xent_vjp(hidden, decoder_weight, decoder_bias, labels,

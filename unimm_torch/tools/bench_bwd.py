@@ -14,10 +14,13 @@ shapes and on the prefix scorer's biases at G 40, Lcb 192 / RB 64 and Lcb
 256 / RB 256, then Lcb 96 / RB 32, Lcb 192 / RB 96 and the W layout's Lcb
 256 / RB 160 (another tree that refuses one records the refusal),
 weights at std 0.05, and K3 (``xent_head``) at M 25600 and 1000, V
-30522; or B 240 training steps.
+30522; or the training MLM cross-entropy forward and backward
+(``--xent``: ``losses.online_softmax_xent_vjp`` under autograd, the
+kernels of ``ops/xent_train.py`` where the tree routes to them) at M 38400
+and 9600; or B 240 training steps.
 
     python3 -m unimm_torch.tools.bench_bwd [--label NAME] [--csrc DIR
-        --build DIR] [--forward | --gemm | --head | --train-step
+        --build DIR] [--forward | --gemm | --head | --xent | --train-step
         {pallas_block,pallas} [--remat] [--steps 8]]
 
 Default, ``--forward``, ``--gemm`` and ``--head``: one JSON line with each
@@ -440,6 +443,62 @@ def head_times(dev, other_tree=False):
     return out
 
 
+def xent_times(dev):
+    """The training MLM cross-entropy as the step calls it
+    (``losses.online_softmax_xent_vjp`` on bf16 rows, forward, then
+    forward and backward under autograd) at the step's M 38400 and a dp
+    rank's 9600, V 30522, a fifth of the rows labelled (the step's gathered
+    slots are mostly padding): times, each kernel's device ms a forward
+    and backward (``torch.profiler``; a kernel product's TFLOP/s over 2 M
+    768 V: the parent's scan launches a varying count of kernels a call,
+    so no launch split), the peak of allocated memory above the inputs,
+    the largest errors against the fp32 scan (fp32 rows take the plain
+    path), bits across two runs."""
+    from unimm_torch.ops import losses
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    V = 30522
+    w = (torch.randn(V, 768, generator=g, device=dev) * 0.02).bfloat16()
+    b = torch.randn(V, generator=g, device=dev) * 0.1
+    out = {}
+    for M in (38400, 9600):
+        h = torch.randn(M, 768, generator=g, device=dev).bfloat16()
+        lab = torch.randint(0, V, (M,), generator=g, device=dev)
+        lab[torch.rand(M, generator=g, device=dev) < 0.8] = -1
+        up = torch.rand(M, generator=g, device=dev)
+
+        def fwd(h=h, lab=lab):
+            return losses.online_softmax_xent_vjp(h, w, b, lab)
+
+        def both(h=h, lab=lab, up=up):
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in (h, w, b)]
+                nll = losses.online_softmax_xent_vjp(*leaves, lab)
+                return (nll, *torch.autograd.grad(nll, leaves, up))
+
+        got = both()
+        same = all(torch.equal(x, y) for x, y in zip(got, both()))
+        want = both(h.float())
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        both()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        flops = 2 * M * 768 * V
+        kernels = {}
+        for kname, ms in sub_kernels(both).items():
+            kernels[kname] = row = dict(ms=ms)
+            if "xent_wg_kernel" in kname or "xt_wg_kernel" in kname:
+                row["tflops"] = flops / ms / 1e9      # a whole product
+        out[f"xent M={M} V={V}"] = dict(
+            fwd_ms=_device_ms(fwd), ms=_device_ms(both),
+            host_us=_host_us(both), peak_gib=peak, same_bits=same,
+            rel_errs=dict(zip(("nll", "dh", "dw", "db"), _rel(got, want))),
+            kernels=kernels)
+    return out
+
+
 def step_times(dev, impl, steps, remat=False):
     import numpy as np
 
@@ -487,6 +546,7 @@ def main(argv=None):
     ap.add_argument("--forward", action="store_true")
     ap.add_argument("--gemm", action="store_true")
     ap.add_argument("--head", action="store_true")
+    ap.add_argument("--xent", action="store_true")
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -505,6 +565,8 @@ def main(argv=None):
         res = forward_times(dev)
     elif args.gemm:
         res = gemm_times(dev)
+    elif args.xent:
+        res = xent_times(dev)
     elif args.head:
         here = Path(__file__).resolve().parents[2]
         res = head_times(dev, other_tree=args.csrc is not None or Path(
