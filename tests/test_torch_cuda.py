@@ -15,8 +15,9 @@ the per-head text attention kernels (forward, backward and attention_v2,
 the skipped chunks of the one-pass forward and of the tiled backward,
 their fit on the card), and the attention-block bench's probes (B4 at
 other block_b, the softmax-mode and layout probes, the ``full`` probe
-equal to B4 bit for bit, their own kernels' fit). Every test needs a CUDA
-device and skips without one.
+equal to B4 bit for bit, their own kernels' fit), the decoder's grouped
+expert GEMM and K3 at width 2048. Every test needs a CUDA device and skips
+without one.
 
 This file imports no JAX, so it also runs where JAX is absent:
 
@@ -333,6 +334,52 @@ def test_xent_head_controls_and_bits(dev, M, V):
     gen = torch.Generator(device=dev).manual_seed(M)
     res = chip_smoke.check_xent_head(dev, gen, M=M, V=V)
     assert res["ok"], res
+
+
+@pytest.mark.parametrize("M,V", [(1000, 163840), (129, 5000)])
+def test_xent_head_2048_controls_and_bits(dev, M, V):
+    """K3's width-2048 instance (the decoder's untied head, no bias) as
+    chip_smoke.py phase 3 holds it."""
+    gen = torch.Generator(device=dev).manual_seed(M + 1)
+    res = chip_smoke.check_xent_head(dev, gen, M=M, V=V, Hd=2048,
+                                     bias=False)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("T,E,k,I", [(2048, 64, 6, 1408), (129, 64, 6, 1408),
+                                     (300, 1, 1, 11264), (512, 1, 1, 2816)])
+def test_grouped_moe_gemm_controls_and_bits(dev, T, E, k, I):
+    """The grouped expert GEMM as chip_smoke.py phase 3 holds it: both
+    products against their plain versions, an expert with no row and one
+    with every token, bit-equal reruns, the controls missing."""
+    gen = torch.Generator(device=dev).manual_seed(T)
+    for name, cases in chip_smoke.check_moe(dev, gen, T=T, E=E, k=k,
+                                            I=I).items():
+        assert cases[0]["ok"], (name, cases[0])
+
+
+def test_decoder_kernels_refuse_fp32_on_the_card(dev):
+    """On CUDA tensors the grouped products and K3 at width 2048 launch
+    their kernels or raise: fp32 rows take no plain path on the card."""
+    from unimm_torch.ops import moe
+    from unimm_torch.ops.xent_head import xent_head
+    a = torch.randn(256, 2048, device=dev)
+    off = moe.offsets(torch.tensor([128, 128], device=dev))
+    with pytest.raises(ValueError):
+        moe.grouped_swiglu(a, torch.randn(2, 2816, 2048, device=dev), *off)
+    with pytest.raises(ValueError):
+        moe.grouped_down(torch.randn(256, 1408, device=dev),
+                         torch.randn(2, 2048, 1408, device=dev), *off)
+    with pytest.raises(ValueError):
+        xent_head(a, torch.randn(1024, 2048, device=dev), None,
+                  torch.zeros(256, dtype=torch.long, device=dev))
+
+
+def test_moe_kernels_fit_the_card(dev):
+    from unimm_torch.ops import moe
+    for mode in (0, 1):
+        info = moe.kernel_info(mode)
+        assert info["local_bytes"] == 0 and info["registers"] <= 168, info
 
 
 @pytest.mark.parametrize("B,P,V", [(60, 160, 30522), (3, 43, 5000)])

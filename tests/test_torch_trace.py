@@ -130,6 +130,24 @@ def test_reset_and_disable():
     assert trace.snapshot() == {"spans": {}, "counts": {}}
 
 
+def test_capture_keeps_only_inside_its_block():
+    trace.keep("a", 1)
+    assert not trace.capturing()
+    with trace.capture() as outer:
+        trace.keep("a", 1)
+        with trace.capture() as inner:
+            assert trace.capturing()
+            trace.keep("a", 2)
+            trace.keep("b", torch.ones(2))
+        trace.keep("a", 3)
+    trace.keep("a", 4)
+    assert not trace.capturing()
+    assert outer == {"a": [1, 3]}
+    assert inner["a"] == [2] and inner["b"][0].tolist() == [1.0, 1.0]
+    # the recorder neither sees nor counts what a capture keeps
+    assert trace.snapshot() == {"spans": {}, "counts": {}}
+
+
 def test_ranges_under_the_profiler():
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU])

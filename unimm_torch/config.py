@@ -143,3 +143,72 @@ class VilbertConfig:
 
     def replace(self, **kw) -> "VilbertConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepseekV3Config:
+    """The DeepSeek-V3 decoder (Kimi-VL-A3B's language model): multi-head
+    latent attention and a mixture of experts, read from the Hugging Face
+    ``config.json`` keys (``text_config`` of Kimi-VL-A3B-Instruct); the
+    defaults are that model's. Unknown keys are accepted and ignored."""
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    routed_scaling_factor: float = 2.446
+    kv_lora_rank: int = 512
+    q_lora_rank: object = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    topk_method: str = "noaux_tc"
+    scoring_func: str = "sigmoid"
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = True
+    moe_layer_freq: int = 1
+    first_k_dense_replace: int = 1
+    hidden_act: str = "silu"
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+    rope_scaling: object = None
+    max_position_embeddings: int = 131072
+    attention_bias: bool = False
+    tie_word_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.q_lora_rank is not None:
+            raise ValueError("q_lora_rank: only the full q projection "
+                             "(None) is implemented")
+        if self.rope_scaling is not None:
+            raise ValueError("rope_scaling: only plain RoPE (None) is "
+                             "implemented")
+        if (self.topk_method, self.scoring_func) != ("noaux_tc", "sigmoid"):
+            raise ValueError("routing: only noaux_tc over sigmoid scores")
+        if self.n_group != 1 or self.topk_group != 1:
+            raise ValueError("routing: only one expert group")
+        if self.hidden_act != "silu" or self.attention_bias:
+            raise ValueError("silu experts and bias-free projections only")
+        if self.moe_layer_freq != 1 or self.tie_word_embeddings:
+            raise ValueError("every layer past the dense ones has experts; "
+                             "the LM head is untied")
+
+    @property
+    def q_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def is_moe(self, layer: int) -> bool:
+        return layer >= self.first_k_dense_replace
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DeepseekV3Config":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
+
+    def replace(self, **kw) -> "DeepseekV3Config":
+        return dataclasses.replace(self, **kw)

@@ -23,6 +23,12 @@
 //   2. xent_combine_kernel: one warp a row merges the row's partials
 //      (max, then the rescaled sums) and writes nll.
 // No atomics: the result is the same bit for bit on every run.
+// The logits kernel is a template on the hidden width KW and on the bias:
+// <768, true> is the ViLBERT head above (its machine code as before the
+// template), <2048, false> the decoder's untied 163840-word LM head
+// (models/deepseek_v3.py), which has no bias: 2 x 2048 x 163840 flops a
+// row against 4 KB of row input and the 671 MB head, the tensor-core rate
+// again (V is 640 whole vocab tiles).
 // What bounds it on an H100: 2 x 768 x 30522 flops a row (1.2 TFLOP at
 // M 25600, 1.21 ms at the bf16 peak) against 1.5 KB of row input and the
 // 47 MB decoder, so the tensor-core rate. 24 000 tiles at M 25600 spread
@@ -39,12 +45,13 @@
 
 namespace {
 
+template <int KW, bool BIAS>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     xent_wg_kernel(const __grid_constant__ WgMaps maps, const int M,
                    const int V, const float* __restrict__ bias,
                    const int* __restrict__ labels, float2* __restrict__ part,
                    float* __restrict__ label_logit) {
-  constexpr int S = WG_STAGES, NJ = WG_BN / 8, NK = HID / WG_BK;
+  constexpr int S = WG_STAGES, NJ = WG_BN / 8, NK = KW / WG_BK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t sa = wg_smem_base(smem_raw);         // [S] A tiles
   const uint32_t sb = sa + S * WG_A_TILE;             // [S] B tiles
@@ -128,10 +135,15 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int col = n0 + j * 8 + gc;
-        const float v0 =
-            col < V ? acc[j][2 * h] + __ldg(bias + col) : XW_PAD;
-        const float v1 =
-            col + 1 < V ? acc[j][2 * h + 1] + __ldg(bias + col + 1) : XW_PAD;
+        float v0, v1;
+        if constexpr (BIAS) {
+          v0 = col < V ? acc[j][2 * h] + __ldg(bias + col) : XW_PAD;
+          v1 = col + 1 < V ? acc[j][2 * h + 1] + __ldg(bias + col + 1)
+                           : XW_PAD;
+        } else {
+          v0 = col < V ? acc[j][2 * h] : XW_PAD;
+          v1 = col + 1 < V ? acc[j][2 * h + 1] : XW_PAD;
+        }
         acc[j][2 * h] = v0;
         acc[j][2 * h + 1] = v1;
         mx = fmaxf(mx, fmaxf(v0, v1));
@@ -179,33 +191,57 @@ __global__ void __launch_bounds__(XC_WARPS * 32)
   if (lane == 0) nll[row] = (mx + logf(sum)) - label_logit[row];
 }
 
-}  // namespace
-
-// the logits kernel alone: part and label_logit for M rows (the
-// training cross-entropy's forward, xent_train.cu, combines them itself)
-extern "C" int unimm_xent_tiles(const void* hid, const void* labels,
-                                const void* w, const void* b, void* part,
-                                void* label_logit, int M, int V,
-                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || V < 1) return cudaErrorInvalidValue;
+// the logits kernel of width KW for M rows: part and label_logit
+template <int KW, bool BIAS>
+cudaError_t launch_xent_tiles(const void* hid, const void* labels,
+                              const void* w, const void* b, void* part,
+                              void* label_logit, int M, int V,
+                              cudaStream_t st) {
+  if (M < 1 || V < 1 || (BIAS && b == nullptr)) return cudaErrorInvalidValue;
   WgMaps maps;
-  cudaError_t err = tma_map(&maps.a, hid, M, HID, WG_BM);
-  if (err == cudaSuccess) err = tma_map(&maps.b[0], w, V, HID, WG_BN);
+  cudaError_t err = tma_map(&maps.a, hid, M, KW, WG_BM);
+  if (err == cudaSuccess) err = tma_map(&maps.b[0], w, V, KW, WG_BN);
   if (err != cudaSuccess) return err;
+  const auto kernel = xent_wg_kernel<KW, BIAS>;
   static const cudaError_t ready =
-      prepare_kernel(xent_wg_kernel, WG_THREADS,
+      prepare_kernel(kernel, WG_THREADS,
                      128 * WG_PROD_REGS + 256 * WG_CONS_REGS, WG_SMEM);
   if (ready != cudaSuccess) return ready;
   const int ntn = (V + WG_BN - 1) / WG_BN;
   const int tiles = ((M + WG_BM - 1) / WG_BM) * ntn;
   const int sms = sm_count();
   if (sms < 1) return cudaErrorInvalidDevice;
-  xent_wg_kernel<<<tiles < sms ? tiles : sms, WG_THREADS, WG_SMEM, st>>>(
+  kernel<<<tiles < sms ? tiles : sms, WG_THREADS, WG_SMEM, st>>>(
       maps, M, V, static_cast<const float*>(b),
       static_cast<const int*>(labels), static_cast<float2*>(part),
       static_cast<float*>(label_logit));
   return cudaGetLastError();
+}
+
+cudaError_t launch_xent_combine(const void* labels, void* part,
+                                void* label_logit, void* nll, int M, int V,
+                                cudaStream_t st) {
+  const int ntn = (V + WG_BN - 1) / WG_BN;
+  xent_combine_kernel<<<(M + XC_WARPS - 1) / XC_WARPS, XC_WARPS * 32, 0,
+                        st>>>(
+      static_cast<const float2*>(part),
+      static_cast<const float*>(label_logit),
+      static_cast<const int*>(labels), static_cast<float*>(nll), M, ntn);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// the logits kernel alone at width 768: part and label_logit for M rows
+// (the training cross-entropy's forward, xent_train.cu, combines them
+// itself)
+extern "C" int unimm_xent_tiles(const void* hid, const void* labels,
+                                const void* w, const void* b, void* part,
+                                void* label_logit, int M, int V,
+                                void* stream) {
+  return launch_xent_tiles<HID, true>(hid, labels, w, b, part, label_logit,
+                                      M, V,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int unimm_xent_head(const void* hid, const void* labels,
@@ -215,11 +251,18 @@ extern "C" int unimm_xent_head(const void* hid, const void* labels,
   const int err =
       unimm_xent_tiles(hid, labels, w, b, part, label_logit, M, V, stream);
   if (err != cudaSuccess) return err;
-  const int ntn = (V + WG_BN - 1) / WG_BN;
-  xent_combine_kernel<<<(M + XC_WARPS - 1) / XC_WARPS, XC_WARPS * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(part),
-      static_cast<const float*>(label_logit),
-      static_cast<const int*>(labels), static_cast<float*>(nll), M, ntn);
-  return cudaGetLastError();
+  return launch_xent_combine(labels, part, label_logit, nll, M, V,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// the decoder's LM head: width 2048, no bias
+extern "C" int unimm_xent_head_2048(const void* hid, const void* labels,
+                                    const void* w, void* part,
+                                    void* label_logit, void* nll, int M,
+                                    int V, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_xent_tiles<2048, false>(
+      hid, labels, w, nullptr, part, label_logit, M, V, st);
+  if (err != cudaSuccess) return err;
+  return launch_xent_combine(labels, part, label_logit, nll, M, V, st);
 }

@@ -10,7 +10,10 @@ batch in fixed-size padded chunks (sorted by attended extent, each chunk
 sliced to its length bucket) through ``models/unimm.forward_eval``;
 ``score_slates(_async)`` scores [B, R, O] val batches through the
 prefix-cache scorer when only answer log-likelihoods are needed and sends
-the slates it cannot take through the flat scorer. ``evaluate_split`` and
+the slates it cannot take through the flat scorer; given a decoder
+configuration (``config.DeepseekV3Config``) it scores them through the
+decoder's prefix scorer (``eval/decoder_prefix.py``), which has no flat
+fallback. ``evaluate_split`` and
 ``evaluate_ensemble`` coalesce loader batches, keep ``pipeline_depth`` of
 them in flight, and accumulate R@k / MRR / mean rank and NDCG.
 
@@ -34,8 +37,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from unimm_torch.config import VilbertConfig
+from unimm_torch.config import DeepseekV3Config, VilbertConfig
 from unimm_torch.data.dataset import flatten_for_forward
+from unimm_torch.eval.decoder_prefix import DecoderPrefixScorer
 from unimm_torch.eval.prefix import PrefixScorer
 from unimm_torch.models import unimm, vilbert
 from unimm_torch.ops import masks as M_masks
@@ -90,7 +94,16 @@ class RankingEvaluator:
         self.device = vilbert.resolve_device(device)
         self._compute_model = vilbert.ComputeModels(dtype)
         self._prefix = None
-        if (gen_prefix and need_lm and not need_nsp
+        self._decoder = isinstance(cfg, DeepseekV3Config)
+        if self._decoder:
+            # a decoder ranks by answer log-likelihood, through its own
+            # prefix scorer; it holds its weights in the dtype it runs in
+            if not need_lm or need_nsp:
+                raise ValueError("a decoder configuration ranks by "
+                                 "log-likelihood only")
+            self._prefix = DecoderPrefixScorer(
+                cfg, group=prefix_group, device=self.device)
+        elif (gen_prefix and need_lm and not need_nsp
                 and not cfg.in_batch_pairs and not cfg.fast_mode):
             self._prefix = PrefixScorer(
                 cfg, dtype=dtype, group=prefix_group, bucket_div=bucket_div,
@@ -257,6 +270,14 @@ class RankingEvaluator:
 
     def _slates_async(self, model, batch):
         B, R, O = np.asarray(batch["tokens"]).shape[:3]
+        if self._decoder:
+            fin = self._prefix.score_async(model, batch)
+
+            def finalize_decoder():
+                pref, _ = fin()
+                return {k: v.reshape(B * R * O) for k, v in pref.items()}
+
+            return finalize_decoder
         if self._prefix is None:
             return self.score_flat_async(
                 model, flatten_for_forward(batch, train=False,

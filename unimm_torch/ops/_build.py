@@ -41,6 +41,15 @@ _SIGNATURES = {
     "unimm_ffn_block": [_VP] * 10 + [_INT] * 3 + [_F32, _VP],
     # hidden, labels, decoder, bias, partials, label logits, nll; M, V
     "unimm_xent_head": [_VP] * 7 + [_INT] * 2 + [_VP],
+    # the same at width 2048 without a bias
+    "unimm_xent_head_2048": [_VP] * 6 + [_INT] * 2 + [_VP],
+    # a sorted by expert, stacked weights, row and tile offsets, out; M, G,
+    # N, K
+    "unimm_moe_swiglu": [_VP] * 5 + [_INT] * 4 + [_VP],
+    # ..., row weights (or null), out; M, G, N, K
+    "unimm_moe_down": [_VP] * 6 + [_INT] * 4 + [_VP],
+    # mode; out int32[4]
+    "unimm_moe_info": [_INT, _VP],
     # hidden, labels, decoder, bias, partials, label logits, nll, lse; M, V
     "unimm_xent_train_fwd": [_VP] * 8 + [_INT] * 2 + [_VP],
     # hidden, labels, decoder, bias, lse, gf, dl, part_db, dh, dw, db; M, V

@@ -2,7 +2,8 @@
 the attention kernels' instances (``seq_attn_fwd_kernel``, the
 backward's ``seq_attn_bwd_*``, K1's ``answer_attn_kernel``, the bench
 probes' ``probe_attn_kernel`` and ``wo_acc_wg_kernel``), of the wgmma +
-TMA GEMM core (``gemm_nt_wg_kernel``) and of K3's ``xent_wg_kernel``, to
+TMA GEMM core (``gemm_nt_wg_kernel``), of K3's ``xent_wg_kernel`` and of
+the grouped expert GEMM's ``moe_wg_kernel``, to
 show that a change to another kernel left their machine code as it was,
 the names of every function the library holds, and ptxas's register and
 spill report per kernel.
@@ -41,7 +42,7 @@ from unimm_torch.ops import _build
 
 PATTERNS = ("seq_attn_fwd_kernel", "seq_attn_bwd_", "gemm_nt_wg_kernel",
             "answer_attn_kernel", "xent_wg_kernel", "probe_attn_kernel",
-            "wo_acc_wg_kernel")
+            "wo_acc_wg_kernel", "moe_wg_kernel")
 
 
 def _tool(name: str) -> str:

@@ -15,7 +15,16 @@ switches when neither is on:
   kept in memory, and the counters count. ``snapshot()`` returns them.
 
 Counters count only while the recorder is on; a caller whose count takes
-work (a numpy sum) asks ``recording()`` first.
+work (a numpy sum) asks ``recording()`` first. ``count_device(name, t)``
+adds a device scalar without waiting for the device: the recorder keeps the
+tensor and ``snapshot()`` reads it.
+
+``capture()`` opens a block in which ``keep(name, x)`` appends ``x`` (a
+tensor as it is, on its device, or any host value) to the list of
+``name`` in the dict the block yields; outside one, ``keep`` does nothing
+and ``capturing()`` is False, so a caller whose value takes work to build
+asks it first. A test or a check reads the program's intermediate values
+this way (the experts the MoE layers chose, ``moe.route``).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ class _Recorder:
         # each span: [name, start, end, parent span or None, id]
         self.spans = []
         self.counts = collections.Counter()
+        self.pending = []           # (name, device scalar) not yet read
         self.open = {}              # thread ident -> stack of open spans
         self.ids = itertools.count()
 
@@ -74,6 +84,39 @@ def count(name: str, n=1):
     """Add ``n`` to counter ``name`` while the recorder is on."""
     if _rec.on:
         _rec.counts[name] += int(n)
+
+
+def count_device(name: str, t):
+    """Add the device scalar ``t`` to counter ``name`` while the recorder
+    is on; read when the counts are taken (``snapshot``)."""
+    if _rec.on:
+        _rec.pending.append((name, t.detach()))
+
+
+_kept = None        # the open capture's dict, or None
+
+
+def capturing() -> bool:
+    return _kept is not None
+
+
+def keep(name: str, x):
+    """Append ``x`` to ``name``'s list while a capture is open."""
+    if _kept is not None:
+        _kept.setdefault(name, []).append(x)
+
+
+@contextlib.contextmanager
+def capture():
+    """A block inside which ``keep`` keeps: yields the dict it fills, each
+    name's values in the order they were kept (an outer capture sees
+    nothing of the block's)."""
+    global _kept
+    outer, _kept = _kept, {}
+    try:
+        yield _kept
+    finally:
+        _kept = outer
 
 
 def span(name: str, id=None):
@@ -131,6 +174,12 @@ def snapshot() -> dict:
     the order the spans closed (``start`` and ``end`` in perf_counter
     seconds, ``dur`` and ``self``, the duration less its children's, in
     seconds, the parent's name or None, the id), and ``counts``."""
+    if _rec.pending:
+        for name, v in zip([n for n, _ in _rec.pending],
+                           torch.stack([t.reshape(()).long()
+                                        for _, t in _rec.pending]).tolist()):
+            _rec.counts[name] += int(v)
+        _rec.pending = []
     children = collections.defaultdict(float)
     for s in _rec.spans:
         if s[3] is not None:
