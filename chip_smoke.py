@@ -15,8 +15,8 @@ the build and phase 14 alone (``--world-rank SPEC RANK`` is one of their
 rank processes), ``--modes`` phase 1, the build and phase 15 alone,
 ``--xent-train`` phase 1, the build, phase 2's report and phase 3's
 training cross-entropy cases alone, ``--moe`` phase 1, the build, phase
-2's report, phase 3's grouped expert GEMM and K3 cases and phase 16 (the
-decoder's path) alone.
+2's report, phase 3's grouped expert GEMM, MLA answer and K3 cases and
+phase 16 (the decoder's path) alone.
 ``--train-gates`` runs phase 1,
 the build and phase 8 (a)'s two gates alone, on the batches of the given
 seeds (default GATE_SEEDS), printing
@@ -69,7 +69,11 @@ prints its seconds):
      words); the grouped expert GEMM (``check_moe``: both products, an
      expert with no row and one with every token) at 16384 and 40960
      tokens over 64 experts (the cell's rows a pass), the shared experts
-     and a dense layer as one group each, and 129 tokens.
+     and a dense layer as one group each, and 129 tokens; the MLA answer
+     kernel (``check_mla_answer``) at the cell's shapes (80 slates, Lcb
+     640, ~40k rows of 16 heads), bit-equal when rerun, its controls (a
+     key tile dropped, an option boundary moved by a row, n_ctx one on)
+     missing, with the padded plain chain it replaced timed beside it.
   4. generative path: ``evaluate_split(mode="ll_sum")`` (prefix-cache
      scorer) at the default config (12 text / 6 vision / 6 connection
      layers, hidden 768 / 1024, vocab 30522) from a seeded init over 4
@@ -236,7 +240,8 @@ prints its seconds):
      at Kimi-VL-A3B's widths, 3 layers (the dense one, two MoE layers),
      through ``RankingEvaluator`` on 4 slates of 100 options with 345-391
      image tokens: 2 ``grouped_swiglu`` and 2 ``grouped_down`` launches a
-     MLP a pass and one K3 (width 2048) a group; its ll_mean against the
+     MLP a pass, one ``mla_answer`` a layer of the answer pass and one K3
+     (width 2048) a group; its ll_mean against the
      same evaluator with those launches swapped for their plain versions
      on the card (``plain_decoder``): the median |d| within DECODER_D_LL,
      top-1 agreement at least MIN_TOP1_AGREEMENT.
@@ -396,6 +401,8 @@ def report_kernels():
     report_spills("xent_wg_kernel", 2)
     # the grouped expert GEMM's SwiGLU and scaled-store instances
     report_spills("moe_wg_kernel", 2)
+    # the decoder's MLA answer kernel
+    report_spills("mla_answer_kernel", 1)
     # the training cross-entropy's recompute, dh and ddecoder instances
     report_spills("xt_wg_kernel", 3)
     # B10's none and noshift, B11's pad128 attention; wo_acc, transposed
@@ -556,7 +563,8 @@ TOL = {"answer_block": (5e-2, 2e-2), "ffn_block": (5e-2, 2e-2),
        "text_attention_fwd": (TA_REL, 0.0),
        "text_attention_bwd": (TA_REL, 0.0), "attention_v2": (TA_REL, 0.0),
        "probe_block": (5e-2, 2e-2), "layout_probe_block": (5e-2, 2e-2),
-       "grouped_swiglu": (2e-2, 2e-2), "grouped_down": (2e-2, 2e-2)}
+       "grouped_swiglu": (2e-2, 2e-2), "grouped_down": (2e-2, 2e-2),
+       "mla_answer": (2e-3, 1e-2)}
 B5_CTX_REL = 2e-2
 WIDE_STD = 0.05
 
@@ -978,6 +986,151 @@ def moe_cases(dev, gen):
         for name, cs in extra.items():
             cases[name] += cs
     return cases
+
+
+# The decoder's MLA answer kernel (ops/mla_answer.py -> csrc/mla_answer.cu)
+# against its plain version (each slate's fp32 scores, an fp32 softmax, p
+# rounded to bf16 for the product with v, the output rounded once) at the
+# cell's shapes: G slates of 100 options of 2-8 input rows, contexts of
+# 369-629 positions (Lcb 640), 16 heads, queries and latents normal(0,
+# 0.3) (scores of std ~2), the cache's padding positions too. The kernel
+# rounds p at its running maximum, the plain version at the final one: a
+# step of bf16 in p, and one of the output either side, so 2e-3 + 1e-2
+# |plain| (outputs up to ~0.5). Bit-equal when rerun; controls that must
+# miss: the first key tile dropped, each slate's second option's first row
+# moved into its first option, n_ctx one on (the key at n_ctx, past the
+# context). Timed beside it: the padded plain chain the kernel replaced.
+def check_mla_answer(dev, gen, G=80, O=100, nh=16, Lcb=640, std=0.3):
+    from unimm_torch.ops import mla_answer as mla_ops
+
+    rng = np.random.default_rng(int(torch.randint(
+        0, 2**31 - 1, (1,), generator=gen, device=dev)))
+    n_rows = rng.integers(2, 9, (G, O))
+    n_ctx = rng.integers(345, 392, G) + rng.integers(24, 239, G)
+    arrays, cnt = mla_ops.plan(n_rows, n_ctx, nh)
+    N, C, R = cnt["rows_needed"], mla_ops.LATENT, mla_ops.VALUE
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(
+            torch.bfloat16)
+
+    qf, cache, kr = rnd(N, nh, C), rnd(G, Lcb, C), rnd(N, C)
+
+    def rows_of(a):
+        return mla_ops.AnswerRows.put(a, dev)
+
+    rows = rows_of(arrays)
+
+    def kern():
+        return mla_ops.mla_answer(qf, cache, kr, rows, R)
+
+    def plain():
+        return mla_ops.mla_answer_plain(qf, cache, kr, rows, R)
+
+    got, want = kern(), plain()
+    same = torch.equal(got, kern())
+    torch.cuda.synchronize()
+    # the controls' metadata
+    moved = dict(arrays, first=arrays["first"].copy())
+    opt_first = (np.cumsum(n_rows) - n_rows.ravel()).reshape(G, O)
+    for g in range(G):
+        f0, f1, k1 = opt_first[g, 0], opt_first[g, 1], n_rows[g, 1]
+        moved["first"][f1] = f0
+        moved["first"][f1 + 1:f1 + k1] = f1 + 1
+    wrongs = {
+        "key_tile_dropped": mla_ops.mla_answer_plain(
+            qf, torch.cat([cache[:, 64:], cache[:, :64]], 1).contiguous(),
+            kr, rows_of(dict(arrays, n_ctx=arrays["n_ctx"] - 64)), R),
+        "option_boundary_moved": mla_ops.mla_answer_plain(
+            qf, cache, kr, rows_of(moved), R),
+        "n_ctx_one_on": mla_ops.mla_answer_plain(
+            qf, cache, kr, rows_of(dict(arrays, n_ctx=arrays["n_ctx"] + 1)),
+            R)}
+    chain = padded_chain(qf, cache, kr, n_rows, n_ctx)
+    err, rel, ok = within(got, want, *TOL["mla_answer"])
+    flops = 2 * (C + R) * nh * cnt["pairs_needed"]
+    nbytes = 2 * (N * nh * (C + R) + int(n_ctx.sum()) * C + N * C)
+    b_ms, b_by = bound(flops, nbytes)
+    # what the row tiles read from L2: the query tile, the cache tiles and
+    # the own tile, 64 x C bf16 each
+    l2 = 2 * C * 64 * int((2 + -(-n_ctx[arrays["tiles"][:, 0]] // 64)).sum())
+    return dict(
+        shape=f"{G} slates, Lcb {Lcb}, {N} rows x {nh} heads, n_ctx "
+              f"{int(n_ctx.min())}-{int(n_ctx.max())}; pairs real / "
+              f"launched {cnt['pairs_needed']} / {cnt['pairs_launched']}; "
+              f"L2 reads {l2 / 1e9:.2f} GB",
+        max_abs_err=err, max_rel_err=rel, ok=ok and same, bit_equal=same,
+        control_max_abs_errs=gemm_controls("mla_answer", got, wrongs),
+        ms=time_ms(kern, 10), plain_ms=time_ms(plain, 1, 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(chain, 3, 1),
+        chain_max_abs_err=within(chain(), want, *TOL["mla_answer"])[0])
+
+
+def padded_chain(qf, cache, kr, n_rows, n_ctx, rb=64, chunk=1 << 29):
+    """The absorbed attention as the main path ran it before the kernel, on
+    the same inputs (a yardstick: nothing else calls it): each slate's rows
+    bin-packed into rb-row blocks (``prefix.pack_option_rows``), every
+    head's query scattered into that padded layout, bf16 scores of each
+    slate's padded rows against its whole padded cache and of each block
+    against its own rows, a masked fill from a stored mask, a softmax and
+    the two products with the keys' c_kv, slates in chunks of at most
+    ``chunk`` scores, the real rows gathered back. Returns a closure that
+    runs one layer's chain (the layout and the mask, built once a group,
+    outside it)."""
+    from unimm_torch.eval.prefix import pack_option_rows
+
+    dev = qf.device
+    G, O = n_rows.shape
+    N, nh, C = qf.shape
+    Lc, R = cache.shape[1], 512
+    starts, P = pack_option_rows(n_rows, rb)
+    n = n_rows.ravel()
+    sid = np.repeat(np.repeat(np.arange(G), O), n)
+    oid = np.repeat(np.tile(np.arange(O), G), n)
+    rin = np.arange(N) - np.repeat(np.cumsum(n) - n, n)
+    slot = sid * P + starts.ravel()[sid * O + oid] + rin
+    opt_p = np.full(G * P, O, np.int64)
+    rin_p = np.zeros(G * P, np.int64)
+    opt_p[slot] = oid
+    rin_p[slot] = rin
+    slots = torch.from_numpy(slot).to(dev)
+    o_ = torch.from_numpy(opt_p).to(dev).view(G, P // rb, rb)
+    i_ = torch.from_numpy(rin_p).to(dev).view(G, P // rb, rb)
+    rr = ((o_[..., :, None] == o_[..., None, :])
+          & (i_[..., None, :] <= i_[..., :, None]))
+    rr |= torch.eye(rb, dtype=torch.bool, device=dev)
+    ctx = (torch.arange(Lc, device=dev)[None, :]
+           < torch.from_numpy(n_ctx).to(dev)[:, None])
+    closed = ~torch.cat([ctx[:, None, None, :].expand(G, P // rb, rb, Lc),
+                         rr], -1).view(G * P // rb, rb, 1, Lc + rb)
+    PB, K = P // rb, Lc + rb
+
+    def run():
+        qp = qf.new_zeros(G * P, nh, C).index_copy_(0, slots, qf)
+        krp = qf.new_zeros(G * P, C).index_copy_(0, slots, kr)
+        o = qf.new_empty(G, P * nh, R)
+        step = max(1, chunk // (P * nh * K))
+        for g0 in range(0, G, step):
+            g1 = min(G, g0 + step)
+            m, b0, b1 = g1 - g0, g0 * PB, g1 * PB
+            s = qf.new_empty(m * P * nh, K)
+            torch.bmm(qp[g0 * P:g1 * P].view(m, P * nh, C),
+                      cache[g0:g1].transpose(1, 2),
+                      out=s.view(m, P * nh, K)[..., :Lc])
+            torch.bmm(qp[g0 * P:g1 * P].view(m * PB, rb * nh, C),
+                      krp[g0 * P:g1 * P].view(m * PB, rb, C).transpose(1, 2),
+                      out=s.view(m * PB, rb * nh, K)[..., Lc:])
+            s.view(m * PB, rb, nh, K).masked_fill_(closed[b0:b1],
+                                                   float("-inf"))
+            p = torch.softmax(s, -1)
+            torch.bmm(p.view(m, P * nh, K)[..., :Lc], cache[g0:g1, :, :R],
+                      out=o[g0:g1])
+            o[g0:g1].view(m * PB, rb * nh, R).baddbmm_(
+                p.view(m * PB, rb * nh, K)[..., Lc:],
+                krp[g0 * P:g1 * P].view(m * PB, rb, C)[..., :R])
+        return o.view(G * P, nh, R).index_select(0, slots)
+
+    return run
 
 
 # The training cross-entropy (xent_train) against the plain scan of
@@ -1946,6 +2099,8 @@ KERNELS = [
     # package runs no decoder)
     ("grouped_swiglu", "unimm_torch/csrc/moe_gemm.cu", None),
     ("grouped_down", "unimm_torch/csrc/moe_gemm.cu", None),
+    # the decoder's absorbed MLA answer pass: no TPU kernel either
+    ("mla_answer", "unimm_torch/csrc/mla_answer.cu", None),
 ]
 
 
@@ -2046,6 +2201,7 @@ def phase_kernels(dev):
                                       bias=False)],
         **xent_train_cases(dev, gen),
         **moe_cases(dev, gen),
+        "mla_answer": [check_mla_answer(dev, gen)],
         # the flat path's main bucket, the longest one, the shortest one
         # with every kind of descriptor, the longest with the same, and the
         # masked tails (the chunks the one-pass attention skips, and rows
@@ -2117,6 +2273,7 @@ def wrappers():
     from unimm_torch.ops.block_probe import layout_probe_block, probe_block
     from unimm_torch.ops.co_text_block import co_text_block
     from unimm_torch.ops.ffn_block import ffn_block
+    from unimm_torch.ops.mla_answer import mla_answer
     from unimm_torch.ops.moe import grouped_down, grouped_swiglu
     from unimm_torch.ops.text_attention import (text_attention_bwd,
                                                 text_attention_fwd)
@@ -2127,7 +2284,7 @@ def wrappers():
             attention_block_train_fwd, attention_block_train_bwd,
             adamw_update_leaf, text_attention_fwd, text_attention_bwd,
             attention_v2, probe_block, layout_probe_block, grouped_swiglu,
-            grouped_down)
+            grouped_down, mla_answer)
 
 
 def counted(fn):
@@ -4579,10 +4736,12 @@ def main_xent_train(dev, card):
 
 @contextlib.contextmanager
 def plain_decoder():
-    """Inside: the decoder's grouped expert products and its LM head run
-    their plain versions on the card (fp32 products of each expert's rows,
-    the vocabulary scan), launching no kernel of theirs."""
+    """Inside: the decoder's grouped expert products, its MLA answer
+    attention and its LM head run their plain versions on the card (fp32
+    products of each expert's rows, each slate's fp32 scores, the
+    vocabulary scan), launching no kernel of theirs."""
     from unimm_torch.eval import decoder_prefix
+    from unimm_torch.ops import mla_answer as mla_ops
     from unimm_torch.ops import moe
     from unimm_torch.ops.xent_head import xent_head_plain
 
@@ -4596,14 +4755,15 @@ def plain_decoder():
         return xent_head_plain(hidden, weight, hidden.new_zeros(
             weight.shape[0], dtype=torch.float32), labels)
 
-    kernels = (moe.grouped_swiglu, moe.grouped_down, decoder_prefix.xent_head)
-    moe.grouped_swiglu, moe.grouped_down, decoder_prefix.xent_head = (
-        swiglu, down, head)
+    kernels = (moe.grouped_swiglu, moe.grouped_down, decoder_prefix.xent_head,
+               mla_ops.mla_answer)
+    (moe.grouped_swiglu, moe.grouped_down, decoder_prefix.xent_head,
+     mla_ops.mla_answer) = (swiglu, down, head, mla_ops.mla_answer_plain)
     try:
         yield
     finally:
-        moe.grouped_swiglu, moe.grouped_down, decoder_prefix.xent_head = (
-            kernels)
+        (moe.grouped_swiglu, moe.grouped_down, decoder_prefix.xent_head,
+         mla_ops.mla_answer) = kernels
 
 
 def phase_decoder(dev, card, layers=3, dialogs=2, rounds=2, config=None):
@@ -4611,7 +4771,8 @@ def phase_decoder(dev, card, layers=3, dialogs=2, rounds=2, config=None):
     ``DeepseekV3Config``) at Kimi-VL-A3B's widths, ``layers`` deep (the
     dense layer, then MoE layers), weights normal(0, 0.02) (norms 1), on
     slates of 100 options with 345-391 image tokens: launches counted per
-    group (two grouped products a MLP a pass, both passes, and the head),
+    group (two grouped products a MLP a pass, both passes, one MLA answer
+    kernel a layer of the answer pass, and the head),
     then its scores against the same evaluator under ``plain_decoder``:
     top-1 agreement and the median and max |d ll_mean|.
     ``config``: another DeepseekV3Config (a rehearsal's small one)."""
@@ -4653,7 +4814,8 @@ def phase_decoder(dev, card, layers=3, dialogs=2, rounds=2, config=None):
     mlps = 2 * (layers - cfg.first_k_dense_replace) + \
         cfg.first_k_dense_replace
     expect("decoder", launches, {"grouped_swiglu": 2 * mlps,
-                                 "grouped_down": 2 * mlps, "xent_head": 1})
+                                 "grouped_down": 2 * mlps, "xent_head": 1,
+                                 "mla_answer": layers})
     got = scores["ll_mean"].reshape(B * R, O)
     kernels = wrappers()
     for w in kernels:
@@ -4691,8 +4853,10 @@ DECODER_D_LL = 2e-2
 
 def main_moe(dev, card):
     """``--moe``: the build, phase 2's report, phase 3's grouped expert
-    GEMM and K3 cases, and the decoder's path (phase_decoder)."""
+    GEMM, MLA answer and K3 cases, and the decoder's path
+    (phase_decoder)."""
     from unimm_torch.ops import _build
+    from unimm_torch.ops import mla_answer as mla_ops
     from unimm_torch.ops import moe
 
     with phase("2 build"):
@@ -4701,9 +4865,12 @@ def main_moe(dev, card):
     print(json.dumps({"moe_wg_kernel": {
         "swiglu": moe.kernel_info(0), "down": moe.kernel_info(1)}}),
         flush=True)
-    with phase("3 grouped expert GEMM and K3"):
+    print(json.dumps({"mla_answer_kernel": mla_ops.kernel_info()}),
+          flush=True)
+    with phase("3 grouped expert GEMM, MLA answer and K3"):
         gen = torch.Generator(device=dev).manual_seed(0)
-        cases = moe_cases(dev, gen)
+        cases = {"mla_answer": [check_mla_answer(dev, gen)]}
+        cases.update(moe_cases(dev, gen))
         cases["xent_head"] = [
             check_xent_head(dev, gen),
             check_xent_head(dev, gen, M=48000, V=163840, Hd=2048,

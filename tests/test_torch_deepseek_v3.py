@@ -6,7 +6,10 @@ weights. The full forward's logits, the decoder prefix scorer's ll_sum
 (through ``RankingEvaluator.score_slates_async``) against the reference's
 uncached forward of every option, the router against the reference's
 noaux_tc, and the grouped MoE against a loop over the experts, with an
-expert given no row and one given every row."""
+expert given no row and one given every row. The absorbed answer pass
+(``ops/mla_answer``: its row-tile plan, its plain version, and the
+kernel's tile walk emulated in fp32) against the expanded form over whole
+sequences."""
 
 import numpy as np
 import pytest
@@ -18,7 +21,7 @@ from unimm_torch.config import DeepseekV3Config
 from unimm_torch.eval.decoder_prefix import DecoderPrefixScorer
 from unimm_torch.eval.evaluator import RankingEvaluator
 from unimm_torch.models import deepseek_v3 as dsv3
-from unimm_torch.ops import moe
+from unimm_torch.ops import mla_answer, moe
 from unimm_torch.utils import trace
 
 CFG = dict(vocab_size=300, hidden_size=64, intermediate_size=96,
@@ -203,6 +206,12 @@ def test_scorer_counts_its_rows():
     assert c["eval.rows_needed.prefill"] == n_ctx
     assert c["eval.rows_needed.answer"] == (batch["ans_len"] - 1).sum()
     assert c["eval.rows_launched.answer"] >= c["eval.rows_needed.answer"]
+    # the absorbed attention's real (row, key) pairs: each option's k rows
+    # see the context and 1 .. k of its own rows
+    k = batch["ans_len"] - 1
+    nc = (batch["image_len"][:, None] + batch["ctx_end"][..., 0])[..., None]
+    assert c["mla.pairs_needed"] == (k * nc + k * (k + 1) // 2).sum()
+    assert c["mla.pairs_launched"] >= c["mla.pairs_needed"]
     tokens = n_ctx + (batch["ans_len"] - 1).sum()
     assert c["moe.rows_routed"] == tokens * 2
     assert tokens * 2 / 8 <= c["moe.rows_max"] <= tokens * 2
@@ -272,3 +281,140 @@ def test_checks_see_a_planted_fault_and_the_fp8_control():
     bad = DecoderPrefixScorer(m.cfg, device="cpu").score(m, batch)[0]
     bad_gap = np.max(np.abs(bad["ll_sum"] - want) / n)
     assert ok_gap < 1e-4 and 1e-2 < min(fp8_gap, bad_gap)
+
+
+def test_mla_plan_on_a_hand_built_group():
+    # two slates of three options: 1, 8, 3 rows against a context of 70
+    # (two key tiles, the second short), 2, 2, 7 rows against 5
+    n_rows = np.array([[1, 8, 3], [2, 2, 7]])
+    arrays, c = mla_answer.plan(n_rows, np.array([70, 5]), nh=16)
+    assert mla_answer.rows_per_tile(16) == 4
+    assert arrays["tiles"].tolist() == [[0, 0, 4], [0, 4, 8], [0, 8, 12],
+                                        [1, 12, 16], [1, 16, 20],
+                                        [1, 20, 23]]
+    assert arrays["first"].tolist() == ([0] + [1] * 8 + [9] * 3 + [12] * 2
+                                        + [14] * 2 + [16] * 7)
+    assert arrays["n_ctx"].dtype == np.int32
+    # sum over options of k n_ctx + k (k + 1) / 2
+    assert c["pairs_needed"] == (12 * 70 + 1 + 36 + 6) + (11 * 5 + 3 + 3
+                                                          + 28)
+    # 4 rows x 64 keys x (cache tiles + the own tile), three row tiles each
+    assert c["pairs_launched"] == 4 * 64 * (3 * (2 + 1) + 3 * (1 + 1))
+    assert (c["rows_needed"], c["rows_launched"]) == (23, 24)
+    assert mla_answer.max_option_rows(16) == 61
+    mla_answer.plan(np.array([[61]]), np.array([9]), nh=16)
+    with pytest.raises(ValueError):
+        mla_answer.plan(np.array([[62]]), np.array([9]), nh=16)
+    with pytest.raises(ValueError):
+        mla_answer.plan(n_rows, np.array([70, 5]), nh=12)
+
+
+def _tile_walk(qf, cache, kr, arrays, value_dim):
+    """The kernel's walk in fp32: per row tile, its slate's cache tiles up
+    to n_ctx, then one own tile from its first row's option's first row,
+    each masked from the metadata alone, under an online softmax with p
+    rounded to qf.dtype for the product with v."""
+    N, nh, C = qf.shape
+    rt = mla_answer.rows_per_tile(nh)
+    T = mla_answer.KEY_TILE
+    out = torch.zeros(N, nh, value_dim)
+    for g, n0, n1 in arrays["tiles"].tolist():
+        nctx = int(arrays["n_ctx"][g])
+        rows = torch.arange(n0, n0 + rt)
+        real = rows < n1
+        lo = torch.where(real, torch.from_numpy(
+            arrays["first"][np.minimum(rows.numpy(), N - 1)]).long(), 1)
+        hi = torch.where(real, rows, 0)
+        q = torch.zeros(rt, nh, C)
+        q[:n1 - n0] = qf[n0:n1].float()
+        m = torch.full((rt, nh, 1), float("-inf"))
+        l = torch.zeros(rt, nh, 1)
+        o = torch.zeros(rt, nh, value_dim)
+        base = int(arrays["first"][n0])
+        n_cache = -(-nctx // T)
+        for t in range(n_cache + 1):
+            if t < n_cache:
+                keys = torch.zeros(T, C)
+                seg = cache[g, T * t:min(T * (t + 1), cache.shape[1])]
+                keys[:seg.shape[0]] = seg.float()
+                ok = (T * t + torch.arange(T) < nctx)[None, :].expand(rt, T)
+            else:
+                keys = torch.zeros(T, C)
+                seg = kr[base:base + T]
+                keys[:seg.shape[0]] = seg.float()
+                k = base + torch.arange(T)
+                ok = (k[None, :] >= lo[:, None]) & (k[None, :] <= hi[:, None])
+            s = torch.einsum("rhc,kc->rhk", q, keys).masked_fill(
+                ~ok[:, None, :], float("-inf"))
+            mn = torch.maximum(m, s.amax(-1, keepdim=True))
+            mu = torch.where(mn == float("-inf"), 0.0, mn)
+            alpha = torch.exp(m - mu)
+            p = torch.exp(s - mu)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = o * alpha + torch.einsum(
+                "rhk,kv->rhv", p.to(qf.dtype).float(), keys[:, :value_dim])
+            m = mn
+        out[n0:n1] = (o / l)[:n1 - n0]
+    return out.to(qf.dtype)
+
+
+@pytest.mark.parametrize("heads", [2, 16])
+def test_absorbed_answer_pass_against_the_expanded_form(heads):
+    """Three slates of one group (contexts of 70, 5 and 33 positions: a
+    short last key tile, a context inside one tile) with options of 1-8
+    rows, so that row tiles straddle options: each option's rows through
+    the absorbed form (the plain core and the kernel's tile walk) against
+    the expanded form over the whole sequence, context then the option's
+    rows, at the same rows."""
+    cfg = DeepseekV3Config.from_dict({**CFG, "num_attention_heads": heads})
+    gen = torch.Generator().manual_seed(heads)
+    nh, dq = heads, cfg.q_head_dim
+    H, R = cfg.hidden_size, cfg.kv_lora_rank
+
+    def w(*shape):
+        return torch.randn(*shape, generator=gen) * 0.15
+
+    lay = dict(q=w(nh * dq, H), kv_a=w(R + cfg.qk_rope_head_dim, H),
+               kv_a_ln=1 + 0.1 * w(R),
+               kv_b=w(nh * (cfg.qk_nope_head_dim + cfg.v_head_dim), R),
+               o=w(H, nh * cfg.v_head_dim))
+    n_ctx = np.array([70, 5, 33])
+    n_rows = np.array([[1, 8, 3, 5], [2, 7, 4, 1], [6, 1, 8, 2]])
+    G, O = n_rows.shape
+    Lcb = 128
+    ctx = [w(int(n), H) for n in n_ctx]
+    ans = [[w(int(k), H) for k in row] for row in n_rows]
+    # the contexts' caches, then the answer rows in option-major order
+    slots = torch.cat([g * Lcb + torch.arange(int(n))
+                       for g, n in enumerate(n_ctx)])
+    _, cache = dsv3.mla_expanded(lay, cfg, torch.cat(ctx), slots, G, Lcb)
+    arrays, _ = mla_answer.plan(n_rows, n_ctx, nh)
+    rows = mla_answer.AnswerRows.put(arrays, "cpu")
+    h = torch.cat([a for row in ans for a in row])
+    pos = torch.cat([int(n_ctx[g]) + torch.arange(int(k))
+                     for g in range(G) for k in n_rows[g]])
+    got = dsv3.mla_absorbed(lay, cfg, h, pos, cache, rows)
+    # each whole sequence through the expanded form
+    seqs = [torch.cat([ctx[g], a]) for g in range(G) for a in ans[g]]
+    L = max(s.shape[0] for s in seqs)
+    want, _ = dsv3.mla_expanded(
+        lay, cfg, torch.cat(seqs),
+        torch.cat([i * L + torch.arange(s.shape[0])
+                   for i, s in enumerate(seqs)]), len(seqs), L)
+    ends = np.cumsum([s.shape[0] for s in seqs])
+    keep = torch.cat([torch.arange(e - k, e) for e, k in
+                      zip(ends, n_rows.ravel())])
+    torch.testing.assert_close(got, want[keep], rtol=1e-4, atol=1e-4)
+    # the attention core alone: the plain version against the tile walk
+    qf = torch.randn(h.shape[0], nh, R + cfg.qk_rope_head_dim,
+                     generator=gen)
+    kr = torch.randn(h.shape[0], qf.shape[2], generator=gen)
+    plain = mla_answer.mla_answer(qf, cache, kr, rows, R)
+    torch.testing.assert_close(plain, _tile_walk(qf, cache, kr, arrays, R),
+                               rtol=1e-5, atol=1e-5)
+    # the layouts the kernel must take: a row tile across two options,
+    # and a slate whose last key tile is short
+    t = arrays["tiles"]
+    f = arrays["first"]
+    assert (f[t[:, 1]] != f[t[:, 2] - 1]).any()
+    assert n_ctx[0] % mla_answer.KEY_TILE

@@ -22,17 +22,21 @@ Per group of slates (sorted by context length):
    a position. The final norm's output at each context's last position
    gives its options' first log-prob.
 2. **Answer pass** (``eval.answer``): the options' input rows (the answer
-   tokens but the end token) bin-packed into row blocks
-   (``prefix.pack_option_rows``), each layer's MLA in the absorbed form
-   against the cache and the option's earlier rows (``mla_absorbed``),
-   then the LM head over every label row (``ops/xent_head``: K3 at width
-   2048 on the card).
+   tokens but the end token), the real ones only, in option-major order
+   (slate, option, row); each layer's MLA in the absorbed form against the
+   cache and the option's earlier rows (``mla_absorbed``: the attention
+   core on ``ops/mla_answer``'s kernel, its row tiles laid out once a
+   group by ``mla_answer.plan``), then the LM head over every label row
+   (``ops/xent_head``: K3 at width 2048 on the card).
 
 While ``utils.trace`` records, each group counts
 ``eval.rows_needed.prefill`` (real context tokens) against
 ``eval.rows_launched.prefill`` (slates times Lcb) and
-``eval.rows_needed.answer`` against ``eval.rows_launched.answer`` (slates
-times the packed length). Inside a ``utils.trace`` capture each group
+``eval.rows_needed.answer`` (real answer rows) against
+``eval.rows_launched.answer`` (the rows the attention kernel's row tiles
+cover), and ``mla.pairs_needed`` (the real (row, key) pairs of the
+absorbed attention) against ``mla.pairs_launched`` (the pairs its key
+tiles cover). Inside a ``utils.trace`` capture each group
 keeps ``eval.rows``, its rows' places: ``slates`` (the batch's slates in
 the group), ``ctx_rows`` (each prefill row's slate in the group and
 position) and ``ans_rows`` (each answer row's slate, option and row), in
@@ -47,13 +51,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from unimm_torch.eval.prefix import pack_option_rows
 from unimm_torch.models import deepseek_v3 as dsv3
+from unimm_torch.ops import mla_answer
 from unimm_torch.ops.xent_head import xent_head
 from unimm_torch.utils import trace
 
 CTX_QUANTUM = 64      # context buckets: multiples of this
-ROW_BLOCK = 64        # the answer rows' block (an option's rows at most)
 
 
 def decoder_eligibility(batch) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -74,16 +77,16 @@ def decoder_eligibility(batch) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 class DecoderPrefixScorer:
-    """Scores decoder slates by a context prefill and a packed answer
-    pass on one device. ``group``: slates a group. An option's rows never
-    straddle a row block (``ROW_BLOCK``); a slate whose options have more
-    input rows than a block, or that is not eligible
+    """Scores decoder slates by a context prefill and an answer pass on
+    one device. ``group``: slates a group. A slate with an option of more
+    input rows than the attention's own-row tile holds
+    (``mla_answer.max_option_rows``), or that is not eligible
     (``decoder_eligibility``), raises."""
 
     def __init__(self, cfg, *, group: int = 80, device="cuda"):
         self.cfg = cfg
         self.group = group
-        self.rb = ROW_BLOCK
+        self.max_rows = mla_answer.max_option_rows(cfg.num_attention_heads)
         self.device = torch.device(device)
 
     def _put(self, arrays):
@@ -112,9 +115,10 @@ class DecoderPrefixScorer:
             dialog = np.repeat(np.arange(B), R)
             n_ctx = ni[dialog] + lc                            # [NS]
             n_rows = A - 1                                     # [NS, O]
-            if int(n_rows.max()) > self.rb:
+            if int(n_rows.max()) > self.max_rows:
                 raise ValueError(f"an option of {int(n_rows.max())} rows "
-                                 f"exceeds the row block {self.rb}")
+                                 f"exceeds the {self.max_rows} an option "
+                                 "may have")
             order = np.argsort(n_ctx, kind="stable")
             toks = tokens.reshape(NS, O, L)
         with trace.span("eval.h2d"):
@@ -146,23 +150,27 @@ class DecoderPrefixScorer:
         n_rows = A - 1
         with trace.span("eval.plan"):
             Lcb = int(-(-int(n_ctx.max()) // CTX_QUANTUM) * CTX_QUANTUM)
-            starts, P = pack_option_rows(n_rows, self.rb)
+            att, cnt = mla_answer.plan(n_rows, n_ctx,
+                                       self.cfg.num_attention_heads)
             if trace.recording():
                 trace.count("eval.rows_needed.prefill", n_ctx.sum())
                 trace.count("eval.rows_launched.prefill", gs * Lcb)
-                trace.count("eval.rows_needed.answer", n_rows.sum())
-                trace.count("eval.rows_launched.answer", gs * P)
+                trace.count("eval.rows_needed.answer", cnt["rows_needed"])
+                trace.count("eval.rows_launched.answer",
+                            cnt["rows_launched"])
+                trace.count("mla.pairs_needed", cnt["pairs_needed"])
+                trace.count("mla.pairs_launched", cnt["pairs_launched"])
         with trace.span("eval.pack"):
             ctx = self._pack_context(g, toks, lc, n_ctx, img0, Lcb)
-            ans = self._pack_answers(g, toks, lc, A, n_ctx, starts, P)
+            ans = self._pack_answers(g, toks, lc, A, n_ctx)
             if trace.capturing():
-                at = ans["slot"]
                 trace.keep("eval.rows", dict(
                     slates=g, ctx_rows=np.stack([ctx["slot"] // Lcb,
                                                  ctx["slot"] % Lcb]),
-                    ans_rows=np.stack([at // P, ans["opt"][at],
-                                       ans["rin"][at]])))
+                    ans_rows=np.stack(_answer_places(n_rows))))
         ctx, ans = self._put(ctx), self._put(ans)
+        with trace.span("eval.h2d"):
+            rows = mla_answer.AnswerRows.put(att, self.device)
         with trace.span("eval.prefill"):
             x = model.embed.index_select(0, ctx["tok"]).float()
             x.index_copy_(0, ctx["img_at"],
@@ -170,8 +178,6 @@ class DecoderPrefixScorer:
             h_ctx, caches = dsv3.prefill(model, x, ctx["slot"], gs, Lcb)
             last = h_ctx.index_select(0, ctx["last"])            # [gs, H]
         with trace.span("eval.answer"):
-            rows = dsv3.AnswerRows.build(ans["slot"], ans["opt"], ans["rin"],
-                                         ans["n_ctx"], gs, P, self.rb, Lcb)
             xa = model.embed.index_select(0, ans["tok"])
             h_ans = dsv3.answer(model, xa, ans["pos"], caches, rows)
             # the label rows: each option's first token from its context's
@@ -179,7 +185,7 @@ class DecoderPrefixScorer:
             hid = torch.cat([last.repeat_interleave(O, 0), h_ans])
             lab = torch.cat([ans["first_label"], ans["label"]])
             nll = xent_head(hid.contiguous(), model.lm_head, None, lab)
-            # each option's rows (at most rb), gathered and summed in order
+            # each option's rows, gathered and summed in order
             pad = torch.cat([nll[gs * O:], nll.new_zeros(1)])
             ll = -(nll[:gs * O] + pad[ans["opt_rows"]].sum(-1))
         return ll.view(gs, O)
@@ -202,32 +208,34 @@ class DecoderPrefixScorer:
         return dict(tok=tok, img_at=np.nonzero(is_img)[0], img_row=img_row,
                     slot=sid * Lcb + pos, last=first + n - 1)
 
-    def _pack_answers(self, g, toks, lc, A, n_ctx, starts, P):
+    def _pack_answers(self, g, toks, lc, A, n_ctx):
         """The group's answer rows in option-major order (slate, option,
-        row): token, position, packed slot, label (the next answer token);
-        per packed slot its option (O at padding) and row index; each
+        row): token, position, label (the next answer token); each
         option's first label and its rows' indices (into the label rows
         after the first ones; -1 padding: the zero appended)."""
         gs, O = A.shape
         n = (A - 1).ravel()                                   # [gs O]
         total = int(n.sum())
-        sid = np.repeat(np.repeat(np.arange(gs), O), n)
-        oid = np.repeat(np.tile(np.arange(O), gs), n)
-        first = np.concatenate([[0], np.cumsum(n)[:-1]])
-        rin = np.arange(total) - np.repeat(first, n)
+        sid, oid, rin = _answer_places(A - 1)
         col = lc[sid] + rin
         at = (g[sid], oid)
-        slot = sid * P + starts.ravel()[sid * O + oid] + rin
-        opt_p = np.full(gs * P, O, np.int64)
-        rin_p = np.zeros(gs * P, np.int64)
-        opt_p[slot] = oid
-        rin_p[slot] = rin
         width = int(n.max())
         opt_rows = np.full((gs * O, width), total, np.int64)
         opt_rows[np.repeat(np.arange(gs * O), n), rin] = np.arange(total)
         return dict(
-            tok=toks[at + (col,)], pos=n_ctx[sid] + rin, slot=slot,
+            tok=toks[at + (col,)], pos=n_ctx[sid] + rin,
             label=toks[at + (col + 1,)],
             first_label=toks[np.repeat(g, O), np.tile(np.arange(O), gs),
                              np.repeat(lc, O)],
-            opt=opt_p, rin=rin_p, n_ctx=n_ctx, opt_rows=opt_rows)
+            opt_rows=opt_rows)
+
+
+def _answer_places(n_rows):
+    """(slate, option, row index in its option) of each answer row, in
+    option-major order, of options with ``n_rows`` [gs, O] rows."""
+    gs, O = n_rows.shape
+    n = n_rows.ravel()
+    sid = np.repeat(np.repeat(np.arange(gs), O), n)
+    oid = np.repeat(np.tile(np.arange(O), gs), n)
+    rin = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    return sid, oid, rin

@@ -29,7 +29,8 @@ k_pe) [576] a position (``CACHE_DIM``):
 * ``mla_absorbed`` (the scorer's answer rows): W_uk folded into the query
   (q_nope W_uk: a 512-wide query per head) and W_uv applied after the
   attention, so the rows attend the cache as it is stored, then their own
-  option's earlier rows.
+  option's earlier rows (``ops/mla_answer.py``: one kernel a layer on the
+  card).
 
 Spans: ``op.mla_prefill`` and ``op.mla_answer`` around the attention of a
 layer (projections included), ``op.moe`` / ``op.moe.route`` inside the
@@ -47,6 +48,7 @@ import torch.nn.functional as F
 
 from unimm_torch.config import DeepseekV3Config
 from unimm_torch.ops import moe as moe_ops
+from unimm_torch.ops import mla_answer as mla_ops
 from unimm_torch.utils import trace
 
 
@@ -269,21 +271,14 @@ def mla_expanded(lay, cfg, h, slots, n_seq: int, L: int):
         return out, cache.view(n_seq, L, -1)
 
 
-ANSWER_SCORES = 1 << 29     # scores a chunk of the absorbed attention
-
-
-def mla_absorbed(lay, cfg, h, pos, cache, rows):
-    """MLA of answer rows h [N, H] (positions ``pos``) in the absorbed form,
-    against each slate's cache [G, Lc, 576] and the earlier rows of their
-    own option. ``rows``: the packed layout (``AnswerRows``), its
-    ``closed`` mask the keys each row may not see. The rows are padded to
-    the packed layout, every head's latent query of a row beside the
-    others (the softmax scale folded into W_uk and q_pe), so that each
-    slate's scores against its cache are one product and each row block's
-    against its own rows another, written side by side into one
-    [rows x heads, Lc + RB] matrix; masked, softmaxed (fp32 inside, bf16
-    out) and multiplied by the keys' c_kv the same way; slates in chunks
-    of at most ``ANSWER_SCORES`` scores. W_uv is applied after the attention.
+def mla_absorbed(lay, cfg, h, pos, cache, rows: mla_ops.AnswerRows):
+    """MLA of answer rows h [N, H] (positions ``pos``; the scorer's
+    option-major order) in the absorbed form, against each slate's cache
+    [G, Lc, 576] and the earlier rows of their own option (``rows``, the
+    group's ``ops/mla_answer.AnswerRows``): every head's 512-wide latent
+    query (q_nope W_uk) beside its q_pe, the softmax scale folded into
+    both, then the attention core (``ops/mla_answer.mla_answer``: the
+    kernel on the card), then W_uv on each head's 512-wide output.
     Returns the o projection's output [N, H]."""
     with trace.span("op.mla_answer"):
         nh, dn, dv = (cfg.num_attention_heads, cfg.qk_nope_head_dim,
@@ -292,70 +287,15 @@ def mla_absorbed(lay, cfg, h, pos, cache, rows):
         q, c_kv, k_pe = _latent(lay, cfg, h, pos)
         w_uk, w_uv = _kv_b_heads(lay, cfg)
         scale = 1.0 / math.sqrt(cfg.q_head_dim)
-        G, P, RB = rows.G, rows.P, rows.RB
-        PB = P // RB
-        Lc, C = cache.shape[1], cache.shape[2]
-        K = Lc + RB
-        qf = q.new_empty(h.shape[0], nh, C)
+        qf = q.new_empty(h.shape[0], nh, cache.shape[2])
         torch.bmm(q[..., :dn].transpose(0, 1), w_uk * scale,
                   out=qf[..., :R].transpose(0, 1))
         qf[..., R:] = q[..., dn:] * scale
-        qp = q.new_zeros(G * P, nh, C).index_copy_(0, rows.slots, qf)
-        kr = q.new_zeros(G * P, C).index_copy_(
-            0, rows.slots, torch.cat([c_kv, k_pe], -1))
-        o = q.new_empty(G, P * nh, R)
-        step = max(1, ANSWER_SCORES // (P * nh * K))
-        for g0 in range(0, G, step):
-            g1 = min(G, g0 + step)
-            n, b0, b1 = g1 - g0, g0 * PB, g1 * PB
-            s = q.new_empty(n * P * nh, K)
-            torch.bmm(qp[g0 * P:g1 * P].view(n, P * nh, C),
-                      cache[g0:g1].transpose(1, 2),
-                      out=s.view(n, P * nh, K)[..., :Lc])
-            torch.bmm(qp[g0 * P:g1 * P].view(n * PB, RB * nh, C),
-                      kr[g0 * P:g1 * P].view(n * PB, RB, C).transpose(1, 2),
-                      out=s.view(n * PB, RB * nh, K)[..., Lc:])
-            s.view(n * PB, RB, nh, K).masked_fill_(rows.closed[b0:b1],
-                                                   float("-inf"))
-            p = torch.softmax(s, -1)
-            torch.bmm(p.view(n, P * nh, K)[..., :Lc], cache[g0:g1, :, :R],
-                      out=o[g0:g1])
-            o[g0:g1].view(n * PB, RB * nh, R).baddbmm_(
-                p.view(n * PB, RB * nh, K)[..., Lc:],
-                kr[g0 * P:g1 * P].view(n * PB, RB, C)[..., :R])
-        o = o.view(G * P, nh, R).index_select(0, rows.slots)  # [N, nh, R]
+        o = mla_ops.mla_answer(qf, cache, torch.cat([c_kv, k_pe], -1),
+                               rows, R)
         # W_uv after the attention: each head's 512-wide output to its v
         o = torch.bmm(o.transpose(0, 1), w_uv.transpose(1, 2)).transpose(0, 1)
         return _linear(o.reshape(-1, nh * dv), lay["o"])
-
-
-class AnswerRows:
-    """The answer pass's packed layout on the device: ``G`` slates of ``P``
-    rows in blocks of ``RB``; ``slots`` [N] the packed slot (g P + p) of
-    each real row; ``closed`` [G P / RB, RB, 1, Lc + RB] bool, the keys
-    a block's row may not attend: its slate's cache past the context, and
-    the block's rows of other options or after it (a padding row sees
-    itself)."""
-
-    def __init__(self, G, P, RB, slots, closed):
-        self.G, self.P, self.RB = G, P, RB
-        self.slots = slots
-        self.closed = closed
-
-    @classmethod
-    def build(cls, slots, opt, rin, n_ctx, G, P, RB, Lc):
-        """From each packed slot's option (the option count at padding)
-        and row index [G P], and the slates' context lengths [G]."""
-        dev = opt.device
-        o = opt.view(G, P // RB, RB)
-        i = rin.view(G, P // RB, RB)
-        rr = ((o[..., :, None] == o[..., None, :])
-              & (i[..., None, :] <= i[..., :, None]))
-        rr |= torch.eye(RB, dtype=torch.bool, device=dev)
-        ctx = torch.arange(Lc, device=dev)[None, :] < n_ctx[:, None]
-        ok = torch.cat([ctx[:, None, None, :].expand(G, P // RB, RB, Lc),
-                        rr], -1)
-        return cls(G, P, RB, slots, ~ok.view(G * P // RB, RB, 1, Lc + RB))
 
 
 def mlp(lay, cfg, h):
@@ -388,7 +328,7 @@ def prefill(model: DecoderModel, x, slots, n_seq: int, L: int):
     return rms_norm(x, model.norm, cfg.rms_norm_eps, dt), caches
 
 
-def answer(model: DecoderModel, x, pos, caches, rows: AnswerRows):
+def answer(model: DecoderModel, x, pos, caches, rows: mla_ops.AnswerRows):
     """Every layer over answer rows x [N, H] against the slates' caches:
     the final norm's output [N, H] in the model's dtype."""
     cfg, dt = model.cfg, model.dtype

@@ -50,6 +50,9 @@ _SIGNATURES = {
     "unimm_moe_down": [_VP] * 6 + [_INT] * 4 + [_VP],
     # mode; out int32[4]
     "unimm_moe_info": [_INT, _VP],
+    # qf, cache, kr, tiles, first, n_ctx, out; N, nh, G, Lcb, row tiles
+    "unimm_mla_answer": [_VP] * 7 + [_INT] * 5 + [_VP],
+    "unimm_mla_answer_info": [_INT, _VP],
     # hidden, labels, decoder, bias, partials, label logits, nll, lse; M, V
     "unimm_xent_train_fwd": [_VP] * 8 + [_INT] * 2 + [_VP],
     # hidden, labels, decoder, bias, lse, gf, dl, part_db, dh, dw, db; M, V
